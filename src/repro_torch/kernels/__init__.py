@@ -1,0 +1,10 @@
+"""Hand-written Hopper kernels of the port.
+
+* :mod:`repro_torch.kernels.cima_mvm` — the BP/BS bit-plane MVM with the
+  per-bank ADC epilogue and fused near-memory datapath, in CUDA C++
+  (``csrc/cima_mvm.cu``), beside its plain torch version.
+
+``ops.py`` holds the entry points, ``ref.py`` the oracles."""
+from . import ops, ref
+
+__all__ = ["ops", "ref"]

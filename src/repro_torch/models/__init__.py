@@ -1,0 +1,6 @@
+"""Model zoo of the port: the dense decoder path (layers, attention,
+stacked blocks, the serving API).  Other families come later."""
+from .model import DecodeCache, decode_step, init_cache, init_params, prefill
+
+__all__ = ["DecodeCache", "decode_step", "init_cache", "init_params",
+           "prefill"]

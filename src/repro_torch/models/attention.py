@@ -1,0 +1,238 @@
+"""Attention: GQA/MHA with a dense path, a chunked online-softmax path
+for long caches, and KV-cache prefill/decode.  Port of
+``repro.models.attention`` (MLA and cross-attention come with the
+families that use them).
+
+Only the static-weight projections (q/k/v/o, policy paths ``attn.*``,
+kind ``attn``) resolve an ``ExecSpec``; the score/value products have two
+dynamic operands and stay digital by design, as on the chip.
+
+KV caches are updated IN PLACE (the reference returns fresh arrays): a
+prefill writes its keys into the cache it is given, a decode step writes
+one slot per row, and both return that same cache.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .layers import apply_rope, init_linear, linear
+
+DEFAULT_CHUNK = 512
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # [B, S_max, HKV, D]
+    v: torch.Tensor
+
+
+def _pos_mask(q_positions, kv_positions, *, causal, window):
+    """Visibility mask [B?, 1, 1, Sq, Sk] from absolute positions; either
+    may be per-row ([B, S]) or shared ([S]); negative KV positions mark
+    unwritten / padded slots and are always hidden."""
+    qi = q_positions if q_positions.ndim == 2 else q_positions[None]
+    kj = kv_positions if kv_positions.ndim == 2 else kv_positions[None]
+    qi = qi[:, None, None, :, None]
+    kj = kj[:, None, None, None, :]
+    mask = kj >= 0
+    if causal:
+        mask = mask & (qi >= kj)
+    if window is not None:
+        mask = mask & (kj > qi - window)
+    return mask
+
+
+def _default_positions(q, k, q_offset, q_positions, kv_positions):
+    if q_positions is None:
+        q_positions = torch.arange(q.shape[1], device=q.device) + q_offset
+    if kv_positions is None:
+        kv_positions = torch.arange(k.shape[1], device=k.device)
+    return q_positions, kv_positions
+
+
+def _dense_attention(q, k, v, *, causal, window, q_offset, scale, dtype,
+                     kv_positions=None, q_positions=None):
+    """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D].  Grouped-GQA dense softmax."""
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    q_positions, kv_positions = _default_positions(q, k, q_offset,
+                                                   q_positions, kv_positions)
+    mask = _pos_mask(q_positions, kv_positions, causal=causal, window=window)
+    s = torch.where(mask, s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
+    return o.reshape(b, sq, h, v.shape[-1]).to(dtype)
+
+
+def _chunked_attention(q, k, v, *, causal, window, q_offset, scale, dtype,
+                       chunk=DEFAULT_CHUNK, kv_positions=None,
+                       q_positions=None):
+    """Online softmax over KV chunks: never materializes the full score
+    matrix."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    q_positions, kv_positions = _default_positions(q, k, q_offset,
+                                                   q_positions, kv_positions)
+    if kv_positions.ndim == 1:
+        kv_positions = kv_positions[None]                     # [B?, Sk]
+    qg = q.reshape(b, sq, kv, g, d).to(torch.float32)
+    dv = v.shape[-1]
+    m = torch.full((b, kv, g, sq), -1e30, device=q.device)
+    l = torch.zeros((b, kv, g, sq), device=q.device)
+    acc = torch.zeros((b, kv, g, sq, dv), device=q.device)
+    for c0 in range(0, sk, chunk):
+        kj = kv_positions[:, c0:c0 + chunk]
+        kch = k[:, c0:c0 + chunk].to(torch.float32)
+        vch = v[:, c0:c0 + chunk].to(torch.float32)
+        pad = chunk - kch.shape[1]
+        if pad:     # the reference pads the last chunk with hidden slots
+            kj = torch.nn.functional.pad(kj, (0, pad), value=-1)
+            kch = torch.nn.functional.pad(kch, (0, 0, 0, 0, 0, pad))
+            vch = torch.nn.functional.pad(vch, (0, 0, 0, 0, 0, pad))
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kch) * scale
+        mask = _pos_mask(q_positions, kj, causal=causal, window=window)
+        s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + torch.sum(p, dim=-1)
+        acc = alpha[..., None] * acc + torch.einsum("bkgqs,bskd->bkgqd", p,
+                                                    vch)
+        m = m_new
+    o = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(dtype)
+
+
+def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, scale=None,
+         dtype=torch.bfloat16, chunk=DEFAULT_CHUNK, kv_positions=None,
+         q_positions=None):
+    """Dense attention up to ``2 * chunk`` keys, chunked beyond."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    fn = _dense_attention if k.shape[1] <= 2 * chunk else _chunked_attention
+    kw = {} if fn is _dense_attention else {"chunk": chunk}
+    return fn(q, k, v, causal=causal, window=window, q_offset=q_offset,
+              scale=scale, dtype=dtype, kv_positions=kv_positions,
+              q_positions=q_positions, **kw)
+
+
+def ring_slot_positions(cache_len: int, cache_pos) -> torch.Tensor:
+    """Absolute position held by each ring-cache slot after writing at
+    ``cache_pos`` (negative = not yet written); a per-row ``cache_pos``
+    [B] gives [B, L]."""
+    cache_pos = torch.as_tensor(cache_pos)
+    i = torch.arange(cache_len, device=cache_pos.device)
+    if cache_pos.ndim:
+        cache_pos = cache_pos[:, None]
+    return cache_pos - torch.remainder(cache_pos - i, cache_len)
+
+
+def _row_positions(cache_pos, batch: int, device) -> torch.Tensor:
+    """Normalize a scalar or per-row decode position to [B] int64."""
+    cp = torch.as_tensor(cache_pos, dtype=torch.int64, device=device)
+    return cp.expand(batch) if cp.ndim == 0 else cp
+
+
+def left_align(x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+    """Shift each row of ``x`` [B, S, ...] left by its pad count so the
+    real entries of a LEFT-padded row land at [0, len_b); the tail is
+    zero-filled."""
+    s = x.shape[1]
+    lengths = pad_mask.sum(dim=1)                             # [B]
+    ar = torch.arange(s, device=x.device)
+    idx = torch.clamp_max(ar[None, :] + (s - lengths)[:, None], s - 1)
+    idx = idx.reshape(idx.shape + (1,) * (x.ndim - 2)).expand(x.shape)
+    gathered = torch.gather(x, 1, idx)
+    valid = ar[None, :] < lengths[:, None]
+    valid = valid.reshape(valid.shape + (1,) * (x.ndim - 2))
+    return torch.where(valid, gathered, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+
+
+# ------------------------------------------------------------------ GQA
+
+def init_attention(gen, cfg, device, lead: tuple = ()) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {
+        "wq": init_linear(gen, d, h * hd, device, lead),
+        "wk": init_linear(gen, d, kv * hd, device, lead),
+        "wv": init_linear(gen, d, kv * hd, device, lead),
+        "wo": init_linear(gen, h * hd, d, device, lead),
+    }
+
+
+def init_kv_cache(cfg, batch: int, s_max: int, dtype, device,
+                  lead: tuple = ()) -> KVCache:
+    """Windowed layers get a ring cache of the window length."""
+    length = min(s_max, cfg.attn_window) if cfg.attn_window else s_max
+    shape = lead + (batch, length, cfg.n_kv_heads, cfg.hd)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def attention(params, x, cfg, positions, cache: Optional[KVCache] = None,
+              cache_pos=None, dtype=torch.bfloat16, pad_mask=None):
+    """Full sequence (prefill) when ``cache_pos`` is None, else decode
+    writing ``cache`` at ``cache_pos`` (scalar or per row [B]).  Returns
+    (out, cache).
+
+    ``pad_mask`` ([B, S] bool, True = real token; prefill only) admits
+    LEFT-padded prompts: ``positions`` are then the per-row true positions
+    [B, S], padded keys are hidden, and the cache is written left-aligned.
+    """
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sp = cfg.policy.resolver("attn")
+    q = linear(params["wq"], x, sp("attn.q"), dtype).reshape(b, s, h, hd)
+    k = linear(params["wk"], x, sp("attn.k"), dtype).reshape(b, s, kv, hd)
+    v = linear(params["wv"], x, sp("attn.v"), dtype).reshape(b, s, kv, hd)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache_pos is None:
+        q_pos = kv_pos = None
+        if pad_mask is not None:
+            q_pos = positions
+            kv_pos = torch.where(pad_mask, positions, -1)
+        o = sdpa(q, k, v, causal=cfg.causal, window=cfg.attn_window,
+                 q_offset=0, dtype=dtype, kv_positions=kv_pos,
+                 q_positions=q_pos)
+        if cache is not None:   # prefill: fill the (possibly ring) cache
+            length = cache.k.shape[1]
+            kc, vc = k, v
+            if pad_mask is not None:
+                if length < s:
+                    raise NotImplementedError(
+                        "pad-masked prefill into a ring cache shorter than "
+                        "the padded prompt is unsupported")
+                kc, vc = left_align(k, pad_mask), left_align(v, pad_mask)
+            if length >= s:
+                cache.k[:, :s] = kc
+                cache.v[:, :s] = vc
+            else:               # keep only the trailing window, ring-aligned
+                off = (s - length) % length
+                cache.k.copy_(torch.roll(kc[:, s - length:], off, dims=1))
+                cache.v.copy_(torch.roll(vc[:, s - length:], off, dims=1))
+    else:
+        # write the s new tokens at their per-row ring slots, then attend
+        # over the whole cache; unwritten slots carry negative positions
+        # and get exactly zero probability
+        length = cache.k.shape[1]
+        cp = _row_positions(cache_pos, b, x.device)
+        offs = cp[:, None] + torch.arange(s, device=x.device)[None, :]
+        slot = torch.remainder(offs, length)
+        rows = torch.arange(b, device=x.device)[:, None]
+        cache.k[rows, slot] = k.to(cache.k.dtype)
+        cache.v[rows, slot] = v.to(cache.v.dtype)
+        kv_pos = ring_slot_positions(length, cp + (s - 1))    # [B, L]
+        o = sdpa(q, cache.k, cache.v, causal=True, window=cfg.attn_window,
+                 dtype=dtype, kv_positions=kv_pos, q_positions=offs)
+    out = linear(params["wo"], o.reshape(b, s, h * hd), sp("attn.o"), dtype)
+    return out, cache
