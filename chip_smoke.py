@@ -3,12 +3,23 @@
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``src/repro_torch/kernels/csrc``
-into ``build/``, holds the kernel to its plain torch version on the card
-(the eight ``CIMA_CASES`` shapes of ``tests/test_kernels.py`` and the main
-path's projection shapes), then serves full-width olmo-1b (random weights
-from a seed) through ``repro_torch.serve.Engine`` with every projection
-on the kernel, and serves the same prompts again on the plain path.
+It builds the port's two CUDA kernels from ``src/repro_torch/kernels/csrc``
+into ``build/`` (one ``nvcc`` per source, started together), then
+
+* holds the BP/BS ``cima_mvm`` kernel to its plain torch version on the
+  card (the eight ``CIMA_CASES`` shapes of ``tests/test_kernels.py`` and
+  the main path's projection shapes), serves full-width olmo-1b (random
+  weights from a seed) through ``repro_torch.serve.Engine`` with every
+  projection on the kernel, and serves the same prompts again on the
+  plain path;
+* serves ragged requests on full-width olmo-1b through the slot-level
+  ``ContinuousBatcher`` and holds its stats to the schedule its budgets
+  fix and its streams to solo ``Engine.generate`` runs;
+* holds the flash-attention kernel to its plain version on the
+  ``FA_CASES`` shapes, then drives ``kernels.ops.flash_attention`` at the
+  full widths of olmo-1b (32k-token prefill), recurrentgemma-9b (local
+  attention) and llama3.2-1b (GQA) and times it beside its plain version
+  and ``scaled_dot_product_attention``.
 
 Each phase prints one JSON line.  The card's name and power limit follow
 as ``nvidia-smi`` prints them, then the kernels line, and last
@@ -20,6 +31,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -31,18 +43,23 @@ from repro_torch import accel  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.bpbs import BpbsConfig  # noqa: E402
 from repro_torch.core.quant import Coding, int_range, quantize  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import cima_mvm as K  # noqa: E402
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
-from repro_torch.serve import Engine, ServeConfig  # noqa: E402
+from repro_torch.serve import ContinuousBatcher, Engine, ServeConfig  # noqa: E402
 
 SOURCE = "src/repro_torch/kernels/csrc/cima_mvm.cu"
 REPLACES = "src/repro/kernels/cima_mvm.py:41"
+FA_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention.py:31"
 # fused-epilogue tolerance: the kernel's expf/tanhf and the plain
 # version's torch silu/gelu may round differently by a few float32 ulps;
 # everything else in the epilogue is the same IEEE operation sequence
 FUSED_TOL = dict(rtol=1e-6, atol=1e-6)
-# data-sheet peaks (dense): device-memory bytes/s and int8 ops/s
-CARDS = {"sxm": (3.35e12, 1.979e15), "pcie": (2.0e12, 1.513e15)}
+# data-sheet peaks (dense): device-memory bytes/s, int8 ops/s, bf16 FLOP/s
+CARDS = {"sxm": (3.35e12, 1.979e15, 9.89e14),
+         "pcie": (2.0e12, 1.513e15, 7.56e14)}
 # the eight CIMA_CASES of tests/test_kernels.py:
 # (coding, ba, bx, n, m, bank_n)
 CIMA_CASES = [
@@ -59,6 +76,37 @@ MAIN_SHAPES = [("attn.qkvo", 2048, 2048, False, 64),
                ("mlp.down", 8192, 2048, False, 16),
                ("unembed", 2048, 50304, False, 1)]
 LAUNCHES_PER_FORWARD = sum(s[4] for s in MAIN_SHAPES)        # 113
+# tests/test_kernels.py's FA_CASES and its long-window case:
+# (b, h, hkv, s, d, causal, window, block_q, block_k, dtype)
+FA_CASES = [
+    (2, 4, 2, 256, 64, True, None, 64, 64, torch.float32),
+    (1, 2, 2, 128, 32, False, None, 64, 64, torch.float32),
+    (1, 4, 1, 256, 64, True, 96, 64, 64, torch.float32),
+    (1, 8, 4, 192, 48, True, None, 64, 64, torch.float32),
+    (2, 2, 2, 256, 128, True, None, 128, 128, torch.bfloat16),
+    (1, 6, 6, 128, 96, True, None, 64, 64, torch.float32),
+    (1, 2, 2, 128, 64, True, 4096, 64, 64, torch.float32),
+]
+# the reference's own tolerances: online against dense softmax in f32,
+# plus one bf16 rounding of the output
+FA_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# bf16 kernel against plain version, on top of FA_ATOL: both compute in
+# f32 and round once to bf16, so an element differs by at most one bf16
+# ulp (<= 2**-7 |ref|) where the two f32 values straddle a rounding edge,
+# plus f32 summation-order noise (~1e-7) where |ref| is tiny
+FA_BF16_RTOL, FA_BF16_ATOL = 2.0 ** -7, 1e-5
+# full-width attention shapes of models the repo supports, bf16, B=1,
+# causal: (name, H, HKV, D, S, window)
+FA_SHAPES = [("olmo-1b prefill_32k", 16, 16, 128, 32768, None),
+             ("recurrentgemma-9b local attention", 16, 1, 256, 8192, 2048),
+             ("llama3.2-1b GQA", 32, 8, 64, 8192, None)]
+# the batcher's traffic: ragged prompts of 8-40 tokens, ragged budgets
+BATCH_PROMPTS = (8, 40, 17, 29, 12, 36, 23, 9)
+BATCH_BUDGETS = (2, 16, 5, 9, 3, 12, 16, 7)
+BATCH_SLOTS = 4
+# a stream that leaves solo generate at a step whose top-2 logit gap is
+# below this share of the logit scale is a near-tie, not a fault
+NEAR_TIE_REL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -119,17 +167,23 @@ def phase_device():
     peaks = CARDS["pcie" if "pcie" in name.lower() else "sxm"]
     emit("device", name=name, nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, count=torch.cuda.device_count(),
-         peak_bytes_per_s=peaks[0], peak_int8_ops_per_s=peaks[1])
+         peak_bytes_per_s=peaks[0], peak_int8_ops_per_s=peaks[1],
+         peak_bf16_flop_per_s=peaks[2])
     print(smi, flush=True)
     return name, peaks
 
 
 def phase_build():
+    """One nvcc per kernel source, all started together."""
     t0 = time.perf_counter()
-    lib = K.build()
+    root = Path(__file__).resolve().parent
+    sources = [root / SOURCE, root / FA_SOURCE]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(_build.build, sources))
     K._library()
+    FA._library()
     emit("build", seconds=time.perf_counter() - t0,
-         library=str(lib.relative_to(Path(__file__).resolve().parent)))
+         libraries=[str(lib.relative_to(root)) for lib in built])
 
 
 def phase_cima_cases() -> float:
@@ -360,6 +414,290 @@ def phase_serve(peaks):
     return launches
 
 
+def replay_schedule(budgets, n_slots: int, cap) -> dict:
+    """The batcher's stats as its admission loop fixes them when no
+    request stops early: a host-side replay of ContinuousBatcher.run with
+    budgets in place of sampled tokens."""
+    pending = list(budgets)
+    left = [0] * n_slots             # tokens still to decode per slot
+    stats = {"decode_steps": 0, "slot_steps": 0, "prefills": 0,
+             "generated_tokens": 0}
+    while True:
+        admitted = 0
+        for i in range(n_slots):
+            while (left[i] == 0 and pending
+                   and (cap is None or admitted < cap)):
+                budget = pending.pop(0)
+                if budget <= 0:
+                    continue
+                stats["prefills"] += 1
+                stats["generated_tokens"] += 1
+                admitted += 1
+                left[i] = budget - 1
+        active = sum(1 for n in left if n)
+        if not active:
+            if pending:
+                continue
+            return stats
+        stats["decode_steps"] += 1
+        stats["slot_steps"] += active
+        stats["generated_tokens"] += active
+        left = [max(0, n - 1) for n in left]
+
+
+def top2_gap(engine, prompt, tokens, step: int):
+    """The top-2 logit gap and max |logit| of a solo run of ``prompt`` at
+    ``step`` (0 = the prefill), teacher-forced on ``tokens``."""
+    logits, cache = engine.prefill(
+        torch.as_tensor(prompt[None], device="cuda"))
+    for t in range(step):
+        logits, cache = engine.decode(
+            torch.as_tensor(tokens[t:t + 1], device="cuda"), cache)
+    top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1]), float(logits.abs().max())
+
+
+def phase_serve_batcher():
+    """Full-width olmo-1b through the slot-level continuous batcher:
+    ragged prompts and budgets, no EOS."""
+    cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
+    scfg = ServeConfig(max_seq=256, max_new_tokens=16, eos_id=-1)
+    cb = ContinuousBatcher(init_params(cfg, 0, device="cuda"), cfg, scfg,
+                           BATCH_SLOTS, device="cuda")
+    r = np.random.default_rng(2)
+    prompts = [r.integers(0, cfg.vocab, (n,)) for n in BATCH_PROMPTS]
+    rids = [cb.submit(p, max_new_tokens=m)
+            for p, m in zip(prompts, BATCH_BUDGETS)]
+    torch.cuda.synchronize()
+
+    # the batcher's path: counts at 0 just before, read just after
+    K.cima_mvm_planes.launches = 0
+    t0 = time.perf_counter()
+    results = cb.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = K.cima_mvm_planes.launches
+    stats = dict(cb.stats)
+    want = replay_schedule(BATCH_BUDGETS, BATCH_SLOTS,
+                           scfg.max_admit_per_step)
+    check(stats == want, f"batcher stats {stats} != schedule {want}")
+    forwards = stats["decode_steps"] + stats["prefills"]
+    check(launches == LAUNCHES_PER_FORWARD * forwards,
+          f"{launches} cima_mvm launches for {forwards} forwards")
+    for rid, m in zip(rids, BATCH_BUDGETS):
+        check(len(results[rid]) == m, f"request {rid}: {len(results[rid])} "
+              f"tokens for a budget of {m}")
+        check(all(0 <= t < cfg.vocab for t in results[rid]),
+              f"request {rid}: token out of vocab")
+
+    # every stream against a solo Engine.generate of the same request
+    equal = total = 0
+    near_ties = []
+    for rid, p, m in zip(rids, prompts, BATCH_BUDGETS):
+        solo = cb.engine.generate(torch.as_tensor(p[None], device="cuda"),
+                                  request_ids=[rid])[0][:m].tolist()
+        got = results[rid]
+        equal += sum(a == b for a, b in zip(got, solo))
+        total += m
+        if got != solo:
+            step = next(t for t, (a, b) in enumerate(zip(got, solo))
+                        if a != b)
+            gap, scale = top2_gap(cb.engine, p, solo, step)
+            tie = dict(request=rid, step=step, batcher=got[step],
+                       solo=solo[step], top2_gap=gap, logit_scale=scale)
+            print(f"chip_smoke: near-tie check {tie}", flush=True)
+            check(gap < NEAR_TIE_REL * scale,
+                  f"request {rid} leaves solo generate at step {step} "
+                  f"with a top-2 gap of {gap} (logit scale {scale})")
+            near_ties.append(tie)
+    emit("serve_batcher", config="olmo-1b", slots=BATCH_SLOTS,
+         prompt_lengths=list(BATCH_PROMPTS), budgets=list(BATCH_BUDGETS),
+         max_admit_per_step=scfg.max_admit_per_step, **stats,
+         slot_utilisation=stats["slot_steps"] / (stats["decode_steps"]
+                                                 * BATCH_SLOTS),
+         run_s=seconds, tokens_per_s=stats["generated_tokens"] / seconds,
+         cima_mvm_launches=launches, launches_per_forward=LAUNCHES_PER_FORWARD,
+         tokens_equal_to_solo=equal, tokens_total=total,
+         near_ties=near_ties)
+
+
+def fa_errors(o, ref):
+    """(max |o - ref|, max of |o - ref| / (FA_BF16_RTOL |ref| +
+    FA_BF16_ATOL)): a bf16 output passes when the first is within
+    FA_ATOL and the second within 1."""
+    diff = (o.float() - ref.float()).abs()
+    limit = FA_BF16_RTOL * ref.float().abs() + FA_BF16_ATOL
+    return float(diff.max()), float((diff / limit).max())
+
+
+def check_bf16(o, ref, what: str) -> tuple:
+    err, ratio = fa_errors(o, ref)
+    check(err <= FA_ATOL[torch.bfloat16] and ratio <= 1.0,
+          f"flash kernel != plain on {what}: max abs err {err}, max "
+          f"err/limit {ratio}")
+    return err, ratio
+
+
+def phase_flash_cases() -> float:
+    """The flash kernel against its plain version on FA_CASES."""
+    worst = dict.fromkeys(FA_ATOL, 0.0)
+    worst_ratio = 0.0
+    for case in FA_CASES:
+        b, h, hkv, s, d, causal, window, bq, bk, dtype = case
+        r = np.random.default_rng(1)
+        q, k, v = (torch.tensor(r.normal(size=shape), dtype=dtype,
+                                device="cuda")
+                   for shape in ((b, h, s, d), (b, hkv, s, d),
+                                 (b, hkv, s, d)))
+        o = FA.flash_attention(q, k, v, causal=causal, window=window,
+                               block_q=bq, block_k=bk)
+        torch.cuda.synchronize()
+        ref = FA.flash_attention_reference(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        check(o.dtype == dtype and o.shape == q.shape,
+              f"flash output {o.dtype} {tuple(o.shape)} on {case}")
+        if dtype == torch.bfloat16:
+            err, ratio = check_bf16(o, ref, str(case))
+            worst_ratio = max(worst_ratio, ratio)
+        else:
+            err = float((o - ref).abs().max())
+            check(err <= FA_ATOL[dtype], f"flash kernel != plain on "
+                  f"{case}: max abs err {err}")
+        worst[dtype] = max(worst[dtype], err)
+    emit("flash_cases", cases=len(FA_CASES),
+         max_abs_err={str(k): v for k, v in worst.items()},
+         atol={str(k): v for k, v in FA_ATOL.items()},
+         bf16_max_err_over_limit=worst_ratio,
+         bf16_limit=f"{FA_BF16_RTOL}*|ref| + {FA_BF16_ATOL}")
+    return max(worst.values())
+
+
+def visible_pairs(s: int, window) -> int:
+    """Unmasked (query, key) pairs of causal attention over ``s`` tokens
+    with an optional window."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_bound(h, hkv, d, s, window, peaks):
+    """Least time for the card: the larger of q, k, v read once and the
+    output written once over the memory rate, and 4*D operations per
+    visible pair per head over the bf16 tensor-core rate."""
+    nbytes = 2 * d * s * (2 * h + 2 * hkv)
+    ops = 4 * d * visible_pairs(s, window) * h
+    t_bytes, t_ops = nbytes / peaks[0], ops / peaks[2]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", ops)
+
+
+def phase_flash_main_shapes(peaks):
+    """ops.flash_attention at full width, then per shape: the kernel
+    against its plain version head by head (every head), and device times
+    of the kernel, the plain version (summed over heads) and SDPA."""
+    inputs = []
+    for name, h, hkv, d, s, window in FA_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(s + d)
+        inputs.append([torch.randn(1, n, s, d, generator=g, device="cuda",
+                                   dtype=torch.bfloat16)
+                       for n in (h, hkv, hkv)])
+    torch.cuda.synchronize()
+    # the kernel's path: counts at 0 just before, read just after
+    FA.flash_attention.launches = 0
+    outs = [ops.flash_attention(q, k, v, causal=True, window=shape[5])
+            for shape, (q, k, v) in zip(FA_SHAPES, inputs)]
+    torch.cuda.synchronize()
+    launches = FA.flash_attention.launches
+    check(launches == len(FA_SHAPES), f"{launches} flash launches for "
+          f"{len(FA_SHAPES)} calls")
+    rows = []
+    for (name, h, hkv, d, s, window), (q, k, v), o in zip(FA_SHAPES, inputs,
+                                                          outs):
+        check(bool(torch.isfinite(o).all()), f"non-finite output on {name}")
+        g = h // hkv
+        err, ratio, plain_ms = 0.0, 0.0, 0.0
+        for head in range(h):
+            qh = q[:, head:head + 1]
+            kh, vh = (t[:, head // g:head // g + 1] for t in (k, v))
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            ref = FA.flash_attention_reference(qh, kh, vh, True, window)
+            b.record()
+            torch.cuda.synchronize()
+            plain_ms += a.elapsed_time(b)
+            e, r = check_bf16(o[:, head:head + 1], ref,
+                              f"{name} head {head}")
+            err, ratio = max(err, e), max(ratio, r)
+            del ref
+        # rotate input copies (>= 128 MB in all) so L2 starts cold
+        nbytes = sum(t.numel() * t.element_size() for t in (q, k, v))
+        copies = [(q, k, v)] + [tuple(t.clone() for t in (q, k, v))
+                                for _ in range(-(-(128 << 20) // nbytes) - 1)]
+        reps = 5 if s > 10000 else 15
+        t_kernel = median_ms(lambda i: FA.flash_attention(
+            *copies[i % len(copies)], causal=True, window=window), reps=reps)
+        mask = None
+        if window is not None:
+            ar = torch.arange(s, device="cuda")
+            mask = (ar[:, None] >= ar[None, :]) & (ar[None, :]
+                                                   > ar[:, None] - window)
+
+        def sdpa(i):
+            qc, kc, vc = copies[i % len(copies)]
+            return torch.nn.functional.scaled_dot_product_attention(
+                qc, kc, vc, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+
+        t_lib = median_ms(sdpa, reps=reps)
+        bms, by, n_ops = flash_bound(h, hkv, d, s, window, peaks)
+        row = dict(name=name, heads=h, kv_heads=hkv, head_dim=d, seq=s,
+                   window=window, dtype="bfloat16", max_abs_err=err,
+                   max_err_over_limit=ratio,
+                   ms=t_kernel, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, operations=n_ops, library_ms=t_lib,
+                   library=("scaled_dot_product_attention(is_causal=True, "
+                            "enable_gqa=True)" if mask is None else
+                            "scaled_dot_product_attention(attn_mask=dense "
+                            "bool causal-window mask, enable_gqa=True)"),
+                   plain="head by head, summed")
+        emit("flash_main_shape", **row)
+        rows.append(row)
+        del copies, mask
+    emit("flash_planted_faults", **planted_faults(inputs, outs))
+    del inputs, outs
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def planted_faults(inputs, outs) -> dict:
+    """The bf16 limit must reject faults that show only at full width.
+    The kernel's output is held to plain versions with a fault planted:
+    on olmo-1b 32k (head 0, last 128 queries) one 64-key tile in the
+    middle is dropped; on recurrentgemma-9b (head 0) the window is one
+    key shorter.  Each must exceed the limit (max err/limit > 1)."""
+    (q, k, v), o = inputs[0], outs[0]
+    s, d = q.shape[2], q.shape[3]
+    rows = torch.arange(s - 128, s, device="cuda")
+    cols = torch.arange(s, device="cuda")
+    dropped = (cols >= s // 2) & (cols < s // 2 + 64)
+    mask = (rows[:, None] >= cols[None, :]) & ~dropped[None, :]
+    sc = (q[0, 0, -128:].float() * (1.0 / d ** 0.5)) @ k[0, 0].float().T
+    sc = torch.where(mask, sc, FA.NEG_INF)
+    p = torch.where(mask, torch.exp(sc - sc.amax(-1, keepdim=True)), 0.0)
+    ref = ((p @ v[0, 0].float()) / p.sum(-1, keepdim=True)).bfloat16()
+    _, tile = fa_errors(o[0, 0, -128:], ref)
+    (q, k, v), o = inputs[1], outs[1]
+    window = FA_SHAPES[1][5]
+    ref = FA.flash_attention_reference(q[:, :1], k, v, True, window - 1)
+    _, edge = fa_errors(o[:, :1], ref)
+    faults = {"olmo-1b 32k, one kv tile dropped": tile,
+              f"recurrentgemma-9b, window {window - 1}": edge}
+    for what, ratio in faults.items():
+        check(ratio > 1.0, f"planted fault ({what}) passes the bf16 limit: "
+              f"max err/limit {ratio}")
+    return {"max_err_over_limit": faults}
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -369,11 +707,15 @@ def main():
     err_cases = phase_cima_cases()
     rows, err_main = phase_main_shapes(peaks)
     launches = phase_serve(peaks)
+    phase_serve_batcher()
+    fa_err = phase_flash_cases()
+    fa_rows, fa_launches = phase_flash_main_shapes(peaks)
     # one decode step's worth of launches at B=4, from the per-shape times
     step = {k: sum(rows[(s[0], 4)][k] * s[4] for s in MAIN_SHAPES)
             for k in ("ms", "plain_ms", "bound_ms")}
     step_bound_by = ("bytes" if all(rows[(s[0], 4)]["bound_by"] == "bytes"
                                     for s in MAIN_SHAPES) else "operations")
+    fa32k = fa_rows[0]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "cima_mvm", "route": "cuda", "source": SOURCE,
@@ -382,7 +724,15 @@ def main():
         "ms": step["ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step_bound_by,
         "library_ms": None,
-        "per": "one decode step's 113 launches at B=4"}]}), flush=True)
+        "per": "one decode step's 113 launches at B=4"}, {
+        "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
+        "replaces": FA_REPLACES, "launches": fa_launches,
+        "max_abs_err": max([fa_err] + [r["max_abs_err"] for r in fa_rows]),
+        "ms": fa32k["ms"], "plain_ms": fa32k["plain_ms"],
+        "bound_ms": fa32k["bound_ms"], "bound_by": fa32k["bound_by"],
+        "library_ms": fa32k["library_ms"],
+        "per": "one olmo-1b 32k-token causal prefill attention (B=1, "
+               "H=16, D=128, bf16)"}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

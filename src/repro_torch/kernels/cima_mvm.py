@@ -11,19 +11,14 @@ and how it is laid out); this module holds
   kernel (or raises), on CPU tensors it runs
   :func:`cima_mvm_planes_reference`, the plain torch version of the same
   function;
-* the build: ``nvcc`` compiles the source into ``build/`` at the repo
-  root on first use, and ``ctypes`` binds its plain C launcher.
+* the binding: :mod:`._build` compiles the source into ``build/`` at the
+  repo root on first use, and ``ctypes`` binds its plain C launcher.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 import warnings
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -35,10 +30,9 @@ from repro_torch.core.bpbs import (BpbsConfig, gemm_adc_epilogue,
 from repro_torch.core.datapath import ACTIVATIONS, saturate
 from repro_torch.core.quant import Coding
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "cima_mvm.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from . import _build
+
+SOURCE = _build.CSRC / "cima_mvm.cu"
 # activation codes of the kernel's fused epilogue (enum Act in the source)
 ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "sign": 4,
              "identity": 5}
@@ -46,35 +40,12 @@ ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "sign": 4,
 _LIB: Optional[ctypes.CDLL] = None
 
 
-# ------------------------------------------------------------------ build
-
-def build() -> Path:
-    """Compile ``csrc/cima_mvm.cu`` into ``build/`` (once per source
-    content) and return the shared library's path.  Raises when ``nvcc``
-    is missing or the compile fails."""
-    digest = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"cima_mvm_{digest}.so"
-    if out.exists():
-        return out
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the cima_mvm kernel")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    (BUILD_DIR / f"{out.stem}.log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, out)           # atomic: concurrent builders are safe
-    return out
-
+# ---------------------------------------------------------------- binding
 
 def _library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(_build.build(SOURCE)))
         fn = lib.cima_mvm_launch
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 \
             + [ctypes.c_void_p]

@@ -1,6 +1,7 @@
 """Model zoo of the port: the dense decoder path (layers, attention,
 stacked blocks, the serving API).  Other families come later."""
-from .model import DecodeCache, decode_step, init_cache, init_params, prefill
+from .model import (DecodeCache, decode_step, init_cache, init_params,
+                    prefill, prefill_resume, slice_slot, splice_slot)
 
 __all__ = ["DecodeCache", "decode_step", "init_cache", "init_params",
-           "prefill"]
+           "prefill", "prefill_resume", "slice_slot", "splice_slot"]

@@ -71,9 +71,10 @@ def _dense_attention(q, k, v, *, causal, window, q_offset, scale, dtype,
 
 def _chunked_attention(q, k, v, *, causal, window, q_offset, scale, dtype,
                        chunk=DEFAULT_CHUNK, kv_positions=None,
-                       q_positions=None):
+                       q_positions=None, bf16_probs=False):
     """Online softmax over KV chunks: never materializes the full score
-    matrix."""
+    matrix.  ``bf16_probs`` feeds the probabilities and V to the PV
+    product in bf16 with f32 accumulation (``l`` stays f32)."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -102,6 +103,11 @@ def _chunked_attention(q, k, v, *, causal, window, q_offset, scale, dtype,
         p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
         alpha = torch.exp(m - m_new)
         l = alpha * l + torch.sum(p, dim=-1)
+        if bf16_probs:
+            # bf16 operands, f32 products and sums (a bf16 product is
+            # exact in f32): the reference's preferred_element_type=f32
+            p = p.to(torch.bfloat16).to(torch.float32)
+            vch = vch.to(torch.bfloat16).to(torch.float32)
         acc = alpha[..., None] * acc + torch.einsum("bkgqs,bskd->bkgqd", p,
                                                     vch)
         m = m_new
@@ -111,12 +117,14 @@ def _chunked_attention(q, k, v, *, causal, window, q_offset, scale, dtype,
 
 def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, scale=None,
          dtype=torch.bfloat16, chunk=DEFAULT_CHUNK, kv_positions=None,
-         q_positions=None):
-    """Dense attention up to ``2 * chunk`` keys, chunked beyond."""
+         q_positions=None, bf16_probs=False):
+    """Dense attention up to ``2 * chunk`` keys, chunked beyond
+    (``bf16_probs`` applies to the chunked path, as in the reference)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     fn = _dense_attention if k.shape[1] <= 2 * chunk else _chunked_attention
-    kw = {} if fn is _dense_attention else {"chunk": chunk}
+    kw = ({} if fn is _dense_attention
+          else {"chunk": chunk, "bf16_probs": bf16_probs})
     return fn(q, k, v, causal=causal, window=window, q_offset=q_offset,
               scale=scale, dtype=dtype, kv_positions=kv_positions,
               q_positions=q_positions, **kw)
@@ -203,7 +211,7 @@ def attention(params, x, cfg, positions, cache: Optional[KVCache] = None,
             kv_pos = torch.where(pad_mask, positions, -1)
         o = sdpa(q, k, v, causal=cfg.causal, window=cfg.attn_window,
                  q_offset=0, dtype=dtype, kv_positions=kv_pos,
-                 q_positions=q_pos)
+                 q_positions=q_pos, bf16_probs=cfg.attn_bf16_probs)
         if cache is not None:   # prefill: fill the (possibly ring) cache
             length = cache.k.shape[1]
             kc, vc = k, v

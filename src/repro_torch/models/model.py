@@ -3,12 +3,16 @@
 * ``init_params(cfg, gen, device)``   — the parameter tree (same nested
   dict keys as the reference, stacked ``"scanned"`` layer leaves).
 * ``init_cache / prefill / decode_step`` — serving with a KV cache.
+* ``prefill_resume`` — continue a prefill on top of a cache.
+* ``slice_slot / splice_slot`` — per-slot cache surgery for slot-level
+  continuous batching.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, NamedTuple, Optional, Union
 
 import torch
@@ -119,3 +123,74 @@ def decode_step(params, token: torch.Tensor, cache: DecodeCache, cfg):
     x = norm(params["final_norm"], x, cfg.norm)
     logits = _lm_logits(params, x, cfg, dtype)
     return logits[:, 0], DecodeCache(layers, pos + 1, cache.cross_kv)
+
+
+def prefill_resume(params, tokens: torch.Tensor, cfg, cache: DecodeCache):
+    """Continue a prefill: run ``tokens`` [B, S] (dense, no padding) on top
+    of ``cache``, starting at each row's ``cache.pos``.  The S new keys are
+    written at their absolute per-row positions (in place, as every cache
+    write of the port) and attend causally over the whole cache.  Returns
+    (last-position logits [B, V], cache with ``pos + S``).
+
+    Against a full prefill of the same tokens this is ``allclose``, not
+    bitwise: the attention over the cache sums in another order."""
+    _supported(cfg)
+    dtype = _dtype(cfg)
+    b, s = tokens.shape
+    pos = torch.as_tensor(cache.pos, dtype=torch.int64, device=tokens.device)
+    if pos.ndim == 0:
+        pos = pos.expand(b)
+    positions = pos[:, None] + torch.arange(s, device=tokens.device)[None, :]
+    x = embed(params["embed"], tokens, dtype)
+    x, layers = tfm.apply_stack(params["stack"], x, cfg, positions,
+                                cache.layers, cache_pos=pos, dtype=dtype)
+    x = norm(params["final_norm"], x[:, -1:], cfg.norm)
+    logits = _lm_logits(params, x, cfg, dtype)
+    return logits[:, 0], DecodeCache(layers, pos + s, cache.cross_kv)
+
+
+# ------------------------------------------------- per-slot cache splicing
+
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of same-shaped trees of dicts, lists and
+    (named) tuples."""
+    t = trees[0]
+    if isinstance(t, torch.Tensor):
+        return fn(*trees)
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, *[x[k] for x in trees]) for k in t}
+    parts = [_tree_map(fn, *xs) for xs in zip(*trees)]
+    return type(t)(*parts) if hasattr(t, "_fields") else type(t)(parts)
+
+
+def _map_slot(fn, caches):
+    """``fn(batch_axis, *leaves)`` over one or more ``DecodeCache.layers``
+    trees: prefix/suffix block caches carry the batch at axis 0, stacked
+    ``"scanned"`` caches at axis 1."""
+    return {part: _tree_map(functools.partial(fn, 1 if part == "scanned"
+                                              else 0),
+                            *[c[part] for c in caches])
+            for part in ("prefix", "scanned", "suffix")}
+
+
+def slice_slot(cache: DecodeCache, i: int) -> DecodeCache:
+    """Batch slot ``i`` of ``cache`` as a batch-1 cache (a copy: writes to
+    either cache do not reach the other)."""
+    layers = _map_slot(lambda axis, leaf: leaf.narrow(axis, i, 1).clone(),
+                       (cache.layers,))
+    return DecodeCache(layers, cache.pos[i:i + 1].clone(), None)
+
+
+def splice_slot(cache: DecodeCache, slot: DecodeCache, i: int
+                ) -> DecodeCache:
+    """Write the batch-1 ``slot`` cache into batch slot ``i`` of the live
+    ``cache`` IN PLACE (the reference's donated jit does the same) and
+    return it.  The other slots are untouched, which is what lets one
+    finished slot be retired and refilled while the rest keep decoding."""
+    def put(axis, dst, src):
+        dst.narrow(axis, i, 1).copy_(src)
+        return dst
+
+    layers = _map_slot(put, (cache.layers, slot.layers))
+    cache.pos[i:i + 1] = slot.pos.to(cache.pos.dtype)
+    return DecodeCache(layers, cache.pos, cache.cross_kv)

@@ -1,6 +1,6 @@
-"""Serving: the batched engine (the continuous batcher and paged
-scheduler come in later slices)."""
-from .engine import Engine, ServeConfig
+"""Serving: the batched engine and the slot-level continuous batcher
+(the paged scheduler comes in a later slice)."""
+from .engine import ContinuousBatcher, Engine, ServeConfig
 from .host import host_sync
 
-__all__ = ["Engine", "ServeConfig", "host_sync"]
+__all__ = ["ContinuousBatcher", "Engine", "ServeConfig", "host_sync"]

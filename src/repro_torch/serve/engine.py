@@ -1,6 +1,13 @@
-"""Batched serving engine: weight-stationary program load, prefill and
-greedy (or sampled) decode.  Port of ``repro.serve.engine`` without the
-mesh; the continuous batcher comes in a later slice.
+"""Batched serving engine: weight-stationary program load, prefill,
+greedy (or sampled) decode, and slot-level continuous batching.  Port of
+``repro.serve.engine`` without the mesh.
+
+:class:`ContinuousBatcher` keeps a fixed pool of batch slots.  Decode
+always runs at full batch width, and ``DecodeCache.pos`` is per slot, so
+slots at different sequence lengths share one device step.  A finished
+slot (EOS or token budget) is retired and refilled alone: the new request
+is left-padded to a power-of-two bucket, prefilled with a pad mask, and
+its batch-1 cache is spliced into the live batch cache in place.
 
 At init the engine compiles every quantized projection into a
 :class:`~repro_torch.accel.program.CimaImage` and installs it next to its
@@ -11,15 +18,17 @@ neighbours.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
-from typing import Iterator
+import time
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.accel import build_program, install_program, override
-from repro_torch.models import decode_step, init_cache, prefill
+from repro_torch.models import decode_step, init_cache, prefill, splice_slot
 
 from .host import host_sync
 
@@ -38,6 +47,10 @@ class ServeConfig:
     use_program: bool = True
     # one input quantization scale per row (ExecSpec.x_per_row)
     x_per_row: bool = True
+    # admission prefills per ContinuousBatcher decode step, so an arrival
+    # burst cannot stall the live slots behind a run of prefills
+    # (None = admit greedily)
+    max_admit_per_step: Optional[int] = 1
 
     def __post_init__(self):
         for name in ("max_seq", "max_new_tokens", "eos_check_every"):
@@ -45,6 +58,10 @@ class ServeConfig:
             if v <= 0:
                 raise ValueError(f"ServeConfig.{name} must be positive, "
                                  f"got {v}")
+        cap = self.max_admit_per_step
+        if cap is not None and cap <= 0:
+            raise ValueError(f"ServeConfig.max_admit_per_step must be "
+                             f"positive or None, got {cap}")
         if self.temperature < 0:
             raise ValueError(f"ServeConfig.temperature must be >= 0, "
                              f"got {self.temperature}")
@@ -92,6 +109,21 @@ class Engine:
         (logits [B, V], cache)."""
         with self._scope():
             return prefill(self.params, prompts, self.cfg, self.scfg.max_seq)
+
+    def prefill_single(self, prompt):
+        """Pad-masked batch-1 prefill of ``prompt`` (1-D ints), left-padded
+        to a power-of-two bucket length; returns (logits [1, V], batch-1
+        cache).  The admission path of the batcher."""
+        n = len(prompt)
+        sb = min(max(_bucket(n), n), self.scfg.max_seq)
+        toks = torch.zeros((1, sb), dtype=torch.int64)
+        mask = torch.zeros((1, sb), dtype=torch.bool)
+        toks[0, sb - n:] = torch.as_tensor(np.asarray(prompt, np.int64))
+        mask[0, sb - n:] = True
+        with self._scope():
+            return prefill(self.params, toks.to(self.device), self.cfg,
+                           self.scfg.max_seq,
+                           pad_mask=mask.to(self.device))
 
     def decode(self, tok: torch.Tensor, cache):
         """One decode step of the whole batch; returns (logits, cache)."""
@@ -160,3 +192,185 @@ class Engine:
                           gen.dtype)
             gen = np.concatenate([gen, pad], axis=1)
         return gen
+
+
+def _bucket(n: int) -> int:
+    b = 8
+    while b < n:
+        b *= 2
+    return b
+
+
+@dataclasses.dataclass
+class _Slot:
+    rid: int
+    budget: int
+    n_gen: int
+
+
+_Request = collections.namedtuple("_Request", "rid prompt budget")
+
+
+class ContinuousBatcher:
+    """Slot-level continuous batching over a fixed decode batch.
+
+    ``run()`` drives one persistent decode loop: every iteration is one
+    full-width decode step; finished slots (per-slot EOS or token budget)
+    are retired between steps and refilled from the pending queue by
+    prefilling ONLY that request (left-padded to a power-of-two bucket,
+    pad-masked) and splicing its batch-1 cache into the live batch cache
+    in place.
+
+    ``stats`` after a run: ``decode_steps`` (batched model steps),
+    ``slot_steps`` (sum of active slots over those steps; utilisation is
+    ``slot_steps / (decode_steps * n_slots)``), ``prefills`` and
+    ``generated_tokens``.
+    """
+
+    def __init__(self, params, cfg, serve_cfg: ServeConfig, n_slots: int,
+                 device="cuda"):
+        if n_slots <= 0:
+            raise ValueError(f"n_slots must be positive, got {n_slots}")
+        self.engine = Engine(params, cfg, serve_cfg, device)
+        self.cfg, self.scfg = cfg, serve_cfg
+        self.n_slots = n_slots
+        self.pending: collections.deque[_Request] = collections.deque()
+        self.results: dict[int, list[int]] = {}
+        self.stats = {"decode_steps": 0, "slot_steps": 0, "prefills": 0,
+                      "generated_tokens": 0}
+        self._next_id = 0
+
+    def submit(self, prompt, max_new_tokens: Optional[int] = None) -> int:
+        """Queue a request; returns its id.  ``max_new_tokens`` overrides
+        the ServeConfig budget per request (ragged output lengths)."""
+        if len(prompt) > self.scfg.max_seq:
+            raise ValueError(f"prompt of {len(prompt)} tokens exceeds "
+                             f"max_seq={self.scfg.max_seq}")
+        rid = self._next_id
+        self._next_id += 1
+        budget = (self.scfg.max_new_tokens if max_new_tokens is None
+                  else max_new_tokens)
+        self.pending.append(_Request(rid, np.asarray(prompt, np.int64),
+                                     budget))
+        return rid
+
+    # ------------------------------------------------------------ slot path
+
+    def _prefill_request(self, req: _Request):
+        """Single-request pad-masked prefill at a bucketed length; returns
+        (first sampled token, batch-1 cache)."""
+        logits, cache = self.engine.prefill_single(req.prompt)
+        self.stats["prefills"] += 1
+        tok = self.engine.sample(logits, np.asarray([req.rid]),
+                                 np.zeros(1, np.int64))
+        return int(host_sync(tok, reason="admission: the first sampled "
+                             "token decides retire-vs-splice")[0]), cache
+
+    def run(self, on_token: Optional[Callable[[int, int], None]] = None,
+            feed: Optional[Callable[[], bool]] = None
+            ) -> dict[int, list[int]]:
+        """Serve the queue to completion; returns {rid: tokens} (tokens end
+        at EOS inclusive, or at the request's budget).  ``on_token(rid,
+        token)`` streams every generated token as it is sampled.  ``feed``
+        (if given) is called once per loop iteration to inject arrivals
+        via ``submit``; while it returns True the loop keeps polling
+        instead of exiting when both queue and slots drain."""
+        b = self.n_slots
+        eos = self.scfg.eos_id
+        with self.engine._scope():
+            cache = self.engine.init_cache(b)
+        cur = np.zeros(b, np.int64)
+        slots: list[Optional[_Slot]] = [None] * b
+        emitted: dict[int, list[int]] = {}
+        feeding = feed is not None
+
+        def emit(rid, tok):
+            emitted[rid].append(tok)
+            self.stats["generated_tokens"] += 1
+            if on_token is not None:
+                on_token(rid, tok)
+
+        while True:
+            if feeding:
+                feeding = bool(feed())
+            cap = self.scfg.max_admit_per_step
+            admitted = 0
+            for i in range(b):
+                while (slots[i] is None and self.pending
+                       and (cap is None or admitted < cap)):
+                    req = self.pending.popleft()
+                    if req.budget <= 0:
+                        self.results[req.rid] = []
+                        continue
+                    tok, slot_cache = self._prefill_request(req)
+                    admitted += 1
+                    emitted[req.rid] = []
+                    emit(req.rid, tok)
+                    if (eos >= 0 and tok == eos) or req.budget <= 1:
+                        self.results[req.rid] = emitted.pop(req.rid)
+                        continue        # retired at its first token
+                    with self.engine._scope():
+                        cache = splice_slot(cache, slot_cache, i)
+                    cur[i] = tok
+                    slots[i] = _Slot(req.rid, req.budget, 1)
+            active = [i for i in range(b) if slots[i] is not None]
+            if not active:
+                if self.pending:
+                    continue           # capped admission left work queued
+                if feeding:
+                    time.sleep(5e-4)   # idle but arrivals may still come
+                    continue
+                break
+
+            # one fixed-width decode step for every slot (idle rows ride
+            # along; their samples are discarded)
+            logits, cache = self.engine.decode(
+                torch.as_tensor(cur, device=self.engine.device), cache)
+            self.stats["decode_steps"] += 1
+            self.stats["slot_steps"] += len(active)
+            rids = np.asarray([s.rid if s else 0 for s in slots])
+            steps = np.asarray([s.n_gen if s else 0 for s in slots])
+            toks = host_sync(self.engine.sample(logits, rids, steps),
+                             reason="slot-batcher reference loop: one "
+                             "token sync per decode step by design")
+            for i in active:
+                s = slots[i]
+                tok = int(toks[i])
+                cur[i] = tok
+                s.n_gen += 1
+                emit(s.rid, tok)
+                if (eos >= 0 and tok == eos) or s.n_gen >= s.budget:
+                    self.results[s.rid] = emitted.pop(s.rid)
+                    slots[i] = None
+        return self.results
+
+    # --------------------------------------------------- generational baseline
+
+    def run_generational(self) -> dict[int, list[int]]:
+        """The pre-splice baseline, kept for utilisation benchmarking:
+        drain the queue in equal-length waves of ``n_slots`` (bucketed by
+        prompt length so prefill stays exact without a pad mask).  Every
+        wave decodes the full ``max_new_tokens`` budget even after its
+        short requests finish."""
+        while self.pending:
+            by_len: dict[int, list[_Request]] = {}
+            while self.pending:
+                req = self.pending.popleft()
+                by_len.setdefault(len(req.prompt), []).append(req)
+            for _, group in sorted(by_len.items()):
+                for j in range(0, len(group), self.n_slots):
+                    wave = group[j: j + self.n_slots]
+                    toks = np.stack([r.prompt for r in wave])
+                    rids = np.asarray([r.rid for r in wave])
+                    gen = self.engine.generate(toks, request_ids=rids)
+                    self.stats["prefills"] += 1
+                    self.stats["decode_steps"] += self.engine.last_decode_steps
+                    self.stats["slot_steps"] += \
+                        len(wave) * self.engine.last_decode_steps
+                    for r, seq in zip(wave, gen):
+                        seq = seq.tolist()[: r.budget]
+                        if self.scfg.eos_id >= 0 and self.scfg.eos_id in seq:
+                            seq = seq[: seq.index(self.scfg.eos_id) + 1]
+                        self.stats["generated_tokens"] += len(seq)
+                        self.results[r.rid] = seq
+        return self.results

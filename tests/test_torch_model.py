@@ -235,6 +235,53 @@ def test_chunked_attention_matches_reference_and_dense(window):
     torch.testing.assert_close(ot, od, rtol=1e-5, atol=1e-5)
 
 
+def test_chunked_attention_bf16_probs_matches_reference(monkeypatch):
+    """``attn_bf16_probs``: past 2*DEFAULT_CHUNK keys the chunked path
+    feeds bf16 probabilities and V into the PV product (f32 sums), as the
+    reference does.  Held to the reference's chunked path at atol 5e-5:
+    the f32 probabilities differ by an ulp or so between the packages, and
+    one that lands across a bf16 rounding boundary moves the output by up
+    to p * 2**-8 * |v|.  The flag itself moves this output by 3.7e-4, so
+    the test asserts more than 2e-4; and attention() must pass the
+    config's flag on."""
+    import dataclasses
+
+    from repro.models import attention as ja
+    from repro_torch.models import attention as ta
+
+    r = np.random.default_rng(9)
+    b, sq, sk, h, kv, d = 2, 3, 1100, 4, 2, 16
+    q = r.normal(size=(b, sq, h, d)).astype(np.float32)
+    k = r.normal(size=(b, sk, kv, d)).astype(np.float32)
+    v = r.normal(size=(b, sk, kv, d)).astype(np.float32)
+    kw = dict(causal=False, window=None, q_offset=0, scale=d ** -0.5)
+    oj = ja._chunked_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               dtype=jnp.float32, bf16_probs=True, **kw)
+    targs = [torch.from_numpy(a) for a in (q, k, v)]
+    tkw = {k_: v_ for k_, v_ in kw.items() if k_ != "q_offset"}
+    ot = ta.sdpa(*targs, dtype=torch.float32, bf16_probs=True, **tkw)
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=0,
+                               atol=5e-5)
+    o32 = ta.sdpa(*targs, dtype=torch.float32, **tkw)
+    assert float((ot - o32).abs().max()) > 2e-4
+
+    seen = []
+    real = ta.sdpa
+
+    def spy(*a, **k_):
+        seen.append(k_.get("bf16_probs"))
+        return real(*a, **k_)
+
+    cfg = dataclasses.replace(tget("olmo-1b").reduced(),
+                              attn_bf16_probs=True)
+    params = tinit(cfg, 0, device="cpu")["stack"]["scanned"]["u0"]["attn"]
+    params = {n: {"w": w["w"][0]} for n, w in params.items()}
+    monkeypatch.setattr(ta, "sdpa", spy)
+    ta.attention(params, torch.zeros(1, 4, cfg.d_model), cfg,
+                 torch.arange(4), dtype=torch.float32)
+    assert seen == [True]
+
+
 def test_left_align_matches_reference():
     from repro.models import attention as ja
     from repro_torch.models import attention as ta
