@@ -27,6 +27,7 @@ as ``nvidia-smi`` prints them, then the kernels line, and last
 does a machine without a CUDA device, or a directory without the repo.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -76,6 +77,11 @@ MAIN_SHAPES = [("attn.qkvo", 2048, 2048, False, 64),
                ("mlp.down", 8192, 2048, False, 16),
                ("unembed", 2048, 50304, False, 1)]
 LAUNCHES_PER_FORWARD = sum(s[4] for s in MAIN_SHAPES)        # 113
+# kernel instances the main shapes launch: cima_mvm<B_A, m16 tiles> at
+# B=4 (one tile) and B=128 (four), flash_bf16<head-dim bucket, kv tile>
+MAIN_INSTANCES = {"cima_mvm_kernel<4,1>", "cima_mvm_kernel<4,4>",
+                  "flash_bf16_kernel<128,64>", "flash_bf16_kernel<256,32>",
+                  "flash_bf16_kernel<64,64>"}
 # tests/test_kernels.py's FA_CASES and its long-window case:
 # (b, h, hkv, s, d, causal, window, block_q, block_k, dtype)
 FA_CASES = [
@@ -157,6 +163,24 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in ev)
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of ``fn`` run ``reps`` times back to back: the
+    stream is held by a spin kernel while the host enqueues the calls, so
+    CUDA events around them see no host gaps.  A per-call event pair
+    (``median_ms``) also times the host's launch path when the call is
+    shorter than it."""
+    fn(0)
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(2e7))      # ~10 ms of spinning at 2 GHz
+    a.record()
+    for i in range(reps):
+        fn(i)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def phase_device():
     check(torch.cuda.is_available(), "no CUDA device")
     smi = subprocess.run(
@@ -173,8 +197,34 @@ def phase_device():
     return name, peaks
 
 
+def ptxas_report(log: str) -> list:
+    """Registers and spill bytes of every kernel instance in an
+    ``nvcc -Xptxas -v`` log, as ``[{"kernel": "name<args>", ...}]``."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"(cima_mvm_kernel|flash_bf16_kernel|flash_f32_kernel)"
+                          r"I((?:Li\d+E)+)", m.group(1))
+            name = (f"{k.group(1)}<{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
+                    if k else m.group(1))
+            cur = {"kernel": name, "registers": None, "spill_bytes": 0}
+            rows.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return rows
+
+
 def phase_build():
-    """One nvcc per kernel source, all started together."""
+    """One nvcc per kernel source, all started together; then each
+    instance's registers and spills from the -Xptxas -v logs.  The
+    instances the main shapes launch must not spill."""
     t0 = time.perf_counter()
     root = Path(__file__).resolve().parent
     sources = [root / SOURCE, root / FA_SOURCE]
@@ -182,8 +232,18 @@ def phase_build():
         built = list(pool.map(_build.build, sources))
     K._library()
     FA._library()
-    emit("build", seconds=time.perf_counter() - t0,
-         libraries=[str(lib.relative_to(root)) for lib in built])
+    seconds = time.perf_counter() - t0
+    report = [r for lib in built
+              for r in ptxas_report(lib.with_suffix(".log").read_text())]
+    for r in report:
+        if r["kernel"] in MAIN_INSTANCES:
+            check(r["spill_bytes"] == 0, f"{r['kernel']} spills "
+                  f"{r['spill_bytes']} bytes")
+    check(MAIN_INSTANCES <= {r["kernel"] for r in report},
+          f"instances missing from the build logs: {MAIN_INSTANCES}")
+    emit("build", seconds=seconds,
+         libraries=[str(lib.relative_to(root)) for lib in built],
+         instances=report)
 
 
 def phase_cima_cases() -> float:
@@ -199,8 +259,8 @@ def phase_cima_cases() -> float:
                              **variant)
             xs, nu, _ = K.prepare_inputs(x, cfg)
             ws, fs = K.prepare_weights(w, cfg)
-            y = K.cima_mvm_planes(xs, ws, nu, fs, cfg)
             ref = K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg)
+            y = K.cima_mvm_planes(xs, ws, nu, fs, cfg)
             torch.cuda.synchronize()
             check(torch.equal(y, ref), f"kernel != plain on {case} {variant}")
             n_cmp += 1
@@ -235,15 +295,16 @@ def bound_ms(b, n, m, cfg, fused, peaks):
               + 4 * n_banks + 4 * b * m + (4 * b * m if fused else 0))
     ops = 2 * b * cfg.bx * cfg.ba * n * m
     t_bytes, t_ops = nbytes / peaks[0], ops / peaks[1]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
 def phase_main_shapes(peaks):
     """The main path's projection shapes at B=4 (decode) and B=128
     (prefill rows): equality with the plain version, then device times of
-    the kernel, the plain version and, for context only, torch.matmul of
-    the integer grids (the ideal-ADC product, not the same function)."""
+    the kernel (back to back, ``device_ms``), the plain version and, for
+    context only, torch.matmul of the integer grids (the ideal-ADC
+    product, not the same function)."""
     cfg = BpbsConfig(ba=4, bx=4)
     rows = {}
     worst = 0.0
@@ -272,20 +333,24 @@ def phase_main_shapes(peaks):
             # hold the planes between launches, as in a real forward pass
             copies = [ws] + [ws.clone() for _ in
                              range(max(0, -(-(128 << 20) // ws.numel()) - 1))]
-            t_kernel = median_ms(lambda i: K.cima_mvm_planes(
-                xs, copies[i % len(copies)], nu, fs, cfg, *epi), reps=25)
+            t_kernel = device_ms(lambda i: K.cima_mvm_planes(
+                xs, copies[i % len(copies)], nu, fs, cfg, *epi))
             t_plain = median_ms(lambda i: K.cima_mvm_planes_reference(
                 xs, copies[i % len(copies)], nu, fs, cfg, *epi), reps=5,
                 warmup=1)
             xq, wq = qx.q.to(torch.float32), qw.q
             t_mm = median_ms(lambda i: torch.matmul(xq, wq), reps=10)
-            bms, by = bound_ms(b, n, m, cfg, fused, peaks)
+            bms, by, nbytes, n_ops = bound_ms(b, n, m, cfg, fused, peaks)
             rows[(name, b)] = dict(ms=t_kernel, plain_ms=t_plain,
                                    bound_ms=bms, bound_by=by)
+            mt, tb, cs = K.launch_shape(b, n, m, cfg, K._sm_count(0))
             emit("main_shape", name=name, b=b, n=n, m=m,
                  fused_silu_per_row=fused, launches_per_forward=per_fwd,
                  max_abs_err=err, kernel_ms=t_kernel, plain_ms=t_plain,
-                 bound_ms=bms, bound_by=by,
+                 bound_ms=bms, bound_by=by, times_bound=t_kernel / bms,
+                 achieved_tb_per_s=nbytes / t_kernel / 1e9,
+                 achieved_int8_tops=n_ops / t_kernel / 1e9,
+                 m16_tiles=mt, batch_rows_per_block=tb, cluster=cs,
                  matmul_ideal_adc_context_ms=t_mm)
             del copies
     return rows, worst
@@ -654,7 +719,10 @@ def phase_flash_main_shapes(peaks):
                    window=window, dtype="bfloat16", max_abs_err=err,
                    max_err_over_limit=ratio,
                    ms=t_kernel, plain_ms=plain_ms, bound_ms=bms,
-                   bound_by=by, operations=n_ops, library_ms=t_lib,
+                   bound_by=by, operations=n_ops,
+                   times_bound=t_kernel / bms,
+                   achieved_tflop_per_s=n_ops / t_kernel / 1e9,
+                   library_ms=t_lib,
                    library=("scaled_dot_product_attention(is_causal=True, "
                             "enable_gqa=True)" if mask is None else
                             "scaled_dot_product_attention(attn_mask=dense "

@@ -47,7 +47,7 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(_build.build(SOURCE)))
         fn = lib.cima_mvm_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 20 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = lib
@@ -154,6 +154,39 @@ def cima_mvm_planes_reference(xs: torch.Tensor, ws: torch.Tensor,
 
 # ------------------------------------------------------------- the wrapper
 
+TILE_M = 64       # output columns of a block (TM in the source)
+CHUNK_ROWS = 64   # bank rows of a pipeline stage (KC in the source)
+CLUSTER_SIZE_MAX = 4
+
+
+@functools.lru_cache(maxsize=256)
+def launch_shape(b: int, n: int, m: int, cfg: BpbsConfig, sms: int):
+    """The kernel's tiling for a [B, N] x [N, M] call on a card with
+    ``sms`` SMs: ``(mt, tb, cs)``.  A block owns ``mt`` m16 tiles of A rows
+    (1, 2 or 4: the fewest that hold all B*B_X rows, at most 4, and 1 for
+    B_A > 4), ``tb = 16*mt // B_X`` whole batch rows, and splits each bank
+    over a cluster of ``cs`` blocks: the largest of 1, 2 and 4 that keeps
+    the grid within two blocks per SM and at least two chunks of the
+    largest bank per block.  Cached: a forward asks for a few shapes only."""
+    mt = 1
+    if cfg.ba <= 4:
+        while mt < 4 and b > 16 * mt // cfg.bx:
+            mt *= 2
+    tb = 16 * mt // cfg.bx
+    blocks = -(-m // TILE_M) * -(-b // tb)
+    chunks = -(-min(cfg.bank_n, n) // CHUNK_ROWS)
+    cs = 1
+    while (cs < CLUSTER_SIZE_MAX and blocks * 2 * cs <= 2 * sms
+           and chunks >= 4 * cs):
+        cs *= 2
+    return mt, tb, cs
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check_launch(xs, ws, nu, fs, cfg: BpbsConfig, act) -> None:
     dev = xs.device
     for name, t, dt, nd in (("xs", xs, torch.int8, 3), ("ws", ws, torch.int8, 3),
@@ -184,7 +217,8 @@ def _check_launch(xs, ws, nu, fs, cfg: BpbsConfig, act) -> None:
                          f"{cfg.adc_bits}")
     if act not in ACT_CODES:
         raise ValueError(f"cima_mvm: unknown activation {act!r}")
-    if b > 65535 * 4 or n >= 2 ** 31 or ws.numel() >= 2 ** 62:
+    if (-(-ws.shape[2] // TILE_M) * CLUSTER_SIZE_MAX > 65535
+            or n >= 2 ** 31 or ws.numel() >= 2 ** 62):
         raise ValueError("cima_mvm: shape out of the kernel's range")
 
 
@@ -196,6 +230,8 @@ def cima_mvm_planes(xs: torch.Tensor, ws: torch.Tensor, nu: torch.Tensor,
     ``ws`` [N, BA, M] int8, ``nu`` [B, n_banks] f32, ``fs`` [n_banks] f32
     -> [B, M] f32.  ``escale``/``pbias``/``act``/``by_bits`` arm the fused
     datapath epilogue (``escale``/``pbias`` per column or per row).
+    :func:`launch_shape` picks the kernel's tiling; every tiling gives the
+    same bits.
 
     CUDA tensors launch the kernel (counted in ``cima_mvm_planes.launches``)
     or raise; CPU tensors run :func:`cima_mvm_planes_reference`.  Like the
@@ -219,7 +255,10 @@ def cima_mvm_planes(xs: torch.Tensor, ws: torch.Tensor, nu: torch.Tensor,
         es = _epilogue_operand(escale, b, m, xs.device)
     if fused and pbias is not None:
         pb = _epilogue_operand(pbias, b, m, xs.device)
-    vec = int(m % 4 == 0 and ws.data_ptr() % 4 == 0)
+    mt, tb, cs = launch_shape(b, n, m, cfg, _sm_count(xs.device.index or 0))
+    vec_x = int(n % 16 == 0 and cfg.bank_n % 16 == 0
+                and xs.data_ptr() % 16 == 0)
+    vec_w = int(m % 16 == 0 and ws.data_ptr() % 16 == 0)
     rc = _library().cima_mvm_launch(
         xs.data_ptr(), ws.data_ptr(), nu.data_ptr(), fs.data_ptr(),
         es.data_ptr() if es is not None else None,
@@ -229,7 +268,7 @@ def cima_mvm_planes(xs: torch.Tensor, ws: torch.Tensor, nu: torch.Tensor,
         int(cfg.ideal_adc), cfg.adc_bits, int(fused),
         int(es is not None and es.shape[0] > 1),
         int(pb is not None and pb.shape[0] > 1),
-        ACT_CODES[act], int(by_bits or 0), vec,
+        ACT_CODES[act], int(by_bits or 0), mt, tb, cs, vec_x, vec_w,
         torch.cuda.current_stream(xs.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"cima_mvm kernel launch failed: cudaError {rc}")

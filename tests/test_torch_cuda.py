@@ -101,6 +101,60 @@ def test_kernel_fused_epilogue(cuda, act, rows):
     torch.testing.assert_close(y, yr, rtol=1e-6, atol=1e-6)
 
 
+EDGE_CASES = [
+    # (coding, ba, bx, n, m, bank_n): edges of the kernel's tiling.  A
+    # ragged last bank (2400 = 2304 + 96) with B_X = 3 and M = 100 (byte
+    # copies); AND with N = 1000 (byte copies of xs), M = 80 (16-byte
+    # weight copies, a partial 64-column tile); B_X = B_A = 8 over three
+    # banks; a decode-like shape with 16-byte copies, four banks and a
+    # ragged last bank of 1280 rows
+    (Coding.XNOR, 4, 3, 2400, 100, 2304),
+    (Coding.AND, 3, 5, 1000, 80, 512),
+    (Coding.XNOR, 8, 8, 640, 72, 256),
+    (Coding.XNOR, 4, 4, 8192, 192, 2304),
+]
+
+
+def _force_cluster(monkeypatch, cluster):
+    """Make the wrapper launch with ``cluster`` blocks per cluster and the
+    launcher's own row tiling (None: the launcher's pick)."""
+    if cluster is None:
+        return
+    pick = K.launch_shape
+    monkeypatch.setattr(K, "launch_shape", lambda b, n, m, cfg, sms:
+                        pick(b, n, m, cfg, sms)[:2] + (cluster,))
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4])
+@pytest.mark.parametrize("batch", [1, 5, 16, 33])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_kernel_tiling_edges_equal_plain_version(cuda, monkeypatch, case,
+                                                 batch, cluster):
+    """B*B_X not a multiple of 16, M not a multiple of the 64-column tile,
+    ragged banks, AND coding, B_X = B_A = 8, and every cluster size the
+    launcher can pick: the integer partials sum in any order, so each must
+    give the same bits."""
+    xs, ws, nu, fs, cfg = _planes(case, None, cuda, batch=batch)
+    _force_cluster(monkeypatch, cluster)
+    y = K.cima_mvm_planes(xs, ws, nu, fs, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(y, K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg))
+
+
+@pytest.mark.parametrize("cluster", [1, 4])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_kernel_tiling_edges_fused(cuda, monkeypatch, case, cluster):
+    xs, ws, nu, fs, cfg = _planes(case, None, cuda, batch=33)
+    m = ws.shape[2]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    es = torch.rand(33, m, generator=g, device=cuda) * 1e-3
+    pb = torch.randn(m, generator=g, device=cuda)
+    _force_cluster(monkeypatch, cluster)
+    y = K.cima_mvm_planes(xs, ws, nu, fs, cfg, es, pb, "silu", 16)
+    yr = K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg, es, pb, "silu", 16)
+    torch.testing.assert_close(y, yr, rtol=1e-6, atol=1e-6)
+
+
 def test_wrapper_rejects_a_cpu_operand_beside_cuda_ones(cuda):
     xs, ws, nu, fs, cfg = _planes(CASES[0], None, cuda)
     with pytest.raises(ValueError, match="nu is on cpu"):
@@ -139,6 +193,14 @@ FA_CASES = [
     (1, 2, 2, 128, 128, 64, True, 4096, torch.float32),
     (1, 4, 1, 300, 300, 256, True, 70, torch.bfloat16),
     (1, 4, 2, 64, 128, 32, False, 40, torch.float32),
+    # bf16 on the tensor cores: Sq not a multiple of the 64-row q tile, a
+    # zero-filled head-dim bucket (D = 80 in 128), GQA with a window, a
+    # non-causal 32-key-tile case at D = 256 with sq != sk, and D = 100
+    # (rows not in 16-byte chunks: element copies)
+    (1, 4, 2, 200, 200, 80, True, None, torch.bfloat16),
+    (2, 8, 2, 257, 257, 64, True, 100, torch.bfloat16),
+    (1, 4, 4, 96, 192, 256, False, 50, torch.bfloat16),
+    (1, 2, 1, 130, 130, 100, True, None, torch.bfloat16),
 ]
 
 

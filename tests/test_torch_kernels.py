@@ -170,3 +170,45 @@ def test_cpu_tensors_run_the_plain_version_without_launching():
     assert K.cima_mvm_planes.launches == before
     assert torch.equal(y, K.cima_mvm_planes_reference(xs, ws, nu, fs, tc))
 
+
+
+@pytest.mark.parametrize("b,n,m,ba,bx,want", [
+    # (B, N, M, B_A, B_X, (mt, tb, cs)): the main path's projections at
+    # decode and prefill on a 132-SM card, then ragged and wide-plane cases
+    (4, 2048, 2048, 4, 4, (1, 4, 4)),
+    (4, 2048, 8192, 4, 4, (1, 4, 2)),
+    (4, 8192, 2048, 4, 4, (1, 4, 4)),
+    (4, 2048, 50304, 4, 4, (1, 4, 1)),
+    (128, 2048, 2048, 4, 4, (4, 16, 1)),
+    (128, 2048, 50304, 4, 4, (4, 16, 1)),
+    (1, 300, 40, 4, 4, (1, 4, 2)),
+    (5, 300, 40, 4, 3, (1, 5, 2)),
+    (6, 300, 40, 4, 3, (2, 10, 2)),
+    (33, 100, 8, 8, 8, (1, 2, 1)),
+    (9, 700, 12, 2, 2, (2, 16, 4)),
+])
+def test_launch_shape_fills_the_card(b, n, m, ba, bx, want):
+    cfg = TCfg(ba=ba, bx=bx)
+    mt, tb, cs = K.launch_shape(b, n, m, cfg, sms=132)
+    assert (mt, tb, cs) == want
+    # whole batch rows in a tile of 16*mt A rows, and at least two chunks
+    # of the largest bank for every block of a cluster
+    assert tb * bx <= 16 * mt and tb * bx > 16 * mt - bx
+    assert cs == 1 or -(-min(cfg.bank_n, n) // K.CHUNK_ROWS) >= 2 * cs
+
+
+def test_launch_shape_picks_only_sizes_the_kernel_takes():
+    """Over a sweep of shapes the tiling stays within what the C entry
+    point accepts: mt in 1, 2, 4 (1 above B_A = 4), whole batch rows in
+    the tile, clusters of 1, 2 or 4."""
+    for ba, bx in ((1, 1), (4, 4), (3, 5), (8, 8)):
+        cfg = TCfg(ba=ba, bx=bx)
+        for b in (1, 4, 5, 16, 33, 128):
+            for n, m in ((64, 8), (2048, 2048), (8192, 2048),
+                         (2048, 50304)):
+                for sms in (1, 132):
+                    mt, tb, cs = K.launch_shape(b, n, m, cfg, sms)
+                    assert mt in (1, 2, 4) and (mt == 1 or ba <= 4)
+                    assert 1 <= tb and tb * bx <= 16 * mt
+                    assert cs in (1, 2, 4)
+                    assert K.launch_shape(b, n, m, cfg, sms) == (mt, tb, cs)
