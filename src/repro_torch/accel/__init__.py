@@ -6,26 +6,34 @@
   ``kernel`` (the hand-written CUDA kernel).
 * :mod:`.policy` — :class:`PrecisionPolicy`: per-path/kind/layer specs.
 * :mod:`.context` — :class:`ExecContext`, :func:`override`,
-  :func:`trace`, :func:`pad_positions`.
+  :func:`trace` (with its VDD corner), :func:`vmapped`,
+  :func:`pad_positions`, and :func:`energy_summary`, the chip cost model
+  of a trace.
 * :mod:`.dispatch` — :func:`matmul`, the single entry point.
-* :mod:`.program` — weight-stationary :class:`CimaImage` programs.
+* :mod:`.program` — weight-stationary :class:`CimaImage` programs, the
+  first-fit bank allocator (:func:`plan_allocation`) with streaming, and
+  :class:`ProgramManager`.
 """
-from repro_torch.core.datapath import Postreduce
+from repro_torch.core.datapath import Postreduce, fold_batchnorm
 
 from . import backends as _backends  # registers the built-in backends
-from .context import (ExecContext, MvmRecord, Trace, override, pad_positions,
-                      trace)
+from .context import (ExecContext, MvmRecord, Trace, energy_summary,
+                      override, pad_positions, trace, vmapped)
 from .dispatch import matmul
 from .policy import DIGITAL, PrecisionPolicy
-from .program import (CimaImage, CimaProgram, build_program, install_program,
-                      strip_program)
+from .program import (CimaImage, CimaProgram, ImageFootprint, Placement,
+                      ProgramManager, build_program, install_program,
+                      model_footprint, plan_allocation, strip_program)
 from .registry import get_backend, list_backends, register_backend
 from .spec import ExecSpec
 
 __all__ = [
-    "ExecSpec", "PrecisionPolicy", "DIGITAL", "ExecContext", "MvmRecord", "Trace",
-    "Postreduce", "matmul", "override", "trace", "pad_positions",
+    "ExecSpec", "PrecisionPolicy", "DIGITAL", "ExecContext", "MvmRecord",
+    "Trace", "Postreduce", "fold_batchnorm",
+    "matmul", "override", "trace", "vmapped", "pad_positions",
+    "energy_summary",
     "register_backend", "get_backend", "list_backends",
-    "CimaImage", "CimaProgram", "build_program", "install_program",
-    "strip_program",
+    "CimaImage", "CimaProgram", "ImageFootprint", "Placement",
+    "ProgramManager", "build_program", "install_program",
+    "model_footprint", "plan_allocation", "strip_program",
 ]

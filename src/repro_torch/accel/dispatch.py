@@ -5,8 +5,10 @@ training slice).
 
 ``matmul`` resolves the effective spec (applying any scoped
 :func:`~repro_torch.accel.context.override`), validates a compiled weight
-``image`` against it, records one :class:`MvmRecord` and calls the
-registered backend.
+``image`` against it, records one :class:`MvmRecord` inside a
+:func:`~repro_torch.accel.context.trace` scope (with the image's reload
+schedule and the measured input sparsity and all-zero planes) and calls
+the registered backend.
 """
 from __future__ import annotations
 
@@ -16,21 +18,82 @@ from typing import Optional
 
 import torch
 
-from .context import ExecContext, MvmRecord, current_override, record, tracing
+from repro_torch.core.quant import quantize
+from repro_torch.core.sparsity import (count_zero_planes, element_mask,
+                                       sparsity_fraction)
+
+from .context import (ExecContext, MvmRecord, current_override,
+                      current_pad_mask, record, streamed_load_seen, tracing)
 from .registry import get_backend
 from .spec import ExecSpec
 
 
+def _strip_pad(x: torch.Tensor) -> torch.Tensor:
+    """Drop positions an ambient :func:`~repro_torch.accel.context.
+    pad_positions` scope marks as padding before measuring sparsity
+    (left-pad zeros are no exploitable sparsity); a mask whose shape
+    does not prefix-match ``x`` (the unembed's last-token slice) is
+    ignored."""
+    mask = current_pad_mask()
+    if mask is None:
+        return x
+    if mask.ndim >= x.ndim or tuple(x.shape[:mask.ndim]) != \
+            tuple(mask.shape):
+        return x
+    return x[mask.to(device=x.device, dtype=torch.bool)]
+
+
+def _measured_sparsity(spec: ExecSpec, x: torch.Tensor) -> Optional[float]:
+    """The zero fraction of the input quantized onto the spec's grid: the
+    broadcasts the AND-logic controller gates (paper Fig. 6b)."""
+    if spec.backend == "digital":
+        return None
+    qx = quantize(_strip_pad(x), spec.bx, spec.coding,
+                  per_row=spec.x_per_row)
+    return float(sparsity_fraction(element_mask(qx.q)))
+
+
+def _measured_planes(spec: ExecSpec, x: torch.Tensor) \
+        -> tuple[Optional[int], Optional[int]]:
+    """``(planes_skipped, planes_total)``: all-zero (bank, input-plane)
+    serial steps at the spec's banking.  Pad positions stay in: the skip
+    predicate sees the padded batch."""
+    if spec.backend == "digital" or not spec.skip_zero_planes:
+        return None, None
+    qx = quantize(x, spec.bx, spec.coding, per_row=spec.x_per_row)
+    return count_zero_planes(qx.q, spec.bpbs())
+
+
 def _record_mvm(spec: ExecSpec, x: torch.Tensor, w: torch.Tensor,
                 image=None, post=None) -> None:
+    """One :class:`MvmRecord` into every open trace.  Outside a trace it
+    does nothing: the measurements read counts back to the host, and the
+    serving path must not pay for them."""
     if not tracing():
         return
+    streamed = image is not None and not image.resident
+    overlap = streamed and image.overlap
+    # the first streamed load of a pass has no compute to hide behind;
+    # checked against the innermost trace before this record lands
+    prologue = 1 if (overlap and not streamed_load_seen()) else 0
+    skipped, total = _measured_planes(spec, x)
     record(MvmRecord(
         tag=spec.tag, backend=spec.backend,
         n=int(w.shape[0]), m=int(w.shape[1]), ba=spec.ba, bx=spec.bx,
         calls=int(math.prod(x.shape[:-1])),
         program=image is not None,
-        post_ops=post.n_ops() if post is not None else 0))
+        loads=1 if streamed else 0,
+        load_segments=image.segments if streamed else 0,
+        stream_overlap=overlap,
+        load_prologue=prologue,
+        devices=image.devices if image is not None else 1,
+        partition=(image.partition or "") if image is not None else "",
+        data_shards=(max(image.data_shards, 1) if image is not None
+                     else 1),
+        post_ops=post.n_ops() if post is not None else 0,
+        sparsity=_measured_sparsity(spec, x),
+        planes_skipped=skipped,
+        planes_total=total))
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,

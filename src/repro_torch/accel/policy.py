@@ -80,6 +80,11 @@ class PrecisionPolicy:
             if not isinstance(spec, ExecSpec):
                 raise TypeError(f"rule {pattern!r}: spec must be ExecSpec")
 
+    @classmethod
+    def uniform(cls, spec: ExecSpec) -> "PrecisionPolicy":
+        """Every managed projection runs under ``spec``."""
+        return cls(default=spec)
+
     def resolve(self, path: str = "", kind: str = "",
                 layer: Optional[int] = None) -> ExecSpec:
         """The spec governing one projection, tagged with its path."""

@@ -4,7 +4,8 @@ Port of ``repro.core.datapath``.
 After BP/BS recombination the datapath applies, in the chip's order:
 scale -> bias -> activation -> saturation to B_y bits (16 b when
 ``B_X + B_A <= 5``, else 32 b).  :class:`Postreduce` is one datapath
-program, the ``post=`` argument of :func:`repro_torch.accel.matmul`.
+program, the ``post=`` argument of :func:`repro_torch.accel.matmul`;
+:func:`fold_batchnorm` computes its registers from BN statistics.
 """
 from __future__ import annotations
 
@@ -87,3 +88,12 @@ class Postreduce:
         """Run the pipeline on ``y`` (the unfused reference semantics)."""
         return postreduce(y, self.scale, self.bias, self.act,
                           self.resolve_bits(bx, ba))
+
+
+def fold_batchnorm(gamma: torch.Tensor, beta: torch.Tensor,
+                   mean: torch.Tensor, var: torch.Tensor,
+                   eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold BN statistics into the datapath's (scale, bias) registers:
+    ``inv = gamma * rsqrt(var + eps)`` and ``beta - mean * inv``."""
+    inv = gamma * torch.rsqrt(var + eps)
+    return inv, beta - mean * inv

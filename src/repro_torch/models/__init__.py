@@ -1,5 +1,6 @@
 """Model zoo of the port: the dense decoder path (layers, attention,
-stacked blocks, the serving API).  Other families come later."""
+stacked blocks, the serving API) and the paper's CIFAR networks
+(:mod:`.cnn`).  Other families come later."""
 from .model import (DecodeCache, decode_step, init_cache, init_params,
                     prefill, prefill_resume, slice_slot, splice_slot)
 

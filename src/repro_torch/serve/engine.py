@@ -11,7 +11,9 @@ its batch-1 cache is spliced into the live batch cache in place.
 
 At init the engine compiles every quantized projection into a
 :class:`~repro_torch.accel.program.CimaImage` and installs it next to its
-weight, so decode never re-quantizes a weight.  Every call runs under
+weight, so decode never re-quantizes a weight; with ``cima_chips`` below
+the model's footprint the allocator streams the tail, which a
+``trace()`` charges and the tokens never see.  Every call runs under
 ``torch.inference_mode()`` and, by default, ``override(x_per_row=True)``:
 one input scale per row, so a request's tokens never depend on its batch
 neighbours.
@@ -43,8 +45,14 @@ class ServeConfig:
     # check blocks on the in-flight decode
     eos_check_every: int = 4
     seed: int = 0
-    # compile every quantized projection's planes once at engine init
+    # compile every quantized projection's planes once at engine init;
+    # cima_chips bounds the standing allocation (N x 590kb arrays, None =
+    # everything resident) and the overflow streams every pass
     use_program: bool = True
+    cima_chips: Optional[int] = None
+    # double-buffer the streamed images' reloads behind compute (the
+    # trace's wall cycles; accounting only, tokens are the same)
+    stream_double_buffer: bool = True
     # one input quantization scale per row (ExecSpec.x_per_row)
     x_per_row: bool = True
     # admission prefills per ContinuousBatcher decode step, so an arrival
@@ -87,7 +95,9 @@ class Engine:
         self.program = None
         if serve_cfg.use_program:
             with torch.inference_mode():
-                program = build_program(params, cfg)
+                program = build_program(
+                    params, cfg, capacity_chips=serve_cfg.cima_chips,
+                    double_buffer=serve_cfg.stream_double_buffer)
             if program:
                 self.program = program
                 params = install_program(params, program, cfg)

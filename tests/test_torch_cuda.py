@@ -22,12 +22,14 @@ import pytest
 import torch
 
 from repro_torch import accel
-from repro_torch.configs import get_config
+from repro_torch.configs import NETWORK_A, NETWORK_B, get_config
+from repro_torch.core import sqnr
 from repro_torch.core.bpbs import BpbsConfig
 from repro_torch.core.quant import Coding, int_range
 from repro_torch.kernels import cima_mvm as K
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.models import init_params
+from repro_torch.models.cnn import cnn_forward, init_cnn
 from repro_torch.serve import ContinuousBatcher, Engine, ServeConfig
 
 pytestmark = pytest.mark.cuda
@@ -153,6 +155,106 @@ def test_kernel_tiling_edges_fused(cuda, monkeypatch, case, cluster):
     y = K.cima_mvm_planes(xs, ws, nu, fs, cfg, es, pb, "silu", 16)
     yr = K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg, es, pb, "silu", 16)
     torch.testing.assert_close(y, yr, rtol=1e-6, atol=1e-6)
+
+
+def _cifar_shapes():
+    """Every layer shape of the paper's CIFAR networks as (name, ba, bx, n,
+    m, act): N = 27 first convs, M = 10 classifiers, Network B's 1-b/1-b
+    layers with the fused sign and its 16384-row (8-bank) FC."""
+    out = {}
+    for net in (NETWORK_A, NETWORK_B):
+        act = "sign" if net.readout == "abn" else "relu"
+        for i, layer in enumerate(net.layers):
+            n = layer.cin * (9 if layer.kind == "conv" else 1)
+            last = i == len(net.layers) - 1
+            shape = (net.ba, net.bx, n, layer.cout, None if last else act)
+            out.setdefault(shape, f"{net.name}.layer{i}")
+    return [(name,) + shape for shape, name in out.items()]
+
+
+CIFAR_SHAPES = _cifar_shapes()
+
+
+def _cifar_planes(ba, bx, n, m, rows, device, seed=0):
+    """Integer-grid XNOR operands made on the card (65,536 rows of a
+    16384-wide input do not fit a host-side draw), as planes."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(bits, shape):
+        if bits == 1:
+            return torch.randint(0, 2, shape, generator=g,
+                                 device=device) * 2.0 - 1.0
+        lo, hi = int_range(bits, Coding.XNOR)
+        return 2.0 * torch.randint(lo // 2, hi // 2 + 1, shape, generator=g,
+                                   device=device)
+
+    cfg = BpbsConfig(ba=ba, bx=bx)
+    x = draw(bx, (rows, n))
+    if bx > 1:
+        x = x * (torch.rand(rows, n, generator=g, device=device) > 0.4)
+    xs, nu, _ = K.prepare_inputs(x, cfg)
+    ws, fs = K.prepare_weights(draw(ba, (n, m)), cfg)
+    escale = torch.rand(m, generator=g, device=device) * 1e-2
+    pbias = torch.randn(m, generator=g, device=device) * 3.0
+    return xs, ws, nu, fs, cfg, escale, pbias
+
+
+@pytest.mark.parametrize("rows", [1024, 65536])
+@pytest.mark.parametrize("case", CIFAR_SHAPES, ids=lambda c: c[0])
+def test_kernel_at_cifar_layer_shapes(cuda, case, rows):
+    """Each CIFAR layer shape against the plain version: bitwise without
+    the epilogue, and with its fused per-column BN scale/bias, activation
+    and B_y saturation within rtol/atol 1e-6 (relu and sign are exact, so
+    those are bitwise too)."""
+    _, ba, bx, n, m, act = case
+    xs, ws, nu, fs, cfg, es, pb = _cifar_planes(ba, bx, n, m, rows, cuda)
+    y = K.cima_mvm_planes(xs, ws, nu, fs, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(y, K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg))
+    by = 16 if bx + ba <= 5 else 32
+    y = K.cima_mvm_planes(xs, ws, nu, fs, cfg, es, pb, act, by)
+    yr = K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg, es, pb, act, by)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, yr, rtol=1e-6, atol=1e-6)
+    assert torch.equal(y, yr)
+    if act == "sign":
+        assert set(torch.unique(y).tolist()) <= {-1.0, 1.0}
+
+
+@pytest.mark.parametrize("net", [NETWORK_A, NETWORK_B], ids=lambda n: n.name)
+def test_reduced_cifar_forward_on_the_card(cuda, monkeypatch, net):
+    """cnn_forward on the kernel: 9 launches a forward, and logits bitwise
+    equal to the same forward on the kernel's plain version on the card
+    (every layer's epilogue is relu, sign or identity: exact)."""
+    net = net.reduced()
+    params = init_cnn(0, net, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    images = torch.randn(8, 32, 32, 3, generator=g, device=cuda)
+    before = K.cima_mvm_planes.launches
+    logits = cnn_forward(params, images, net)
+    torch.cuda.synchronize()
+    assert K.cima_mvm_planes.launches - before == 9
+    monkeypatch.setattr(K, "cima_mvm_planes", K.cima_mvm_planes_reference)
+    plain = cnn_forward(params, images, net)
+    assert torch.equal(logits, plain)
+
+
+def test_sqnr_point_on_the_card_equals_the_cpu(cuda):
+    """``sweep_fig7`` draws its operands on the card by default, and a
+    Fig. 7 point measured there equals the same operands on the CPU: the
+    BP/BS + ADC pipeline on integer grids is exact in float32, so only
+    ``sqnr_db``'s float32 means (another summation order) may differ."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, w = sqnr.random_operands(g, 64, 2304, 64, 4, 2, "and", sparsity=0.3)
+    assert x.device.type == w.device.type == "cuda"
+    on_card = sqnr.measure_sqnr(None, 2304, 4, 2, "and", operands=(x, w))
+    on_cpu = sqnr.measure_sqnr(None, 2304, 4, 2, "and",
+                               operands=(x.cpu(), w.cpu()))
+    assert on_card == pytest.approx(on_cpu, rel=1e-5)
+    assert on_card < 60                       # N = 2304 overflows the ADC
+    point, = sqnr.sweep_fig7(n_values=(255,), ba_values=(2,),
+                             bx_values=(2,), codings=("and",))
+    assert point.sqnr_db > 200                # N = 255 is bit-true
 
 
 def test_wrapper_rejects_a_cpu_operand_beside_cuda_ones(cuda):

@@ -42,6 +42,9 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.kernels.cima_mvm, repro_torch.models\n"
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.ops\n"
         "import repro_torch.serve, repro_torch.convert\n"
+        "import repro_torch.core.energy, repro_torch.core.sqnr\n"
+        "import repro_torch.core.sparsity, repro_torch.optim.qat\n"
+        "import repro_torch.configs.cifar_nets, repro_torch.models.cnn\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120,
