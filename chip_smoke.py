@@ -28,7 +28,14 @@ into ``build/`` (one ``nvcc`` per source, started together), then
   paper;
 * serves full-width olmo-1b from a program that streams its tail
   (``ServeConfig.cima_chips``), prices a traced decode step on the chip
-  model and holds its tokens to the all-resident engine's.
+  model and holds its tokens to the all-resident engine's;
+* trains: QAT of full-width Networks A and B (``train.cifar_qat.
+  qat_update``, 8 steps of 64 images) and full-width olmo-1b
+  (``train.build_train_step``, 3 steps of 8 x 256 tokens, remat on), each
+  held step by step to the same steps with the kernel routed to its
+  plain version, with Fig. 11's accuracies on held-out synthetic batches;
+  and ``train.trainer.train`` on reduced olmo-1b crashes at step 4,
+  resumes, and must land on the uninterrupted run's loss.
 
 Each phase prints one JSON line.  The card's name and power limit follow
 as ``nvidia-smi`` prints them, then the kernels line, and last
@@ -38,17 +45,23 @@ does a machine without a CUDA device, or a directory without the repo.
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
-import torch
+
+# cuBLAS's deterministic workspace, read when its handle is made: the
+# olmo-1b training phase runs under torch.use_deterministic_algorithms
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -60,9 +73,17 @@ from repro_torch.core.quant import Coding, int_range, quantize  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import cima_mvm as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
-from repro_torch.models import init_params  # noqa: E402
-from repro_torch.models.cnn import cnn_forward, init_cnn, update_bn_stats  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
+from repro_torch.models import init_params, loss_fn  # noqa: E402
+from repro_torch.models.cnn import (cnn_forward, cnn_loss, init_cnn,  # noqa: E402
+                                    update_bn_stats)
+from repro_torch.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
 from repro_torch.serve import ContinuousBatcher, Engine, ServeConfig  # noqa: E402
+from repro_torch.train import build_train_step, init_train_state  # noqa: E402
+from repro_torch.train import cifar_qat, step as train_step  # noqa: E402
+from repro_torch.train.cifar_qat import fig11_accuracy, qat_update  # noqa: E402
+from repro_torch.train.trainer import CrashInjected, TrainerConfig, train  # noqa: E402
+from repro_torch.tree import leaves, tree_map  # noqa: E402
 
 SOURCE = "src/repro_torch/kernels/csrc/cima_mvm.cu"
 REPLACES = "src/repro/kernels/cima_mvm.py:41"
@@ -91,6 +112,9 @@ MAIN_SHAPES = [("attn.qkvo", 2048, 2048, False, 64),
                ("mlp.down", 8192, 2048, False, 16),
                ("unembed", 2048, 50304, False, 1)]
 LAUNCHES_PER_FORWARD = sum(s[4] for s in MAIN_SHAPES)        # 113
+# rows of a main-shape launch: decode at batch 4, prefill-sized 128, and a
+# training step's 2,048 (LM_BATCH x LM_SEQ)
+MAIN_ROWS = (4, 128, 2048)
 # kernel instances the main shapes launch: cima_mvm<B_A, m16 tiles> at
 # B=4 (one tile) and B=128 (four), flash_bf16<head-dim bucket, kv tile>
 MAIN_INSTANCES = {"cima_mvm_kernel<4,1>", "cima_mvm_kernel<4,4>",
@@ -137,6 +161,21 @@ CIFAR_PAPER = {"cifar-net-a": (105.2, 23.0), "cifar-net-b": (5.31, 176.0)}
 CIFAR_COST = {"cifar-net-a": (E.NETWORK_A, dict(sparsity=0.5)),
               "cifar-net-b": (E.NETWORK_B, dict(sparsity=0.0, readout="abn",
                                                 overhead_cycles=149500))}
+# QAT of the CIFAR networks as examples/train_cifar_qat.py runs it: batch
+# 64 from DataConfig(kind="cifar_synthetic", seed=1), AdamW lr 1e-3,
+# warmup 5, no weight decay; Fig. 11's evaluation on 5 held-out batches
+QAT_STEPS = 8
+QAT_EVAL_BATCHES = 5
+# full-width olmo-1b training at examples/train_lm.py's defaults (seq
+# 256, batch 8, AdamW lr 3e-4, warmup 20, 200 steps planned)
+LM_STEPS = 3
+LM_SEQ, LM_BATCH = 256, 8
+# the stacked layers' projections run again in the backward pass under
+# cfg.remat (olmo-1b's default): 16 x 7 recomputed launches
+LM_LAUNCHES_PER_STEP = LAUNCHES_PER_FORWARD + 16 * 7              # 225
+# kernel route against plain route, per step's loss and gradient norm:
+# bitwise (the forward outputs are bitwise and the backward ops the same,
+# run under torch.use_deterministic_algorithms)
 # 590kb arrays of the streaming engine: full-width olmo-1b needs 8,978 at
 # B_A = 4 (512 a layer, 786 for the unembed), so the tail streams
 SERVE_CHIPS = 4096
@@ -338,7 +377,7 @@ def phase_main_shapes(peaks):
     rows = {}
     worst = 0.0
     for name, n, m, fused, per_fwd in MAIN_SHAPES:
-        for b in (4, 128):
+        for b in MAIN_ROWS:
             g = torch.Generator(device="cuda").manual_seed(n * 7 + m + b)
             x = torch.randn(b, n, generator=g, device="cuda")
             w = torch.randn(n, m, generator=g, device="cuda") * n ** -0.5
@@ -411,9 +450,11 @@ def device_profile(step, t_step_ms: float, steps: int = 3) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     busy_ms = busy_us / 1e3 / steps if kernels else None
+    cima_ms = sum(t for n, t in by_name.items() if "cima_mvm" in n)
     return dict(
         steps=steps, device_kernels_per_step=len(kernels) / steps,
         device_busy_ms_per_step=busy_ms,
+        cima_mvm_ms_per_step=cima_ms / 1e3 / steps,
         device_idle_share=(None if busy_ms is None
                            else 1.0 - busy_ms / t_step_ms),
         top_kernels_ms_per_step=[(n[:80], t / 1e3 / steps) for n, t in top])
@@ -808,15 +849,16 @@ def planted_faults(inputs, outs) -> dict:
 
 
 @contextlib.contextmanager
-def routed_launches(fn):
+def routed_launches(fn, keep=True):
     """Route the kernel backend's ``cima_mvm_planes`` calls to ``fn`` (the
-    kernel's wrapper or its plain version, on the same device) and record
-    each call's arguments and output, in call order."""
+    kernel's wrapper or its plain version, on the same device) and, with
+    ``keep``, record each call's arguments and output, in call order."""
     launch, calls = K.cima_mvm_planes, []
 
     def record(*args):
         out = fn(*args)
-        calls.append((args, out))
+        if keep:
+            calls.append((args, out))
         return out
 
     # the kernel's wrapper counts on whatever the module's name holds
@@ -1088,6 +1130,323 @@ def phase_serve_energy(arch="olmo-1b", chips=SERVE_CHIPS, cfg=None):
     return launches
 
 
+def snapshot(tree) -> list:
+    """The leaves of a parameter tree, detached copies, in tree order."""
+    return [t.detach().clone() for t in leaves(tree)]
+
+
+@contextlib.contextmanager
+def backward_marks(module, name: str):
+    """Wrap the loss function ``module.name`` that a training step calls:
+    each loss it returns under autograd reads the kernel's launch count
+    in a hook that fires as its backward pass starts.  Yields the list of
+    those counts, one per backward, so a step's launches split into its
+    forward's and its backward's."""
+    loss_of, marks = getattr(module, name), []
+
+    def marked(*args, **kw):
+        loss, aux = loss_of(*args, **kw)
+        if loss.requires_grad:
+            loss.register_hook(
+                lambda g: marks.append(K.cima_mvm_planes.launches))
+        return loss, aux
+
+    setattr(module, name, marked)
+    try:
+        yield marks
+    finally:
+        setattr(module, name, loss_of)
+
+
+def timed_fwd_bwd(loss_of, params, reps: int = 3) -> tuple:
+    """Median host-clock ms of a forward under autograd and of its
+    backward pass, each ending in a synchronize."""
+    fwd, bwd = [], []
+    for _ in range(reps):
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_of(p)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.autograd.grad(loss, leaves(p), allow_unused=True)
+        torch.cuda.synchronize()
+        fwd.append((t1 - t0) * 1e3)
+        bwd.append((time.perf_counter() - t1) * 1e3)
+        del p, loss
+    return statistics.median(fwd), statistics.median(bwd)
+
+
+def gap_sources(params, held_out, batches, net) -> dict:
+    """Fig. 11's accuracies of one set of parameters on ``held_out``,
+    taken apart to find where a chip-vs-ideal gap comes from: the kernel
+    and ``bpbs`` (the chip model's independent torch path, which shares
+    none of the kernel's glue), each with its per-bank ADC and with
+    ``ideal_adc``; the ideal integer model and float; and the kernel and
+    ideal model again with the running BN statistics replaced by the
+    mean of the training batches' own statistics."""
+    acc = {bk: fig11_accuracy(params, held_out, net, bk)
+           for bk in ("kernel", "bpbs", "digital_int", "digital")}
+    with accel.override(ideal_adc=True):
+        for bk in ("kernel", "bpbs"):
+            acc[f"{bk}_ideal_adc"] = fig11_accuracy(params, held_out, net, bk)
+    with torch.no_grad():
+        stats = [cnn_loss(params, b, net)[1]["bn_stats"] for b in batches]
+    calibrated = {"layers": [
+        {**p, "bn_mean": torch.stack([s[i][0] for s in stats]).mean(0),
+         "bn_var": torch.stack([s[i][1] for s in stats]).mean(0)}
+        for i, p in enumerate(params["layers"])]}
+    for bk in ("kernel", "digital_int"):
+        acc[f"{bk}_bn_calibrated"] = fig11_accuracy(calibrated, held_out,
+                                                    net, bk)
+    return acc
+
+
+def phase_train_cifar(nets=(NETWORK_A, NETWORK_B), batch=CIFAR_BATCH,
+                      steps=QAT_STEPS):
+    """QAT of the paper's CIFAR networks at full width on the kernel
+    (``train.cifar_qat.qat_update``, the main path), then the same steps
+    with the kernel routed to its plain version: losses, parameters and
+    running BN statistics equal after every step.  Launches of a step's
+    forward and backward counted apart, the step timed and profiled, and
+    Fig. 11's accuracies on held-out batches under the kernel, the ideal
+    integer model and float."""
+    data_cfg = DataConfig(kind="cifar_synthetic", global_batch=batch, seed=1)
+    batches = [make_batch(data_cfg, s, "cuda") for s in range(steps)]
+    held_out = [make_batch(data_cfg, 10_000 + i, "cuda")
+                for i in range(QAT_EVAL_BATCHES)]
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=steps,
+                          weight_decay=0.0)
+    rows, total = [], 0
+    for net in nets:
+        params = init_cnn(0, net, device="cuda")
+        opt = init_opt_state(params)
+        torch.cuda.synchronize()
+
+        # the main path: counts at 0 just before, read just after
+        K.cima_mvm_planes.launches = 0
+        traj, losses, step_ms, per_step = [], [], [], []
+        with backward_marks(cifar_qat, "cnn_loss") as marks:
+            for b in batches:
+                n0 = K.cima_mvm_planes.launches
+                t0 = time.perf_counter()
+                params, opt, m = qat_update(params, opt, b, net, opt_cfg)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                n1 = K.cima_mvm_planes.launches
+                per_step.append({"forward": marks[-1] - n0,
+                                 "backward": n1 - marks[-1]})
+                losses.append(m["loss"])
+                traj.append(snapshot(params))
+        launches = K.cima_mvm_planes.launches
+        total += launches
+        check(len(marks) == steps, f"{net.name}: {len(marks)} backward "
+              f"passes in {steps} QAT steps")
+        check(per_step == [{"forward": CIFAR_LAUNCHES, "backward": 0}] * steps,
+              f"{net.name}: cima_mvm launches per QAT step {per_step}")
+        losses = torch.stack(losses).tolist()
+        check(all(np.isfinite(losses)), f"{net.name}: loss {losses}")
+
+        # the same steps on the kernel's plain version
+        plain = init_cnn(0, net, device="cuda")
+        popt = init_opt_state(plain)
+        worst, equal = 0.0, True
+        with routed_launches(K.cima_mvm_planes_reference, keep=False):
+            for s, b in enumerate(batches):
+                plain, popt, pm = qat_update(plain, popt, b, net, opt_cfg)
+                equal &= float(pm["loss"]) == losses[s]
+                for a, c in zip(snapshot(plain), traj[s]):
+                    equal &= bool(torch.equal(a, c))
+                    worst = max(worst, float((a - c).abs().max()))
+        check(K.cima_mvm_planes.launches == launches,
+              f"{net.name}: the plain route launched the kernel")
+        check(equal, f"{net.name}: QAT on the kernel differs from its "
+              f"plain version (max abs {worst})")
+        del traj, plain, popt
+
+        t_fwd, t_bwd = timed_fwd_bwd(
+            lambda p: cnn_loss(p, batches[0], net)[0], params)
+        t_step = statistics.median(step_ms[1:])
+        state = [params, opt]
+
+        def one_step():
+            state[0], state[1], _ = qat_update(state[0], state[1], batches[0],
+                                               net, opt_cfg)
+
+        profile = device_profile(one_step, t_step, steps=2)
+        acc = gap_sources(params, held_out, batches, net)
+        row = dict(
+            net=net.name, batch=batch, steps=steps, ba=net.ba, bx=net.bx,
+            readout=net.readout, cima_mvm_launches=launches,
+            launches_per_step=per_step[0], loss_first=losses[0], loss_last=losses[-1], losses=losses,
+            equal_to_plain_route=equal, max_abs_diff_vs_plain_route=worst,
+            ms_per_step_median=t_step, ms_per_step=step_ms,
+            images_per_s=batch / t_step * 1e3,
+            forward_ms=t_fwd, backward_ms=t_bwd, step_profile=profile,
+            fig11_accuracy_synthetic=acc,
+            chip_vs_ideal_gap=abs(acc["kernel"] - acc["digital_int"]),
+            chip_vs_ideal_gap_bn_calibrated=abs(
+                acc["kernel_bn_calibrated"]
+                - acc["digital_int_bn_calibrated"]),
+            note="synthetic class-template data, not CIFAR-10")
+        emit("train_cifar", **row)
+        rows.append(row)
+        del params, opt, state
+        torch.cuda.empty_cache()
+    return rows, total
+
+
+def lm_run(cfg, batches, opt_cfg, route=None):
+    """``LM_STEPS`` train steps of full-width olmo-1b from seed 0: per step
+    the loss, gradient norm, kernel launches (the forward's and, remat's
+    recomputation included, the backward's) and host-clock ms.  ``route``
+    routes the kernel's launches to another function."""
+    state = init_train_state(init_params(cfg, 0, device="cuda"))
+    step_fn = build_train_step(cfg, opt_cfg)
+    scope = (routed_launches(route, keep=False) if route is not None
+             else contextlib.nullcontext())
+    out = []
+    torch.cuda.synchronize()
+    with scope, backward_marks(train_step, "loss_fn") as marks:
+        for b in batches:
+            n0 = K.cima_mvm_planes.launches
+            t0 = time.perf_counter()
+            state, m = step_fn(state, b)
+            torch.cuda.synchronize()
+            n1 = K.cima_mvm_planes.launches
+            out.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                            launches=n1 - n0,
+                            launches_forward=marks[-1] - n0,
+                            launches_backward_remat=n1 - marks[-1],
+                            loss=float(m["loss"]),
+                            grad_norm=float(m["grad_norm"])))
+    check(len(marks) == len(batches),
+          f"olmo-1b: {len(marks)} backward passes in {len(batches)} steps")
+    return state, out
+
+
+def phase_train_lm():
+    """Full-width olmo-1b trained on the kernel (``build_train_step`` with
+    AdamW, remat on: the main path), then the same steps with the kernel
+    routed to its plain version; loss and gradient norm of each step
+    compared bitwise, both runs under torch.use_deterministic_algorithms.
+    Launches per step, ms, tokens/s, peak device memory, and a profiled
+    step."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        return train_lm()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def train_lm():
+    cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
+    data_cfg = DataConfig(seq_len=LM_SEQ, global_batch=LM_BATCH,
+                          vocab=cfg.vocab, seed=0)
+    batches = [make_batch(data_cfg, s, "cuda") for s in range(LM_STEPS)]
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=200)
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: counts at 0 just before, read just after
+    K.cima_mvm_planes.launches = 0
+    state, steps = lm_run(cfg, batches, opt_cfg)
+    launches = K.cima_mvm_planes.launches
+    peak = torch.cuda.max_memory_allocated()
+    split = [(s["launches_forward"], s["launches_backward_remat"])
+             for s in steps]
+    check(split == [(LAUNCHES_PER_FORWARD,
+                     LM_LAUNCHES_PER_STEP - LAUNCHES_PER_FORWARD)] * LM_STEPS,
+          f"olmo-1b train step launches (forward, backward) {split}")
+    check(all(np.isfinite([s["loss"] for s in steps])),
+          f"olmo-1b losses {steps}")
+    n_params = sum(t.numel() for t in leaves(state.params))
+
+    t_fwd, t_bwd = timed_fwd_bwd(lambda p: loss_fn(p, batches[0], cfg)[0],
+                                 state.params, reps=2)
+    t_step = statistics.median(s["ms"] for s in steps[1:])
+    step_fn = build_train_step(cfg, opt_cfg)
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step_fn(holder[0], batches[0])
+
+    profile = device_profile(one_step, t_step, steps=1)
+    del state, holder
+    torch.cuda.empty_cache()
+
+    before = K.cima_mvm_planes.launches
+    _, plain = lm_run(cfg, batches, opt_cfg, route=K.cima_mvm_planes_reference)
+    check(K.cima_mvm_planes.launches == before,
+          "the plain route launched the kernel")
+    for a, b in zip(steps, plain):
+        for k in ("loss", "grad_norm"):
+            check(a[k] == b[k],
+                  f"olmo-1b {k} on the kernel {a[k]} vs plain {b[k]}")
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    emit("train_lm", config="olmo-1b", layers=cfg.n_layers,
+         d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab, seq=LM_SEQ,
+         batch=LM_BATCH, remat=cfg.remat, parameters=n_params,
+         cima_mvm_launches=launches,
+         launches_per_step={"forward": split[0][0],
+                            "backward_remat": split[0][1]},
+         steps=steps, plain_route=plain, equal_to_plain_route_bitwise=True,
+         ms_per_step_median=t_step,
+         tokens_per_s=LM_SEQ * LM_BATCH / t_step * 1e3,
+         forward_ms=t_fwd, backward_ms=t_bwd, step_profile=profile,
+         max_memory_allocated_bytes=peak, device_memory_bytes=total_mem)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_trainer_resume():
+    """``train()`` on reduced olmo-1b with the kernel backend, into a
+    directory under build/: an uninterrupted 6-step run, then a run that
+    crashes at step 4 and resumes; the final loss must be the
+    uninterrupted run's and the history must resume at step 4.  A
+    ProgramManager passed in counts one invalidation per step."""
+    cfg = get_config("olmo-1b").reduced().with_accel("kernel", ba=4, bx=4)
+    data_cfg = DataConfig(seq_len=16, global_batch=4, vocab=cfg.vocab,
+                          seed=11)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6)
+    per_step = cfg.n_layers * 7 + 1
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    quiet = lambda s: None                              # noqa: E731
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        def tcfg(name, crash=None):
+            return TrainerConfig(total_steps=6, ckpt_dir=f"{tmp}/{name}",
+                                 ckpt_every=2, log_every=100,
+                                 crash_at_step=crash)
+
+        # the main path: counts at 0 just before, read just after
+        K.cima_mvm_planes.launches = 0
+        _, ref = train(cfg, data_cfg, opt_cfg, tcfg("ref"), log_fn=quiet)
+        launches = K.cima_mvm_planes.launches
+        check(launches == 6 * per_step, f"trainer launched {launches}")
+        pm = accel.ProgramManager(cfg)
+        crashed = False
+        try:
+            train(cfg, data_cfg, opt_cfg, tcfg("crash", 4), log_fn=quiet,
+                  program_manager=pm)
+        except CrashInjected:
+            crashed = True
+        check(crashed, "no injected crash")
+        check(pm.invalidations == 4,
+              f"{pm.invalidations} invalidations in 4 steps")
+        _, res = train(cfg, data_cfg, opt_cfg, tcfg("crash"), log_fn=quiet)
+    check(res[0]["step"] == 4, f"resumed at step {res[0]['step']}")
+    check(ref[-1]["step"] == res[-1]["step"] == 5, "runs end at step 5")
+    check(res[-1]["loss"] == ref[-1]["loss"],
+          f"resumed final loss {res[-1]['loss']} vs {ref[-1]['loss']}")
+    emit("trainer_resume", config="olmo-1b reduced", backend="kernel",
+         steps=6, crash_at_step=4, resumed_at_step=res[0]["step"],
+         final_loss=res[-1]["loss"], uninterrupted_final_loss=ref[-1]["loss"],
+         losses=[h["loss"] for h in ref],
+         invalidations_in_4_steps=pm.invalidations,
+         cima_mvm_launches=launches, launches_per_step=per_step)
+    return launches
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1102,23 +1461,39 @@ def main():
     fa_rows, fa_launches = phase_flash_main_shapes(peaks)
     cifar_rows, cifar_launches, cifar_err = phase_cifar(peaks)
     phase_serve_energy()
+    qat_rows, qat_launches = phase_train_cifar()
+    lm_launches = phase_train_lm()
+    trainer_launches = phase_trainer_resume()
     # one decode step's worth of launches at B=4, from the per-shape times
     step = {k: sum(rows[(s[0], 4)][k] * s[4] for s in MAIN_SHAPES)
             for k in ("ms", "plain_ms", "bound_ms")}
     step_bound_by = ("bytes" if all(rows[(s[0], 4)]["bound_by"] == "bytes"
                                     for s in MAIN_SHAPES) else "operations")
+    # one olmo-1b training step's launches at 2,048 rows: the forward's and,
+    # under remat, the stacked layers' again (every shape but the unembed)
+    train = {k: sum(rows[(s[0], 2048)][k] * s[4] * (1 if s[0] == "unembed"
+                                                    else 2)
+                    for s in MAIN_SHAPES)
+             for k in ("ms", "plain_ms", "bound_ms")}
     fa32k = fa_rows[0]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [{
         "name": "cima_mvm", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches + cifar_launches,
+        "replaces": REPLACES,
+        "launches": (launches + cifar_launches + qat_launches + lm_launches
+                     + trainer_launches),
         "max_abs_err": max(err_cases, err_main, cifar_err),
         "ms": step["ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step_bound_by,
         "library_ms": None,
         "per": "one decode step's 113 launches at B=4; launches: the "
-               "16-forward generate plus one CIFAR Network A and B "
-               "forward (9 each)",
+               "16-forward generate, one CIFAR Network A and B forward (9 "
+               "each), 8 QAT steps of each (9 each), 3 olmo-1b train steps "
+               "(225 each) and the reduced trainer's 6 steps (29 each)",
+        "train_step_ms": train["ms"], "train_step_plain_ms": train["plain_ms"],
+        "train_step_bound_ms": train["bound_ms"],
+        "qat_launches_per_step": {r["net"]: r["launches_per_step"]
+                                  for r in qat_rows},
         "cifar_ms_per_forward": {r["net"]: r["kernel_ms_sum"]
                                  for r in cifar_rows},
         "cifar_plain_ms_per_forward": {r["net"]: r["kernel_plain_ms_sum"]

@@ -1,7 +1,5 @@
 """The single matmul entry point every managed projection goes through.
-Port of ``repro.accel.dispatch`` (forward only: serving runs under
-``torch.inference_mode()``; the straight-through gradient comes with the
-training slice).
+Port of ``repro.accel.dispatch``.
 
 ``matmul`` resolves the effective spec (applying any scoped
 :func:`~repro_torch.accel.context.override`), validates a compiled weight
@@ -9,6 +7,17 @@ training slice).
 :func:`~repro_torch.accel.context.trace` scope (with the image's reload
 schedule and the measured input sparsity and all-zero planes) and calls
 the registered backend.
+
+Non-digital backends get straight-through-estimator (STE) gradients: the
+backward pass is that of the plain float GEMM (``dx = g wᵀ``,
+``dw = Σ x ⊗ g`` in float32), which is what quantization-aware training
+of the paper's CIFAR networks uses.  Those GEMMs follow the process's
+TF32 setting, which torch leaves off; the reference holds them to
+float32 products.  When autograd records the call, a
+``post`` epilogue runs unfused after the STE matmul, under autograd, as
+the reference differentiates matmul-then-epilogue; otherwise (serving
+under ``inference_mode``, or nothing requires grad) the backend runs it
+fused, as before.
 """
 from __future__ import annotations
 
@@ -96,6 +105,32 @@ def _record_mvm(spec: ExecSpec, x: torch.Tensor, w: torch.Tensor,
         planes_total=total))
 
 
+class _StraightThrough(torch.autograd.Function):
+    """The backend's forward on the float32 operands; the backward of the
+    plain float GEMM (the reference's ``custom_vjp`` ``_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, fn, spec, ectx):
+        ctx.save_for_backward(x, w)
+        return fn(x, w, spec, ectx)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.einsum("...m,nm->...n", g, w)
+        if ctx.needs_input_grad[1]:
+            dw = torch.einsum("...n,...m->nm", x, g)
+        return dx, dw, None, None, None
+
+
+def _records_grad(*ts) -> bool:
+    """Does autograd record an op on these operands?"""
+    return torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad for t in ts)
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
            ctx: Optional[ExecContext] = None, *, dtype=None, image=None,
            post=None) -> torch.Tensor:
@@ -103,9 +138,10 @@ def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
 
     * ``spec=None`` means *digital by design*: a plain GEMM at ``dtype``
       (default ``x.dtype``), exempt from overrides and tracing.
-    * A digital spec computes at ``dtype`` and returns that dtype.
-    * Any other backend quantizes per its spec, computes in float32 and
-      returns float32 — callers cast.
+    * A digital spec computes at ``dtype`` and returns that dtype; it
+      takes no STE (autograd differentiates the GEMM itself).
+    * Any other backend quantizes per its spec, computes in float32 with
+      STE gradients and returns float32 — callers cast.
     * ``image``: this projection's compiled
       :class:`~repro_torch.accel.program.CimaImage`; used when it matches
       the resolved spec (bit-for-bit the on-the-fly result, zero weight
@@ -113,7 +149,10 @@ def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
     * ``post``: a :class:`~repro_torch.core.datapath.Postreduce` epilogue
       run fused at the backend; the result is bit-for-bit
       ``post.apply(matmul(x, w, spec))`` wherever the backend composes
-      the two, and fused into the kernel where it is per column.
+      the two, and fused into the kernel where it is per column.  When
+      autograd records the call, the backend runs without it and
+      ``post.apply`` follows under autograd (STE through the matmul, the
+      true gradient through the epilogue and its registers).
     """
     if spec is None:
         dt = dtype or x.dtype
@@ -133,9 +172,17 @@ def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
     ctx = ExecContext() if ctx is None else ctx
     if image is not None:
         ctx = dataclasses.replace(ctx, image=image)
-    if post is not None:
-        ctx = dataclasses.replace(ctx, post=post)
     if spec.is_digital:
         dt = dtype or x.dtype
+        if post is not None:
+            ctx = dataclasses.replace(ctx, post=post)
         return fn(x.to(dt), w.to(dt), spec, ctx)
-    return fn(x.to(torch.float32), w.to(torch.float32), spec, ctx)
+    xf, wf = x.to(torch.float32), w.to(torch.float32)
+    regs = (post.scale, post.bias) if post is not None else ()
+    if _records_grad(xf, wf, *regs):
+        y = _StraightThrough.apply(xf, wf, fn, spec,
+                                   dataclasses.replace(ctx, post=None))
+        return post.apply(y, spec.bx, spec.ba) if post is not None else y
+    if post is not None:
+        ctx = dataclasses.replace(ctx, post=post)
+    return fn(xf, wf, spec, ctx)

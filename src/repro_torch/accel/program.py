@@ -444,10 +444,12 @@ class ProgramManager:
         self._program: Optional[CimaProgram] = None
         self._dirty = True
         self.version = 0
+        self.invalidations = 0
 
     def invalidate(self) -> None:
         """Weights changed: the compiled images are stale."""
         self._dirty = True
+        self.invalidations += 1
 
     def ensure(self, params) -> CimaProgram:
         """The current program for ``params`` (rebuilt only if stale)."""

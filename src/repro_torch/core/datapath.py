@@ -5,7 +5,9 @@ After BP/BS recombination the datapath applies, in the chip's order:
 scale -> bias -> activation -> saturation to B_y bits (16 b when
 ``B_X + B_A <= 5``, else 32 b).  :class:`Postreduce` is one datapath
 program, the ``post=`` argument of :func:`repro_torch.accel.matmul`;
-:func:`fold_batchnorm` computes its registers from BN statistics.
+:func:`fold_batchnorm` computes its registers from BN statistics.  Every
+stage is differentiable under autograd, tensor registers included (a
+residual stream on the bias port), with the reference's gradients.
 """
 from __future__ import annotations
 
@@ -22,7 +24,14 @@ def output_bits(bx: int, ba: int) -> int:
 
 
 def saturate(y: torch.Tensor, bits: int) -> torch.Tensor:
+    """Clip to the signed ``bits``-bit output word.  Under autograd it is
+    ``minimum(maximum(y, lo), hi)``, as ``jnp.clip`` computes it, so a
+    value exactly on a bound gets the reference's gradient 1/2 (the two
+    operands of a tie share it); ``torch.clamp`` would give 1."""
     hi = 2.0 ** (bits - 1) - 1
+    if y.requires_grad:
+        return torch.minimum(torch.maximum(y, y.new_full((), -(hi + 1))),
+                             y.new_full((), hi))
     return torch.clamp(y, -(hi + 1), hi)
 
 

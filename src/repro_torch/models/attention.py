@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .layers import apply_rope, init_linear, linear
 
@@ -71,10 +72,13 @@ def _dense_attention(q, k, v, *, causal, window, q_offset, scale, dtype,
 
 def _chunked_attention(q, k, v, *, causal, window, q_offset, scale, dtype,
                        chunk=DEFAULT_CHUNK, kv_positions=None,
-                       q_positions=None, bf16_probs=False):
+                       q_positions=None, scan_remat=False, bf16_probs=False):
     """Online softmax over KV chunks: never materializes the full score
     matrix.  ``bf16_probs`` feeds the probabilities and V to the PV
-    product in bf16 with f32 accumulation (``l`` stays f32)."""
+    product in bf16 with f32 accumulation (``l`` stays f32).
+    ``scan_remat`` checkpoints each chunk step when autograd records the
+    pass: its scores and probabilities are recomputed in the backward
+    pass instead of saved (the same forward values)."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -84,18 +88,8 @@ def _chunked_attention(q, k, v, *, causal, window, q_offset, scale, dtype,
         kv_positions = kv_positions[None]                     # [B?, Sk]
     qg = q.reshape(b, sq, kv, g, d).to(torch.float32)
     dv = v.shape[-1]
-    m = torch.full((b, kv, g, sq), -1e30, device=q.device)
-    l = torch.zeros((b, kv, g, sq), device=q.device)
-    acc = torch.zeros((b, kv, g, sq, dv), device=q.device)
-    for c0 in range(0, sk, chunk):
-        kj = kv_positions[:, c0:c0 + chunk]
-        kch = k[:, c0:c0 + chunk].to(torch.float32)
-        vch = v[:, c0:c0 + chunk].to(torch.float32)
-        pad = chunk - kch.shape[1]
-        if pad:     # the reference pads the last chunk with hidden slots
-            kj = torch.nn.functional.pad(kj, (0, pad), value=-1)
-            kch = torch.nn.functional.pad(kch, (0, 0, 0, 0, 0, pad))
-            vch = torch.nn.functional.pad(vch, (0, 0, 0, 0, 0, pad))
+
+    def step(m, l, acc, kj, kch, vch):
         s = torch.einsum("bqkgd,bskd->bkgqs", qg, kch) * scale
         mask = _pos_mask(q_positions, kj, causal=causal, window=window)
         s = torch.where(mask, s, -1e30)
@@ -110,21 +104,42 @@ def _chunked_attention(q, k, v, *, causal, window, q_offset, scale, dtype,
             vch = vch.to(torch.bfloat16).to(torch.float32)
         acc = alpha[..., None] * acc + torch.einsum("bkgqs,bskd->bkgqd", p,
                                                     vch)
-        m = m_new
+        return m_new, l, acc
+
+    remat = scan_remat and torch.is_grad_enabled()
+    m = torch.full((b, kv, g, sq), -1e30, device=q.device)
+    l = torch.zeros((b, kv, g, sq), device=q.device)
+    acc = torch.zeros((b, kv, g, sq, dv), device=q.device)
+    for c0 in range(0, sk, chunk):
+        kj = kv_positions[:, c0:c0 + chunk]
+        kch = k[:, c0:c0 + chunk].to(torch.float32)
+        vch = v[:, c0:c0 + chunk].to(torch.float32)
+        pad = chunk - kch.shape[1]
+        if pad:     # the reference pads the last chunk with hidden slots
+            kj = torch.nn.functional.pad(kj, (0, pad), value=-1)
+            kch = torch.nn.functional.pad(kch, (0, 0, 0, 0, 0, pad))
+            vch = torch.nn.functional.pad(vch, (0, 0, 0, 0, 0, pad))
+        if remat:
+            m, l, acc = checkpoint(step, m, l, acc, kj, kch, vch,
+                                   use_reentrant=False)
+        else:
+            m, l, acc = step(m, l, acc, kj, kch, vch)
     o = acc / torch.clamp_min(l, 1e-30)[..., None]
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(dtype)
 
 
 def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, scale=None,
          dtype=torch.bfloat16, chunk=DEFAULT_CHUNK, kv_positions=None,
-         q_positions=None, bf16_probs=False):
+         q_positions=None, scan_remat=False, bf16_probs=False):
     """Dense attention up to ``2 * chunk`` keys, chunked beyond
-    (``bf16_probs`` applies to the chunked path, as in the reference)."""
+    (``scan_remat`` and ``bf16_probs`` apply to the chunked path, as in
+    the reference)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     fn = _dense_attention if k.shape[1] <= 2 * chunk else _chunked_attention
     kw = ({} if fn is _dense_attention
-          else {"chunk": chunk, "bf16_probs": bf16_probs})
+          else {"chunk": chunk, "scan_remat": scan_remat,
+                "bf16_probs": bf16_probs})
     return fn(q, k, v, causal=causal, window=window, q_offset=q_offset,
               scale=scale, dtype=dtype, kv_positions=kv_positions,
               q_positions=q_positions, **kw)
@@ -211,7 +226,8 @@ def attention(params, x, cfg, positions, cache: Optional[KVCache] = None,
             kv_pos = torch.where(pad_mask, positions, -1)
         o = sdpa(q, k, v, causal=cfg.causal, window=cfg.attn_window,
                  q_offset=0, dtype=dtype, kv_positions=kv_pos,
-                 q_positions=q_pos, bf16_probs=cfg.attn_bf16_probs)
+                 q_positions=q_pos, scan_remat=cfg.attn_scan_remat,
+                 bf16_probs=cfg.attn_bf16_probs)
         if cache is not None:   # prefill: fill the (possibly ring) cache
             length = cache.k.shape[1]
             kc, vc = k, v

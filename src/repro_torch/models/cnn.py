@@ -13,10 +13,11 @@ into a :class:`~repro_torch.core.datapath.Postreduce`, and scale, bias,
 activation and B_y saturation run as the matmul's fused epilogue (inside
 the CUDA kernel on the ``kernel`` backend), so an image's logits never
 depend on its batch neighbours.  ``train=True`` normalizes with live
-batch statistics and returns them for :func:`update_bn_stats`.  The
-forward of ``train=True`` is ported; gradients through
-``accel.matmul`` (its straight-through estimator) wait for the port's
-training slice.
+batch statistics and returns them for :func:`update_bn_stats`; under
+autograd it is the QAT forward: the straight-through ``accel.matmul``
+(the kernel forward, float32 GEMM backward), batch norm, ``ste_sign`` or
+relu, and the 2x2 max-pool as ``amax``, which splits a tie's gradient
+evenly as ``jnp.max`` does (Network B's ±1 activations tie as a rule).
 """
 from __future__ import annotations
 

@@ -2,6 +2,8 @@
 
 * ``init_params(cfg, gen, device)``   — the parameter tree (same nested
   dict keys as the reference, stacked ``"scanned"`` layer leaves).
+* ``forward / loss_fn`` — full-sequence logits and the next-token loss
+  (training; ``cfg.remat`` checkpoints each layer under autograd).
 * ``init_cache / prefill / decode_step`` — serving with a KV cache.
 * ``prefill_resume`` — continue a prefill on top of a cache.
 * ``slice_slot / splice_slot`` — per-slot cache surgery for slot-level
@@ -16,6 +18,8 @@ import functools
 from typing import Any, NamedTuple, Optional, Union
 
 import torch
+
+from repro_torch.tree import tree_map
 
 from . import transformer as tfm
 from .layers import (embed, init_embedding, init_linear, init_norm, linear,
@@ -59,6 +63,42 @@ def _lm_logits(params, x, cfg, dtype):
     if cfg.tie_embeddings:
         return unembed(params["embed"], x, spec, dtype)
     return linear(params["lm_head"], x, spec, dtype).to(torch.float32)
+
+
+# ---------------------------------------------------------------- training
+
+def forward(params, tokens: torch.Tensor, cfg):
+    """Full-sequence logits [B, S, vocab] (training / teacher forcing) and
+    the auxiliary loss (0 for the dense family)."""
+    _supported(cfg)
+    dtype = _dtype(cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = embed(params["embed"], tokens, dtype)
+    x, _ = tfm.apply_stack(params["stack"], x, cfg, positions, dtype=dtype)
+    x = norm(params["final_norm"], x, cfg.norm)
+    logits = _lm_logits(params, x, cfg, dtype)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params, batch: dict, cfg):
+    """Next-token cross entropy (+ 0.01 x the aux loss).  ``batch``:
+    ``tokens`` [B, S] (+ optional ``loss_mask``).  Returns (loss,
+    metrics) with ``loss``, ``ce``, ``aux`` and ``tokens`` (the masked
+    target count)."""
+    tokens = batch["tokens"]
+    logits, aux = forward(params, tokens, cfg)
+    targets = tokens[:, 1:].long()
+    lg = logits[:, :-1]
+    logz = torch.logsumexp(lg, dim=-1)
+    tgt_logit = torch.take_along_dim(lg, targets[..., None], dim=-1)[..., 0]
+    nll = logz - tgt_logit
+    mask = batch.get("loss_mask")
+    mask = (torch.ones_like(targets, dtype=torch.float32) if mask is None
+            else mask[:, 1:].to(torch.float32))
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    ce = (nll * mask).sum() / denom
+    loss = ce + 0.01 * aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": denom}
 
 
 # ---------------------------------------------------------------- serving
@@ -151,23 +191,11 @@ def prefill_resume(params, tokens: torch.Tensor, cfg, cache: DecodeCache):
 
 # ------------------------------------------------- per-slot cache splicing
 
-def _tree_map(fn, *trees):
-    """``fn`` over the tensors of same-shaped trees of dicts, lists and
-    (named) tuples."""
-    t = trees[0]
-    if isinstance(t, torch.Tensor):
-        return fn(*trees)
-    if isinstance(t, dict):
-        return {k: _tree_map(fn, *[x[k] for x in trees]) for k in t}
-    parts = [_tree_map(fn, *xs) for xs in zip(*trees)]
-    return type(t)(*parts) if hasattr(t, "_fields") else type(t)(parts)
-
-
 def _map_slot(fn, caches):
     """``fn(batch_axis, *leaves)`` over one or more ``DecodeCache.layers``
     trees: prefix/suffix block caches carry the batch at axis 0, stacked
     ``"scanned"`` caches at axis 1."""
-    return {part: _tree_map(functools.partial(fn, 1 if part == "scanned"
+    return {part: tree_map(functools.partial(fn, 1 if part == "scanned"
                                               else 0),
                             *[c[part] for c in caches])
             for part in ("prefix", "scanned", "suffix")}

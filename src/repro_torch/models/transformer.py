@@ -4,15 +4,18 @@
 The reference compiles a stack with ``lax.scan`` over stacked layer
 parameters; here :func:`apply_stack` loops over the leading layer dim of
 the stacked ``"scanned"`` leaves (images and caches included), so every
-layer dispatches, and records, on its own.
+layer dispatches, and records, on its own.  ``cfg.remat`` checkpoints
+each stacked layer when autograd records the pass.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.accel import CimaImage
+from repro_torch.tree import leaves
 
 from . import attention as attn_mod
 from .layers import init_mlp, init_norm, mlp, norm
@@ -108,24 +111,43 @@ def layer_slice(tree, i: int):
     return tree[i]
 
 
+def _remat(cfg, params: dict, x, cache) -> bool:
+    """Checkpoint the stacked layers (``cfg.remat``, the reference's
+    ``jax.checkpoint`` around its scan body): only when autograd records
+    this pass, and never on a cached (serving) pass."""
+    return (cfg.remat and cache is None and torch.is_grad_enabled()
+            and (x.requires_grad
+                 or any(t.requires_grad for t in leaves(params))))
+
+
 def apply_stack(params: dict, x, cfg, positions, cache: Optional[dict] = None,
                 cache_pos=None, dtype=torch.bfloat16, pad_mask=None):
-    """Returns (x, cache); the cache (when given) is updated in place."""
+    """Returns (x, cache); the cache (when given) is updated in place.
+    Under ``cfg.remat`` and autograd each stacked layer is a
+    ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward pass (so its projections launch again there)."""
     layout = stack_layout(cfg)
 
     def run(kind, p, x, c):
         return apply_block(p, x, cfg, kind, positions, c, cache_pos, dtype,
                            pad_mask=pad_mask)
 
+    remat = _remat(cfg, params["scanned"], x, cache)
     for i, kind in enumerate(layout.prefix):
         x, _ = run(kind, params["prefix"][i], x,
                    cache["prefix"][i] if cache is not None else None)
     for layer in range(layout.n_rep):
         for j, kind in enumerate(layout.unit):
             key = f"u{j}"
+            p = layer_slice(params["scanned"][key], layer)
+            if remat:
+                x = checkpoint(lambda x_, p_=p, k_=kind: run(k_, p_, x_,
+                                                             None)[0],
+                               x, use_reentrant=False)
+                continue
             c = (layer_slice(cache["scanned"][key], layer)
                  if cache is not None else None)
-            x, _ = run(kind, layer_slice(params["scanned"][key], layer), x, c)
+            x, _ = run(kind, p, x, c)
     for i, kind in enumerate(layout.suffix):
         x, _ = run(kind, params["suffix"][i], x,
                    cache["suffix"][i] if cache is not None else None)

@@ -1,7 +1,11 @@
-"""Training-side pieces of the port.  So far only the binary
-activation's straight-through estimator that the CIFAR networks'
-``train=True`` forward uses; the optimizer and QAT scopes come with the
-training slice."""
-from .qat import ste_sign
+"""Training-side pieces of the port: AdamW (:mod:`.adamw`), gradient
+compression with error feedback (:mod:`.compression`) and the
+quantization-aware-training activations (:mod:`.qat`)."""
+from .adamw import AdamWConfig, OptState, apply_updates, init_opt_state
+from .compression import (CompressionConfig, compress_decompress,
+                          init_error_state)
+from .qat import fake_quant, ste_sign
 
-__all__ = ["ste_sign"]
+__all__ = ["AdamWConfig", "OptState", "apply_updates", "init_opt_state",
+           "CompressionConfig", "compress_decompress", "init_error_state",
+           "fake_quant", "ste_sign"]

@@ -1,0 +1,9 @@
+"""Training of the port: the train state (:mod:`.state`), the eager train
+and eval steps (:mod:`.step`), atomic async checkpoints
+(:mod:`.checkpoint`), the fault-tolerant loop (:mod:`.trainer`) and QAT
+of the paper's CIFAR networks (:mod:`.cifar_qat`)."""
+from .state import TrainState, init_train_state
+from .step import build_eval_step, build_train_step
+
+__all__ = ["TrainState", "init_train_state", "build_eval_step",
+           "build_train_step"]

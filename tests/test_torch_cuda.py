@@ -282,6 +282,72 @@ def test_reduced_model_kernel_equals_plain_path(cuda):
     np.testing.assert_array_equal(got, plain)
 
 
+@pytest.mark.parametrize("act", [None, "relu", "silu"])
+def test_ste_gradients_kernel_equal_plain_version(cuda, monkeypatch, act):
+    """The straight-through ``accel.matmul`` on the kernel backend: one
+    launch in the forward, none in the backward, and output and gradients
+    (x, w and the epilogue registers) bitwise equal to the same call with
+    the kernel routed to its plain version on the card."""
+    spec = accel.ExecSpec(backend="kernel", ba=4, bx=4)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x0 = torch.randn(64, 2400, generator=g, device=cuda)
+    w0 = torch.randn(2400, 96, generator=g, device=cuda) * 0.02
+    s0 = torch.rand(96, generator=g, device=cuda) + 0.5
+    b0 = torch.randn(96, generator=g, device=cuda)
+    up = torch.randn(64, 96, generator=g, device=cuda)
+
+    def run():
+        ts = [t.clone().requires_grad_() for t in (x0, w0, s0, b0)]
+        post = (accel.Postreduce(scale=ts[2], bias=ts[3], act=act,
+                                 saturate=True) if act else None)
+        launches = lambda: getattr(K.cima_mvm_planes, "launches", 0)  # noqa
+        before = launches()
+        y = accel.matmul(ts[0], ts[1], spec, post=post)
+        torch.cuda.synchronize()
+        fwd = launches() - before
+        (y * up).sum().backward()
+        torch.cuda.synchronize()
+        bwd = launches() - before - fwd
+        return y.detach(), [t.grad for t in ts[:4 if act else 2]], fwd, bwd
+
+    y, grads, fwd, bwd = run()
+    assert (fwd, bwd) == (1, 0)
+    monkeypatch.setattr(K, "cima_mvm_planes", K.cima_mvm_planes_reference)
+    y_plain, grads_plain, _, _ = run()
+    assert torch.equal(y, y_plain)
+    for a, b in zip(grads, grads_plain):
+        assert torch.equal(a, b)
+
+
+def test_full_width_qat_step_on_the_card(cuda, monkeypatch):
+    """One QAT step of full-width Network B on 16 images: 9 launches, all
+    in the forward, and parameters, running statistics and loss bitwise
+    equal to the same step on the kernel's plain version."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.cifar_qat import qat_update
+    from repro_torch.tree import leaves
+
+    batch = make_batch(DataConfig(kind="cifar_synthetic", global_batch=16,
+                                  seed=1), 0, cuda)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=5, weight_decay=0.0)
+
+    def step():
+        params = init_cnn(0, NETWORK_B, device=cuda)
+        return qat_update(params, init_opt_state(params), batch, NETWORK_B,
+                          opt_cfg)
+
+    before = K.cima_mvm_planes.launches
+    params, _, m = step()
+    torch.cuda.synchronize()
+    assert K.cima_mvm_planes.launches - before == 9
+    monkeypatch.setattr(K, "cima_mvm_planes", K.cima_mvm_planes_reference)
+    plain, _, pm = step()
+    assert float(m["loss"]) == float(pm["loss"])
+    for a, b in zip(leaves(params), leaves(plain)):
+        assert torch.equal(a, b)
+
+
 FA_CASES = [
     # (b, h, hkv, sq, sk, d, causal, window, dtype): tests/test_kernels.py's
     # FA_CASES, its long-window case, a windowed-MQA shape at
