@@ -35,7 +35,17 @@ into ``build/`` (one ``nvcc`` per source, started together), then
   held step by step to the same steps with the kernel routed to its
   plain version, with Fig. 11's accuracies on held-out synthetic batches;
   and ``train.trainer.train`` on reduced olmo-1b crashes at step 4,
-  resumes, and must land on the uninterrupted run's loss.
+  resumes, and must land on the uninterrupted run's loss;
+* draws ADC noise at the 0.85 V corner (sigma 0.3 LSB) through ``bpbs``
+  on the card: the code-shift and output-error statistics against the
+  analytic ones, determinism in the seed and independence across
+  dispatches (``noise``); noise-aware QAT of full-width A and B with the
+  noisy Fig. 11 accuracies before and after ``calibrate_bn_stats``
+  (``noise_qat``); the reference's 0.85 V acceptance recipe on reduced A
+  (``noise_corner``, reported, not gated).  The kernel takes no noise,
+  as the Pallas kernel takes none: these paths launch it zero times;
+* runs the paper's figure checks (Figs. 7, 8, 10, 11) on the card
+  (``repro_torch.figures.run``), their CSV rows on earlier lines.
 
 Each phase prints one JSON line.  The card's name and power limit follow
 as ``nvidia-smi`` prints them, then the kernels line, and last
@@ -45,6 +55,7 @@ does a machine without a CUDA device, or a directory without the repo.
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -67,9 +78,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import accel  # noqa: E402
 from repro_torch.configs import NETWORK_A, NETWORK_B, get_config  # noqa: E402
+from repro_torch.accel.context import fold_seed  # noqa: E402
 from repro_torch.core import energy as E  # noqa: E402
+from repro_torch.core.adc import SIGMA_LSB_CORNER, adc_convert  # noqa: E402
 from repro_torch.core.bpbs import BpbsConfig  # noqa: E402
-from repro_torch.core.quant import Coding, int_range, quantize  # noqa: E402
+from repro_torch.core.quant import (Coding, int_range, plane_weights,  # noqa: E402
+                                    quantize)
+from repro_torch.figures import run as figures_run  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import cima_mvm as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
@@ -78,6 +93,7 @@ from repro_torch.models import init_params, loss_fn  # noqa: E402
 from repro_torch.models.cnn import (cnn_forward, cnn_loss, init_cnn,  # noqa: E402
                                     update_bn_stats)
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
+from repro_torch.optim.qat import calibrate_bn_stats, noise_aware  # noqa: E402
 from repro_torch.serve import ContinuousBatcher, Engine, ServeConfig  # noqa: E402
 from repro_torch.train import build_train_step, init_train_state  # noqa: E402
 from repro_torch.train import cifar_qat, step as train_step  # noqa: E402
@@ -179,6 +195,16 @@ LM_LAUNCHES_PER_STEP = LAUNCHES_PER_FORWARD + 16 * 7              # 225
 # 590kb arrays of the streaming engine: full-width olmo-1b needs 8,978 at
 # B_A = 4 (512 a layer, 786 for the unembed), so the tail streams
 SERVE_CHIPS = 4096
+# ADC noise at the 0.85 V corner.  At fs = 255 (one bank of 255 rows, no
+# adaptive range) the clean ADC is exact and a code moves by
+# e = round(sigma z): P(e = +-1) = erfc(0.5 / (sigma sqrt 2)) = 0.09558,
+# which is also Var(e) (P(|e| = 2) is 6e-7)
+NOISE_SIGMA = SIGMA_LSB_CORNER[0.85]
+NOISE_P_SHIFT = math.erfc(0.5 / NOISE_SIGMA / math.sqrt(2.0))
+NOISE_ROWS, NOISE_N, NOISE_M = 4096, 255, 256
+NOISE_SEEDS = (11, 12, 13)        # noisy Fig. 11 evaluations, averaged
+NOISE_CAL_BATCHES = 4             # calibrate_bn_stats, as the QAT CLI
+CORNER_STEPS, CORNER_BATCH, CORNER_EVAL = 60, 32, 8
 
 
 def fail(msg: str) -> None:
@@ -1447,6 +1473,223 @@ def phase_trainer_resume():
     return launches
 
 
+def phase_noise():
+    """ADC noise of ``bpbs`` on the card at ``NOISE_SIGMA``: one bank of
+    255 rows (fs = 255, the clean ADC exact).  The code shift at the ADC
+    over 2^20 integer popcounts against P(e = +-1); the error of ``y`` in
+    the integer domain, ``2 sum wx wa e`` over the 16 plane pairs, whose
+    variance is ``4 Var(e) sum wx^2 sum wa^2`` (within 5%); the same seed
+    bitwise equal, two dispatches of one scope uncorrelated (|corr| <
+    5/sqrt(n)).  No kernel launches; noisy and clean dispatch times."""
+    r = np.random.default_rng(0)
+    x = torch.tensor(r.normal(size=(NOISE_ROWS, NOISE_N)),
+                     dtype=torch.float32, device="cuda")
+    w = torch.tensor(r.normal(size=(NOISE_N, NOISE_M)), dtype=torch.float32,
+                     device="cuda")
+    spec = accel.ExecSpec(backend="bpbs", ba=4, bx=4, bank_n=NOISE_N,
+                          adc_sigma_lsb=NOISE_SIGMA)
+    clean = dataclasses.replace(spec, adc_sigma_lsb=0.0)
+
+    # the path: counts at 0 just before, read just after
+    K.cima_mvm_planes.launches = 0
+    y0 = accel.matmul(x, w, clean)
+    with accel.adc_noise(5):
+        y1 = accel.matmul(x, w, spec)
+        y2 = accel.matmul(x, w, spec)
+    with accel.adc_noise(5):
+        y1_again = accel.matmul(x, w, spec)
+    launches = K.cima_mvm_planes.launches
+    check(launches == 0, f"noisy bpbs launched the kernel {launches} times")
+
+    p = torch.tensor(r.integers(20, 236, 1 << 20), dtype=torch.float32,
+                     device="cuda")
+    shift = adc_convert(p, 255.0, sigma_lsb=NOISE_SIGMA,
+                        generator=torch.Generator(device="cuda").manual_seed(1)
+                        ) - p
+    n_p = shift.numel()
+    p_shift = float(torch.sum(shift.abs() == 1)) / n_p
+    var_e = float(torch.mean(shift ** 2))
+    sd = math.sqrt(NOISE_P_SHIFT * (1 - NOISE_P_SHIFT) / n_p)
+    check(abs(p_shift - NOISE_P_SHIFT) < 5 * sd,
+          f"P(e = +-1) {p_shift} vs {NOISE_P_SHIFT}")
+
+    qx = quantize(x, 4, Coding.XNOR)
+    qw = quantize(w, 4, Coding.XNOR, axis=1)
+    s = qx.scale * qw.scale.reshape(1, -1)
+    e1, e2 = (((y - y0) / s).ravel() for y in (y1, y2))
+    pred = 4.0 * NOISE_P_SHIFT * float(np.sum(
+        plane_weights(4, Coding.XNOR) ** 2)) ** 2
+    meas = float(torch.mean(e1 ** 2))
+    corr = float(torch.corrcoef(torch.stack([e1, e2]))[0, 1])
+    check(torch.equal(y1, y1_again), "same seed, different noise")
+    check(not torch.equal(y1, y2), "two dispatches drew the same noise")
+    check(abs(meas / pred - 1.0) < 0.05,
+          f"noise variance {meas} vs analytic {pred}")
+    check(abs(corr) < 5.0 / math.sqrt(e1.numel()),
+          f"noise of two dispatches correlates: {corr}")
+
+    def noisy(i):
+        accel.matmul(x, w, spec)
+
+    with accel.adc_noise(6):
+        t_noisy = median_ms(noisy, reps=10)
+    t_clean = median_ms(lambda i: accel.matmul(x, w, clean), reps=10)
+    emit("noise", sigma_lsb=NOISE_SIGMA, rows=NOISE_ROWS, n=NOISE_N,
+         m=NOISE_M, ba=4, bx=4, full_scale=255.0,
+         code_shift_samples=n_p, p_shift_measured=p_shift,
+         p_shift_analytic=NOISE_P_SHIFT, var_e_measured=var_e,
+         y_error_var_measured=meas, y_error_var_analytic=pred,
+         measured_over_analytic=meas / pred,
+         corr_two_dispatches=corr, same_seed_bitwise=True,
+         cima_mvm_launches=launches,
+         bpbs_noisy_ms=t_noisy, bpbs_clean_ms=t_clean)
+
+
+def noisy_loss(params, batch, net, seed: int = 0):
+    """The noise-aware QAT loss (``qat_update``'s with ``noise_sigma``):
+    ``cnn_loss`` on ``bpbs`` under ``noise_aware``."""
+    with noise_aware(seed, NOISE_SIGMA):
+        return cnn_loss(params, batch, net,
+                        backend=cifar_qat.NOISY_BACKEND)[0]
+
+
+def noisy_accuracy(params, batches, net) -> tuple:
+    """Fig. 11 accuracy on ``bpbs`` with live noise: the mean over
+    ``NOISE_SEEDS`` and each seed's."""
+    per = [fig11_accuracy(params, batches, net, cifar_qat.NOISY_BACKEND,
+                          NOISE_SIGMA, k) for k in NOISE_SEEDS]
+    return sum(per) / len(per), per
+
+
+def phase_noise_qat(nets=(NETWORK_A, NETWORK_B), batch=CIFAR_BATCH,
+                    steps=QAT_STEPS):
+    """Noise-aware QAT of full-width A and B at ``NOISE_SIGMA``
+    (``qat_update`` with ``noise_sigma``: the loss forward on ``bpbs``
+    under ``noise_aware``, seeded per step), 8 steps of 64 images: no
+    kernel launch and no NOISELESS warning in the steps, ms per step,
+    forward and backward apart, a profiled step; then Fig. 11 on the
+    held-out batches: the kernel and ``digital_int`` noiseless, ``bpbs``
+    noisy before and after ``calibrate_bn_stats``."""
+    data_cfg = DataConfig(kind="cifar_synthetic", global_batch=batch, seed=1)
+    batches = [make_batch(data_cfg, s, "cuda") for s in range(steps)]
+    held_out = [make_batch(data_cfg, 10_000 + i, "cuda")
+                for i in range(QAT_EVAL_BATCHES)]
+    cal_batches = [make_batch(data_cfg, 20_000 + i, "cuda")
+                   for i in range(NOISE_CAL_BATCHES)]
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=steps,
+                          weight_decay=0.0)
+    for net in nets:
+        params = init_cnn(0, net, device="cuda")
+        opt = init_opt_state(params)
+        torch.cuda.synchronize()
+
+        # the path: counts at 0 just before, read just after
+        K.cima_mvm_planes.launches = 0
+        step_ms, losses = [], []
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=".*NOISELESS")
+            for s, b in enumerate(batches):
+                t0 = time.perf_counter()
+                params, opt, m = qat_update(params, opt, b, net, opt_cfg,
+                                            NOISE_SIGMA, fold_seed(0, s))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(m["loss"])
+        launches = K.cima_mvm_planes.launches
+        check(launches == 0, f"{net.name}: noisy QAT launched the kernel "
+              f"{launches} times")
+        losses = torch.stack(losses).tolist()
+        check(all(np.isfinite(losses)), f"{net.name}: loss {losses}")
+        t_step = statistics.median(step_ms[1:])
+        t_fwd, t_bwd = timed_fwd_bwd(
+            lambda p: noisy_loss(p, batches[0], net), params)
+        state = [params, opt]
+
+        def one_step():
+            state[0], state[1], _ = qat_update(state[0], state[1], batches[0],
+                                               net, opt_cfg, NOISE_SIGMA, 0)
+
+        profile = device_profile(one_step, t_step, steps=2)
+        del state
+        acc = {bk: fig11_accuracy(params, held_out, net, bk)
+               for bk in ("kernel", "digital_int")}
+        acc["bpbs_noisy"], per = noisy_accuracy(params, held_out, net)
+        cal = calibrate_bn_stats(params, cal_batches, net, 7, NOISE_SIGMA)
+        acc["bpbs_noisy_calibrated"], per_cal = noisy_accuracy(cal, held_out,
+                                                               net)
+        emit("noise_qat", net=net.name, batch=batch, steps=steps,
+             sigma_lsb=NOISE_SIGMA, backend=cifar_qat.NOISY_BACKEND,
+             cima_mvm_launches=launches, losses=losses,
+             ms_per_step_median=t_step, ms_per_step=step_ms,
+             images_per_s=batch / t_step * 1e3, forward_ms=t_fwd,
+             backward_ms=t_bwd, step_profile=profile,
+             fig11_accuracy_synthetic=acc, noise_seeds=NOISE_SEEDS,
+             bpbs_noisy_per_seed=per, bpbs_noisy_calibrated_per_seed=per_cal,
+             calibration_batches=NOISE_CAL_BATCHES,
+             note="synthetic class-template data, not CIFAR-10")
+        del params, opt, cal
+        torch.cuda.empty_cache()
+
+
+def phase_noise_corner():
+    """The reference's 0.85 V acceptance recipe on the card
+    (``tests/test_sparsity_noise.py::test_cifar_accuracy_holds_at_085v_
+    corner``): reduced Network A, 60 noise-aware QAT steps of 32 images
+    at lr 3e-3, BN calibrated under noise on 8 batches, accuracy on 8
+    held-out batches noiseless and noisy (mean of 3 seeds).  The port's
+    own init and synthetic data leave the reference's 1% margin open, so
+    it is reported, not gated; the steps launch no kernel."""
+    net = NETWORK_A.reduced()
+    data_cfg = DataConfig(kind="cifar_synthetic", global_batch=CORNER_BATCH,
+                          seed=1)
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=CORNER_STEPS,
+                          weight_decay=0.0)
+    params = init_cnn(0, net, device="cuda")
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    K.cima_mvm_planes.launches = 0
+    for s in range(CORNER_STEPS):
+        params, opt, m = qat_update(params, opt,
+                                    make_batch(data_cfg, s, "cuda"), net,
+                                    opt_cfg, NOISE_SIGMA, fold_seed(0, s))
+    loss = float(m["loss"])
+    launches = K.cima_mvm_planes.launches
+    t_train = time.perf_counter() - t0
+    check(launches == 0, f"noisy QAT launched the kernel {launches} times")
+    check(np.isfinite(loss), f"loss {loss}")
+    held_out = [make_batch(data_cfg, 10_000 + i, "cuda")
+                for i in range(CORNER_EVAL)]
+    cal = calibrate_bn_stats(
+        params, [make_batch(data_cfg, 20_000 + i, "cuda")
+                 for i in range(CORNER_EVAL)], net, 7, NOISE_SIGMA)
+    clean = fig11_accuracy(params, held_out, net, cifar_qat.NOISY_BACKEND)
+    noisy, per = noisy_accuracy(params, held_out, net)
+    calibrated, per_cal = noisy_accuracy(cal, held_out, net)
+    emit("noise_corner", net=net.name, vdd=0.85, sigma_lsb=NOISE_SIGMA,
+         steps=CORNER_STEPS, batch=CORNER_BATCH, final_loss=loss,
+         train_seconds=t_train, cima_mvm_launches=launches,
+         accuracy_noiseless=clean, accuracy_noisy_uncalibrated=noisy,
+         accuracy_noisy_calibrated=calibrated,
+         noisy_per_seed=per, noisy_calibrated_per_seed=per_cal,
+         reference_margin=0.01,
+         within_reference_margin=calibrated >= clean - 0.01,
+         note="reported, not gated: synthetic data, the port's init")
+
+
+def phase_figures():
+    """``repro_torch.figures.run`` on the card: every figure's paper
+    assertions pass; its CSV rows print above this phase's line."""
+    t0 = time.perf_counter()
+    K.cima_mvm_planes.launches = 0
+    failures = figures_run.run_all("cuda")
+    check(not failures, f"figure checks failed: {failures}")
+    emit("figures", device="cuda", figures=[m.__name__ for m in
+                                            figures_run.FIGURES],
+         failures=failures, cima_mvm_launches=K.cima_mvm_planes.launches,
+         seconds=time.perf_counter() - t0)
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1464,6 +1707,10 @@ def main():
     qat_rows, qat_launches = phase_train_cifar()
     lm_launches = phase_train_lm()
     trainer_launches = phase_trainer_resume()
+    phase_noise()
+    phase_noise_qat()
+    phase_noise_corner()
+    phase_figures()
     # one decode step's worth of launches at B=4, from the per-shape times
     step = {k: sum(rows[(s[0], 4)][k] * s[4] for s in MAIN_SHAPES)
             for k in ("ms", "plain_ms", "bound_ms")}
@@ -1489,7 +1736,9 @@ def main():
         "per": "one decode step's 113 launches at B=4; launches: the "
                "16-forward generate, one CIFAR Network A and B forward (9 "
                "each), 8 QAT steps of each (9 each), 3 olmo-1b train steps "
-               "(225 each) and the reduced trainer's 6 steps (29 each)",
+               "(225 each) and the reduced trainer's 6 steps (29 each); "
+               "the noisy paths (noise, noise_qat, noise_corner) run bpbs "
+               "and launch it 0 times",
         "train_step_ms": train["ms"], "train_step_plain_ms": train["plain_ms"],
         "train_step_bound_ms": train["bound_ms"],
         "qat_launches_per_step": {r["net"]: r["launches_per_step"]

@@ -13,7 +13,9 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.bpbs import bpbs_matmul_planes, weight_planes
+from repro_torch.core.bpbs import (bpbs_matmul_planes,
+                                   bpbs_matmul_planes_reference,
+                                   weight_planes)
 from repro_torch.core.quant import QTensor, quantize
 from repro_torch.kernels import ops as kernel_ops
 
@@ -88,10 +90,21 @@ def digital_int(x, w, spec: ExecSpec, ctx: ExecContext) -> torch.Tensor:
 
 @register_backend("bpbs")
 def bpbs(x, w, spec: ExecSpec, ctx: ExecContext) -> torch.Tensor:
-    """Mixed-signal BP/BS pipeline, fast GEMM-identity path."""
+    """Mixed-signal BP/BS pipeline, fast GEMM-identity path; ADC noise
+    from ``ctx.generator``."""
     qx = quantize_input(x, spec)
     ws, w_scale = weight_planes_for(w, spec, ctx)
-    y_int = bpbs_matmul_planes(qx.q, ws, spec.bpbs())
+    y_int = bpbs_matmul_planes(qx.q, ws, spec.bpbs(), ctx.generator)
+    return apply_post(rescale(y_int, qx.scale, w_scale, spec), ctx.post,
+                      spec)
+
+
+@register_backend("bpbs_ref")
+def bpbs_ref(x, w, spec: ExecSpec, ctx: ExecContext) -> torch.Tensor:
+    """Cell-by-cell charge-share physics (slow; validation only)."""
+    qx = quantize_input(x, spec)
+    ws, w_scale = weight_planes_for(w, spec, ctx)
+    y_int = bpbs_matmul_planes_reference(qx.q, ws, spec.bpbs())
     return apply_post(rescale(y_int, qx.scale, w_scale, spec), ctx.post,
                       spec)
 
@@ -112,7 +125,9 @@ def kernel(x, w, spec: ExecSpec, ctx: ExecContext) -> torch.Tensor:
     """The hand-written CUDA kernel (its plain version on CPU tensors).
     A per-column ``ctx.post`` fuses into the kernel's datapath epilogue:
     the quantization rescale folds into the scale registers and the
-    output leaves the kernel already post-reduced."""
+    output leaves the kernel already post-reduced.  Like the reference's
+    Pallas backend it takes no noise: at ``adc_sigma_lsb > 0`` it warns
+    and runs noiseless (noisy runs take ``bpbs``)."""
     qx = quantize_input(x, spec)
     img = ctx.image
     if img is not None:

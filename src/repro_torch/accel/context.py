@@ -1,14 +1,18 @@
 """Execution context, scoped overrides, pad positions and the MVM trace.
 Port of ``repro.accel.context``.
 
-* :class:`ExecContext` carries per-call state into a backend: a compiled
-  weight image and a fused datapath epilogue.
+* :class:`ExecContext` carries per-call state into a backend: the ADC
+  noise generator, a compiled weight image and a fused datapath epilogue.
 * :func:`override` rewrites every policy-managed spec at dispatch time
   (``with override(backend="bpbs"): ...`` flips a whole model between
   substrates without rebuilding configs).
 * :func:`trace` collects one :class:`MvmRecord` per dispatched matmul,
   and :func:`energy_summary` prices a trace on the chip model
   (:mod:`repro_torch.core.energy`).
+* :func:`adc_noise` is the seeded source of ADC noise: every dispatch in
+  its scope gets its own ``torch.Generator`` (:func:`next_noise_generator`).
+  :func:`snapshot` and :func:`replay` let a recomputed (checkpointed)
+  layer see the overrides and draw the noise its forward saw.
 
 PyTorch runs eagerly, so every call dispatches (and records) anew: there
 is no trace-time caveat.  The reference's ``lax.scan`` over stacked
@@ -22,11 +26,16 @@ import contextlib
 import dataclasses
 from typing import Iterator, Optional
 
+import numpy as np
+import torch
+
 
 @dataclasses.dataclass
 class ExecContext:
     """Runtime state threaded into a backend call."""
 
+    # the source of this call's ADC noise (the reference's PRNG key)
+    generator: Optional[torch.Generator] = None
     # compiled weight image (repro_torch.accel.program.CimaImage): when
     # armed the backend consumes stored bit planes instead of quantizing w
     image: Optional[object] = None
@@ -188,6 +197,92 @@ def streamed_load_seen() -> bool:
 
 def tracing() -> bool:
     return bool(_TRACE_STACK)
+
+
+# ------------------------------------------------------------- ADC noise
+
+_NOISE_STACK: list[list] = []      # frames of [seed, counter, device]
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """A 63-bit seed derived from ``(seed, data)``, the role of the
+    reference's ``jax.random.fold_in``: distinct ``data`` give unrelated
+    streams (numpy's ``SeedSequence`` hashes the pair)."""
+    state = np.random.SeedSequence([int(seed), int(data)]).generate_state(
+        2, np.uint32)
+    return (int(state[0]) << 31) ^ int(state[1])
+
+
+@contextlib.contextmanager
+def adc_noise(seed: int, device=None) -> Iterator[None]:
+    """Scoped, seeded source of ADC noise (``adc_sigma_lsb > 0``).
+
+    Every dispatched matmul in the scope draws from a fresh
+    ``torch.Generator`` seeded with ``fold_seed(seed, k)`` for the
+    dispatch's counter ``k``, as the reference folds its counter into
+    the scope's key: the noise of dispatch ``k`` does not depend on what
+    earlier dispatches drew, and the same seed gives the same bits on the
+    same device.  ``device`` places the generators (default: each
+    dispatch's input device).  The port matches the reference in
+    distribution only: torch cannot reproduce JAX's PRNG."""
+    _NOISE_STACK.append([int(seed), 0, device])
+    try:
+        yield
+    finally:
+        _NOISE_STACK.pop()
+
+
+def next_noise_generator(device=None) -> Optional[torch.Generator]:
+    """A fresh per-dispatch generator from the innermost :func:`adc_noise`
+    scope (None outside any), on the scope's device or else ``device``."""
+    if not _NOISE_STACK:
+        return None
+    frame = _NOISE_STACK[-1]
+    frame[1] += 1
+    dev = torch.device(frame[2] if frame[2] is not None else
+                       device if device is not None else "cpu")
+    return torch.Generator(device=dev).manual_seed(
+        fold_seed(frame[0], frame[1]))
+
+
+@dataclasses.dataclass(frozen=True)
+class Snapshot:
+    """The dispatch-time state a recomputed layer must see again: the
+    override stack and the innermost noise frame (seed, counter, device)
+    as they stood at the layer's entry."""
+
+    overrides: tuple
+    noise: Optional[tuple]
+
+
+def snapshot() -> Snapshot:
+    return Snapshot(tuple(dict(f) for f in _OVERRIDE_STACK),
+                    tuple(_NOISE_STACK[-1]) if _NOISE_STACK else None)
+
+
+@contextlib.contextmanager
+def replay(snap: Snapshot) -> Iterator[Optional[list]]:
+    """Run the enclosed dispatches under ``snap``'s overrides and from its
+    noise counter, on a copy of its noise frame (yielded; None without
+    one).  A checkpointed layer wraps its body in this: the forward runs
+    it in the scope it was taken in, the recomputation in the backward
+    (after the scope may have closed) draws the same generators again.
+    The live scopes are left as they were."""
+    saved = _OVERRIDE_STACK[:], _NOISE_STACK[:]
+    frame = list(snap.noise) if snap.noise is not None else None
+    _OVERRIDE_STACK[:] = [dict(f) for f in snap.overrides]
+    _NOISE_STACK[:] = [frame] if frame is not None else []
+    try:
+        yield frame
+    finally:
+        _OVERRIDE_STACK[:], _NOISE_STACK[:] = saved
+
+
+def advance_noise(counter: int) -> None:
+    """Set the innermost noise scope's counter (after a :func:`replay`d
+    forward drew on a copy of it)."""
+    if _NOISE_STACK:
+        _NOISE_STACK[-1][1] = counter
 
 
 # ------------------------------------------------------------ pad positions

@@ -5,8 +5,10 @@ Port of ``repro.accel.dispatch``.
 :func:`~repro_torch.accel.context.override`), validates a compiled weight
 ``image`` against it, records one :class:`MvmRecord` inside a
 :func:`~repro_torch.accel.context.trace` scope (with the image's reload
-schedule and the measured input sparsity and all-zero planes) and calls
-the registered backend.
+schedule and the measured input sparsity and all-zero planes), takes the
+call's ADC-noise generator from an open
+:func:`~repro_torch.accel.context.adc_noise` scope and calls the
+registered backend.
 
 Non-digital backends get straight-through-estimator (STE) gradients: the
 backward pass is that of the plain float GEMM (``dx = g wᵀ``,
@@ -32,7 +34,8 @@ from repro_torch.core.sparsity import (count_zero_planes, element_mask,
                                        sparsity_fraction)
 
 from .context import (ExecContext, MvmRecord, current_override,
-                      current_pad_mask, record, streamed_load_seen, tracing)
+                      current_pad_mask, next_noise_generator, record,
+                      streamed_load_seen, tracing)
 from .registry import get_backend
 from .spec import ExecSpec
 
@@ -169,7 +172,8 @@ def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
         image = None
     _record_mvm(spec, x, w, image, post)
     fn = get_backend(spec.backend)
-    ctx = ExecContext() if ctx is None else ctx
+    if ctx is None:
+        ctx = ExecContext(generator=next_noise_generator(x.device))
     if image is not None:
         ctx = dataclasses.replace(ctx, image=image)
     if spec.is_digital:

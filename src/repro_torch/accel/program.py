@@ -42,7 +42,7 @@ from repro_torch.core.quant import Coding, quantize
 # Backends whose weight side is the shared integer grid of core.quant: a
 # compiled image is valid for ANY of them, which is what lets
 # override(backend=...) flip substrates without recompiling.
-PROGRAM_BACKENDS = ("digital_int", "bpbs", "kernel")
+PROGRAM_BACKENDS = ("digital_int", "bpbs", "bpbs_ref", "kernel")
 
 
 @dataclasses.dataclass

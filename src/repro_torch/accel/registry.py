@@ -12,7 +12,7 @@ from typing import Callable, Optional
 BackendFn = Callable[..., object]
 
 # the names repro_torch.accel.backends registers at import
-BUILTIN_BACKENDS = ("digital", "digital_int", "bpbs", "kernel")
+BUILTIN_BACKENDS = ("digital", "digital_int", "bpbs", "bpbs_ref", "kernel")
 
 _BACKENDS: dict[str, BackendFn] = {}
 

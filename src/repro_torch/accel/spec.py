@@ -7,7 +7,8 @@
 * ``digital_int``  — bit-true integer compute at (B_A, B_X): the paper's
                      *ideal* reference.
 * ``bpbs``         — the BP/BS pipeline's fast GEMM-identity path
-                     (:mod:`repro_torch.core.bpbs`).
+                     (:mod:`repro_torch.core.bpbs`), with ADC noise.
+* ``bpbs_ref``     — the same MVM cell by cell (slow; validation only).
 * ``kernel``       — the hand-written CUDA kernel
                      (:mod:`repro_torch.kernels.cima_mvm`); its plain
                      torch version on CPU tensors.

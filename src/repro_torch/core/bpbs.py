@@ -10,13 +10,25 @@ accumulated.  The fast path uses the GEMM identity ``d = 2p - n_unmasked``
 all plane pairs followed by :func:`gemm_adc_epilogue`.  The N dimension
 is split into banks of ``bank_n`` rows (2304 on the chip); each bank is a
 separate charge share and ADC conversion.
+
+The physics path (:func:`bpbs_matmul_planes_reference`) evaluates the
+same MVM cell by cell through :mod:`repro_torch.core.cima`, and agrees
+with the fast path bit for bit; it is slow and runs in tests and the
+``bpbs_ref`` backend only.
+
+ADC noise (``adc_sigma_lsb > 0``) is drawn from the ``generator`` the
+fast path is given, afresh for every bank, in the bank's
+``lead + (BX, BA, M)`` shape, as the reference draws it from one split
+key per bank.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
+from . import cima
 from .adc import adc_quantize_sum
 from .cima import signed_dot_from_popcount
 from .quant import Coding, int_to_planes, plane_weights
@@ -73,26 +85,32 @@ def adc_full_scale(nu, bank_rows, cfg: BpbsConfig):
     return nu if cfg.adaptive_range else bank_rows
 
 
-def gemm_adc_epilogue(d: torch.Tensor, nu, bank_rows,
-                      cfg: BpbsConfig) -> torch.Tensor:
+def gemm_adc_epilogue(d: torch.Tensor, nu, bank_rows, cfg: BpbsConfig,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
     """Popcount recovery, ADC transfer and signed-dot recovery of one
     plane-pair evaluation: ``p = (d + nu) / 2`` (XNOR) or ``p = d`` (AND),
-    quantized over :func:`adc_full_scale`, mapped back to the signed dot.
-    No noise is drawn here (``adc_sigma_lsb > 0`` warns)."""
+    quantized over :func:`adc_full_scale` (with ``cfg.adc_sigma_lsb`` of
+    noise from ``generator``; none given at sigma > 0 warns and runs
+    noiseless), mapped back to the signed dot."""
     p = (d + nu) * 0.5 if cfg.coding == Coding.XNOR else d
     if cfg.ideal_adc:
         p_hat = p
     else:
         fs = adc_full_scale(nu, bank_rows, cfg)
-        p_hat = adc_quantize_sum(p, fs, cfg.adc_bits, cfg.adc_sigma_lsb)
+        p_hat = adc_quantize_sum(p, fs, cfg.adc_bits, cfg.adc_sigma_lsb,
+                                 generator)
     return signed_dot_from_popcount(p_hat, nu, cfg.coding)
 
 
 def bpbs_matmul_planes(x_q: torch.Tensor, ws: torch.Tensor,
-                       cfg: BpbsConfig) -> torch.Tensor:
+                       cfg: BpbsConfig,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
     """BP/BS MVM on integer-grid inputs ``x_q`` [..., N] and pre-decomposed
     weight planes ``ws`` [N, B_A, M] (any exact dtype).  Returns [..., M]
-    float32, integer-valued at ``adc_sigma_lsb == 0``."""
+    float32, integer-valued at ``adc_sigma_lsb == 0``.  Each bank's ADC
+    noise is drawn from ``generator`` in turn."""
     xs, mask = input_planes(x_q, cfg)            # [..., N, BX], [..., N]
     n = x_q.shape[-1]
     m = ws.shape[2]
@@ -118,14 +136,54 @@ def bpbs_matmul_planes(x_q: torch.Tensor, ws: torch.Tensor,
             d2 = x2 @ w2
         d = d2.reshape(lead + (cfg.bx, cfg.ba, m))
         d_hat = gemm_adc_epilogue(d, nu[..., None, None, None], float(nb),
-                                  cfg)
+                                  cfg, generator)
+        # free the bank's plane products before the recombination: at a
+        # 65,536-row conv each bank tensor is ~0.5 GB, noise included
+        del d, d2
         y = y + torch.einsum("...xam,x,a->...m", d_hat, wxv, wav)
     return y
 
 
-def bpbs_matmul_int(x_q: torch.Tensor, w_q: torch.Tensor,
-                    cfg: BpbsConfig) -> torch.Tensor:
+def bpbs_matmul_int(x_q: torch.Tensor, w_q: torch.Tensor, cfg: BpbsConfig,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
     """On-the-fly wrapper: decompose ``w_q`` [N, M], then
     :func:`bpbs_matmul_planes`."""
     ws = weight_planes(w_q, cfg).permute(0, 2, 1)
-    return bpbs_matmul_planes(x_q, ws, cfg)
+    return bpbs_matmul_planes(x_q, ws, cfg, generator)
+
+
+def bpbs_matmul_planes_reference(x_q: torch.Tensor, ws: torch.Tensor,
+                                 cfg: BpbsConfig) -> torch.Tensor:
+    """Physics-path reference through the cell-level CIMA model, on
+    pre-decomposed weight planes ``ws`` [N, B_A, M] (slow; tests and
+    ``bpbs_ref`` only).  Like the reference's, it draws no noise."""
+    _, mask = input_planes(x_q, cfg)
+    # the cell model keeps XNOR planes at +-1 and takes the mask as its
+    # own signal, so the planes are decomposed again without it
+    planes = int_to_planes(x_q, cfg.bx, cfg.coding)
+    n, m = ws.shape[0], ws.shape[2]
+    y = torch.zeros(x_q.shape[:-1] + (m,), dtype=torch.float32,
+                    device=x_q.device)
+    for b in range(-(-n // cfg.bank_n)):
+        s, e = b * cfg.bank_n, min((b + 1) * cfg.bank_n, n)
+        nu = mask[..., s:e].sum(-1)
+        for ka in range(cfg.ba):
+            for kx in range(cfg.bx):
+                p = cima.column_popcount(
+                    ws[s:e, ka, :].to(torch.float32), planes[..., s:e, kx],
+                    mask[..., s:e], cfg.coding)
+                if not cfg.ideal_adc:
+                    fs = adc_full_scale(nu[..., None], float(e - s), cfg)
+                    p = adc_quantize_sum(p, fs, cfg.adc_bits)
+                d = signed_dot_from_popcount(p, nu[..., None], cfg.coding)
+                y = y + float(cfg.wx[kx]) * float(cfg.wa[ka]) * d
+    return y
+
+
+def bpbs_matmul_int_reference(x_q: torch.Tensor, w_q: torch.Tensor,
+                              cfg: BpbsConfig) -> torch.Tensor:
+    """On-the-fly physics reference: decompose ``w_q``, then the cell
+    model."""
+    ws = weight_planes(w_q, cfg).permute(0, 2, 1)
+    return bpbs_matmul_planes_reference(x_q, ws, cfg)

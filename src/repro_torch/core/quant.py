@@ -50,6 +50,13 @@ def int_range(bits: int, coding: Coding) -> tuple[int, int]:
     return (-(2 ** (bits - 1)), 2 ** (bits - 1) - 1)
 
 
+def n_levels(bits: int, coding: Coding) -> int:
+    """Number of distinct grid values the coding represents."""
+    if Coding(coding) == Coding.XNOR:
+        return 2 if bits == 1 else 2 ** (bits - 1) + 1
+    return 2 ** bits
+
+
 @dataclasses.dataclass
 class QTensor:
     """A quantized tensor: ``value ~= q * scale`` with ``q`` on the coding grid."""

@@ -5,7 +5,9 @@ The reference compiles a stack with ``lax.scan`` over stacked layer
 parameters; here :func:`apply_stack` loops over the leading layer dim of
 the stacked ``"scanned"`` leaves (images and caches included), so every
 layer dispatches, and records, on its own.  ``cfg.remat`` checkpoints
-each stacked layer when autograd records the pass.
+each stacked layer when autograd records the pass; the recomputation
+replays the layer's dispatch-time overrides and ADC-noise counter, as
+``jax.checkpoint`` replays the reference's folded keys.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.accel import CimaImage
+from repro_torch.accel import context as accel_context
 from repro_torch.tree import leaves
 
 from . import attention as attn_mod
@@ -120,12 +123,35 @@ def _remat(cfg, params: dict, x, cache) -> bool:
                  or any(t.requires_grad for t in leaves(params))))
 
 
+def _checkpointed(fn, x):
+    """``fn(x)`` under ``torch.utils.checkpoint``.  The body runs under
+    the overrides and from the ADC-noise counter in effect now, in the
+    forward and again in the backward's recomputation (which may run
+    after those scopes closed), so the recomputed layer sees the same
+    specs and draws the same noise; after the forward the live noise
+    scope's counter moves on past the layer's draws."""
+    snap = accel_context.snapshot()
+    end = [None]
+
+    def body(x_):
+        with accel_context.replay(snap) as frame:
+            y = fn(x_)
+        end[0] = frame[1] if frame is not None else None
+        return y
+
+    y = checkpoint(body, x, use_reentrant=False)
+    if end[0] is not None:
+        accel_context.advance_noise(end[0])
+    return y
+
+
 def apply_stack(params: dict, x, cfg, positions, cache: Optional[dict] = None,
                 cache_pos=None, dtype=torch.bfloat16, pad_mask=None):
     """Returns (x, cache); the cache (when given) is updated in place.
     Under ``cfg.remat`` and autograd each stacked layer is a
     ``torch.utils.checkpoint``: its activations are recomputed in the
-    backward pass (so its projections launch again there)."""
+    backward pass (so its projections launch again there, drawing the
+    noise they drew in the forward)."""
     layout = stack_layout(cfg)
 
     def run(kind, p, x, c):
@@ -141,9 +167,8 @@ def apply_stack(params: dict, x, cfg, positions, cache: Optional[dict] = None,
             key = f"u{j}"
             p = layer_slice(params["scanned"][key], layer)
             if remat:
-                x = checkpoint(lambda x_, p_=p, k_=kind: run(k_, p_, x_,
-                                                             None)[0],
-                               x, use_reentrant=False)
+                x = _checkpointed(lambda x_, p_=p, k_=kind:
+                                  run(k_, p_, x_, None)[0], x)
                 continue
             c = (layer_slice(cache["scanned"][key], layer)
                  if cache is not None else None)

@@ -348,6 +348,66 @@ def test_full_width_qat_step_on_the_card(cuda, monkeypatch):
         assert torch.equal(a, b)
 
 
+def _noisy_bpbs(cuda, seed, rows=2048):
+    """``bpbs`` at sigma 0.3 over one bank of 255 rows (fs = 255): the
+    clean output, the output of a noisy dispatch, and the integer-domain
+    scale of ``y``."""
+    from repro_torch.core.quant import quantize
+
+    r = np.random.default_rng(0)
+    x = torch.tensor(r.normal(size=(rows, 255)), dtype=torch.float32,
+                     device=cuda)
+    w = torch.tensor(r.normal(size=(255, 128)), dtype=torch.float32,
+                     device=cuda)
+    spec = accel.ExecSpec(backend="bpbs", ba=4, bx=4, bank_n=255,
+                          adc_sigma_lsb=0.3)
+    clean = accel.matmul(x, w, accel.ExecSpec(backend="bpbs", ba=4, bx=4,
+                                              bank_n=255))
+    with accel.adc_noise(seed):
+        noisy = accel.matmul(x, w, spec)
+    scale = quantize(x, 4, Coding.XNOR).scale * quantize(
+        w, 4, Coding.XNOR, axis=1).scale.reshape(1, -1)
+    return clean, noisy, scale
+
+
+def test_bpbs_noise_on_the_card_is_deterministic_in_the_seed(cuda):
+    """The same seed draws the same noise on the card, bit for bit; another
+    seed draws other noise; the noisy path launches no kernel."""
+    before = K.cima_mvm_planes.launches
+    _, a, _ = _noisy_bpbs(cuda, 3)
+    _, b, _ = _noisy_bpbs(cuda, 3)
+    _, c, _ = _noisy_bpbs(cuda, 4)
+    assert a.device.type == "cuda"
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert K.cima_mvm_planes.launches == before
+
+
+def test_bpbs_noise_variance_on_the_card_matches_analytic(cuda):
+    """At fs = 255 a code moves by e = round(0.3 z), Var(e) =
+    P(e = +-1) = erfc(0.5 / (0.3 sqrt 2)) = 0.09558; the error of ``y`` in
+    the integer domain has variance 4 Var(e) sum wx^2 sum wa^2 (one bank):
+    within 5% over 2048 x 128 outputs (about 12 standard errors)."""
+    import math
+
+    from repro_torch.core.quant import plane_weights
+
+    clean, noisy, scale = _noisy_bpbs(cuda, 7)
+    err = (noisy - clean) / scale
+    var_e = math.erfc(0.5 / 0.3 / math.sqrt(2.0))
+    pred = 4.0 * var_e * float(np.sum(plane_weights(4, Coding.XNOR) ** 2)) ** 2
+    assert abs(float(torch.mean(err ** 2)) / pred - 1.0) < 0.05
+
+
+def test_figure_checks_pass_on_the_card(cuda, capsys):
+    """``repro_torch.figures.run`` on the card: every paper assertion of
+    Figs. 7, 8, 10 and 11 holds."""
+    from repro_torch.figures import run as figures_run
+
+    assert figures_run.run_all("cuda") == []
+    rows = capsys.readouterr().out.splitlines()
+    assert len(rows) == 1 + 17 + 9 + 5 + 57
+
+
 FA_CASES = [
     # (b, h, hkv, sq, sk, d, causal, window, dtype): tests/test_kernels.py's
     # FA_CASES, its long-window case, a windowed-MQA shape at

@@ -49,7 +49,7 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.optim.adamw, repro_torch.optim.compression\n"
         "import repro_torch.train.state, repro_torch.train.step\n"
         "import repro_torch.train.checkpoint, repro_torch.train.trainer\n"
-        "import repro_torch.train.cifar_qat\n"
+        "import repro_torch.train.cifar_qat, repro_torch.figures.run\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120,
