@@ -15,6 +15,19 @@ into ``build/`` (one ``nvcc`` per source, started together), then
 * serves ragged requests on full-width olmo-1b through the slot-level
   ``ContinuousBatcher`` and holds its stats to the schedule its budgets
   fix and its streams to solo ``Engine.generate`` runs;
+* holds the kernel to its plain version, bitwise, at the recurrent
+  families' projection shapes (column counts off the 16-wide tile, two
+  and six banks, a 256,000-column unembed; recurrentgemma's also at a
+  long prompt's 2,560 rows) and the dense configs' new ones, and times
+  them beside their bounds; serves full mamba2-130m and recurrentgemma-9b
+  at 8 of its 38 layers (published widths) through ``Engine`` with
+  prefill logits and greedy tokens equal to the kernel's plain route's,
+  a bounded cache, a resumed prefill and a
+  2,560-token prompt that wraps the local-attention ring cache; serves
+  both through ``ContinuousBatcher`` (the pad-masked re-prefill and the
+  splice of SSM and LRU states); and serves llama3.2-1b, granite-8b and
+  starcoder2-3b at published widths (llama3.2-1b and starcoder2-3b at
+  their published depth, granite-8b at 2 of 36 layers);
 * holds the flash-attention kernel to its plain version on the
   ``FA_CASES`` shapes, then drives ``kernels.ops.flash_attention`` at the
   full widths of olmo-1b (32k-token prefill), recurrentgemma-9b (local
@@ -89,9 +102,12 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import cima_mvm as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
-from repro_torch.models import init_params, loss_fn  # noqa: E402
+from repro_torch.models import (init_cache, init_params, loss_fn,  # noqa: E402
+                                prefill, prefill_resume)
 from repro_torch.models.cnn import (cnn_forward, cnn_loss, init_cnn,  # noqa: E402
                                     update_bn_stats)
+from repro_torch.models.ssm import SSMState  # noqa: E402
+from repro_torch.models.transformer import stack_layout  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
 from repro_torch.optim.qat import calibrate_bn_stats, noise_aware  # noqa: E402
 from repro_torch.serve import ContinuousBatcher, Engine, ServeConfig  # noqa: E402
@@ -120,14 +136,49 @@ CIMA_CASES = [
     (Coding.XNOR, 4, 2, 2400, 24, 2304), (Coding.AND, 4, 4, 300, 40, 2304),
     (Coding.AND, 2, 2, 512, 16, 128), (Coding.AND, 6, 3, 700, 12, 512),
 ]
-# the main path's projections at full-width olmo-1b: (name, N, M, fused
-# silu with per-row scales, launches per forward)
-MAIN_SHAPES = [("attn.qkvo", 2048, 2048, False, 64),
-               ("mlp.gate", 2048, 8192, True, 16),
-               ("mlp.up", 2048, 8192, False, 16),
-               ("mlp.down", 8192, 2048, False, 16),
-               ("unembed", 2048, 50304, False, 1)]
+# the main path's projections at full-width olmo-1b: (name, N, M, the
+# activation fused with per-row scales, launches per forward)
+MAIN_SHAPES = [("attn.qkvo", 2048, 2048, None, 64),
+               ("mlp.gate", 2048, 8192, "silu", 16),
+               ("mlp.up", 2048, 8192, None, 16),
+               ("mlp.down", 8192, 2048, None, 16),
+               ("unembed", 2048, 50304, None, 1)]
 LAUNCHES_PER_FORWARD = sum(s[4] for s in MAIN_SHAPES)        # 113
+# the recurrent families' projections, the same fields: full-width
+# mamba2-130m (24 SSM layers, d_inner 1,536; in_proj M = 3,352 and the
+# tied 50,280-word unembed are off the 16-wide tile) and recurrentgemma-9b
+# at RG_LAYERS (6 rec + 2 local-attention layers; rec.in_x, rec.out and
+# attn.q/o share 4,096 x 4,096; k/v are 4,096 x 256 under MQA)
+MAMBA2_SHAPES = [("mamba2 ssm.in_proj", 768, 3352, None, 24),
+                 ("mamba2 ssm.out_proj", 1536, 768, None, 24),
+                 ("mamba2 unembed", 768, 50280, None, 1)]
+RG_SHAPES = [("recurrentgemma rec.in_x/out, attn.q/o", 4096, 4096, None, 16),
+             ("recurrentgemma rec.in_gate", 4096, 4096, "gelu", 6),
+             ("recurrentgemma attn.k/v", 4096, 256, None, 4),
+             ("recurrentgemma mlp.gate", 4096, 12288, "gelu", 8),
+             ("recurrentgemma mlp.up", 4096, 12288, None, 8),
+             ("recurrentgemma mlp.down", 12288, 4096, None, 8),
+             ("recurrentgemma unembed", 4096, 256000, None, 1)]
+MAMBA2_LAUNCHES = sum(s[4] for s in MAMBA2_SHAPES)           # 49
+RG_LAUNCHES = sum(s[4] for s in RG_SHAPES)                   # 51
+# recurrentgemma-9b's depth cut: 8 of 38 layers, two (rec, rec, attn)
+# units and the two-rec suffix (38 = 12 x 3 + 2); 38 layers hold ~42 GB of
+# float32 parameters and ~34 GB of weight planes, on an 80 GB card
+RG_LAYERS = 8
+# the long prompt: one row of 2,560 tokens, past the 2,048-token window,
+# so the ring cache wraps and the chunked attention path runs; its
+# projections launch with 2,560 rows (the unembed with one)
+RG_LONG_PROMPT, RG_LONG_STEPS = 2560, 8
+# the dense configs at published widths and the depth each is served at:
+# llama3.2-1b and starcoder2-3b whole; granite-8b at 2 of 36 layers, since
+# 36 layers hold 33.0 GB of float32 parameters and 48.3 GB of images
+# (the serve_dense_archs line's published_depth on an H100 80GB HBM3):
+# 81.3 of its 85.0 GB before activations, caches and the build workspace
+DENSE_DEPTH = {"llama3.2-1b": 16, "granite-8b": 2, "starcoder2-3b": 30}
+# a resumed prefill against the full one: max |diff| within about eight
+# float32 ulps of max |logit| (the readings are 0.0); the planted faults
+# (every carried state zeroed, the conv states alone zeroed) must exceed it
+RESUME_REL = 1e-6
 # rows of a main-shape launch: decode at batch 4, prefill-sized 128, and a
 # training step's 2,048 (LM_BATCH x LM_SEQ)
 MAIN_ROWS = (4, 128, 2048)
@@ -393,36 +444,43 @@ def bound_ms(b, n, m, cfg, fused, peaks, extra_bytes=0):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
-def phase_main_shapes(peaks):
-    """The main path's projection shapes at B=4 (decode) and B=128
-    (prefill rows): equality with the plain version, then device times of
-    the kernel (back to back, ``device_ms``), the plain version and, for
-    context only, torch.matmul of the integer grids (the ideal-ADC
-    product, not the same function)."""
+def kernel_shapes(shapes, batch_rows, peaks, phase: str):
+    """Each projection shape at each of ``batch_rows``: the kernel
+    against its plain version, bitwise without the epilogue and within
+    FUSED_TOL with the fused per-row scale and activation where the
+    forward fuses one; then device times of the kernel (back to back,
+    ``device_ms``, with the forward's epilogue), the plain version and,
+    for context only, torch.matmul of the integer grids (the ideal-ADC
+    product, not the same function).  One ``phase`` line per shape."""
     cfg = BpbsConfig(ba=4, bx=4)
     rows = {}
     worst = 0.0
-    for name, n, m, fused, per_fwd in MAIN_SHAPES:
-        for b in MAIN_ROWS:
+    for name, n, m, act, per_fwd in shapes:
+        for b in batch_rows:
             g = torch.Generator(device="cuda").manual_seed(n * 7 + m + b)
             x = torch.randn(b, n, generator=g, device="cuda")
             w = torch.randn(n, m, generator=g, device="cuda") * n ** -0.5
             qx = quantize(x, cfg.bx, cfg.coding, per_row=True)
             qw = quantize(w, cfg.ba, cfg.coding, axis=1)
+            del x, w
             xs, nu, _ = K.prepare_inputs(qx.q.to(torch.int8), cfg)
             ws, fs = K.prepare_weights(qw.q, cfg)
-            epi = ((qx.scale * qw.scale.reshape(1, -1)).contiguous(), None,
-                   "silu", None) if fused else (None, None, None, None)
-            y = K.cima_mvm_planes(xs, ws, nu, fs, cfg, *epi)
-            ref = K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg, *epi)
+            y = K.cima_mvm_planes(xs, ws, nu, fs, cfg)
+            ref = K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg)
             torch.cuda.synchronize()
-            if fused:
+            check(torch.equal(y, ref), f"kernel != plain on {name} B={b}")
+            epi, err = (None, None, None, None), 0.0
+            if act:
+                epi = ((qx.scale * qw.scale.reshape(1, -1)).contiguous(),
+                       None, act, None)
+                y = K.cima_mvm_planes(xs, ws, nu, fs, cfg, *epi)
+                ref = K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg, *epi)
+                torch.cuda.synchronize()
                 check(torch.allclose(y, ref, **FUSED_TOL),
                       f"fused kernel != plain on {name} B={b}")
-            else:
-                check(torch.equal(y, ref), f"kernel != plain on {name} B={b}")
-            err = float((y - ref).abs().max())
+                err = float((y - ref).abs().max())
             worst = max(worst, err)
+            del y, ref
             # rotate weight copies (>= 128 MB in all) so the 50 MB L2 cannot
             # hold the planes between launches, as in a real forward pass
             copies = [ws] + [ws.clone() for _ in
@@ -432,22 +490,82 @@ def phase_main_shapes(peaks):
             t_plain = median_ms(lambda i: K.cima_mvm_planes_reference(
                 xs, copies[i % len(copies)], nu, fs, cfg, *epi), reps=5,
                 warmup=1)
+            del copies
             xq, wq = qx.q.to(torch.float32), qw.q
             t_mm = median_ms(lambda i: torch.matmul(xq, wq), reps=10)
-            bms, by, nbytes, n_ops = bound_ms(b, n, m, cfg, fused, peaks)
+            bms, by, nbytes, n_ops = bound_ms(b, n, m, cfg, act is not None,
+                                              peaks)
             rows[(name, b)] = dict(ms=t_kernel, plain_ms=t_plain,
                                    bound_ms=bms, bound_by=by)
             mt, tb, cs = K.launch_shape(b, n, m, cfg, K._sm_count(0))
-            emit("main_shape", name=name, b=b, n=n, m=m,
-                 fused_silu_per_row=fused, launches_per_forward=per_fwd,
-                 max_abs_err=err, kernel_ms=t_kernel, plain_ms=t_plain,
+            emit(phase, name=name, b=b, n=n, m=m, m_mod_16=m % 16,
+                 n_banks=-(-n // cfg.bank_n), fused_act_per_row=act,
+                 launches_per_forward=per_fwd, bitwise_unfused=True,
+                 max_abs_err_fused=err, kernel_ms=t_kernel, plain_ms=t_plain,
                  bound_ms=bms, bound_by=by, times_bound=t_kernel / bms,
                  achieved_tb_per_s=nbytes / t_kernel / 1e9,
                  achieved_int8_tops=n_ops / t_kernel / 1e9,
                  m16_tiles=mt, batch_rows_per_block=tb, cluster=cs,
                  matmul_ideal_adc_context_ms=t_mm)
-            del copies
+            del xs, ws, xq, wq, qx, qw
+            torch.cuda.empty_cache()
     return rows, worst
+
+
+def phase_main_shapes(peaks):
+    """The main path's projection shapes at MAIN_ROWS (``main_shape``
+    lines)."""
+    return kernel_shapes(MAIN_SHAPES, MAIN_ROWS, peaks, "main_shape")
+
+
+def dense_shapes(name: str) -> list:
+    """Dense config ``name``'s projections at published widths and
+    DENSE_DEPTH layers, the fields of MAIN_SHAPES: q and o, k and v (GQA),
+    the MLP's (SwiGLU gate with the fused SiLU, up, down; a GELU MLP's up
+    with the fused GELU, down), the unembed."""
+    c = get_config(name)
+    d, kv, f, n = c.d_model, c.n_kv_heads * c.hd, c.d_ff, DENSE_DEPTH[name]
+    mlp = ([("mlp.gate", d, f, c.act, n), ("mlp.up", d, f, None, n)]
+           if c.mlp_kind == "swiglu" else [("mlp.up", d, f, c.act, n)])
+    return [(f"{name} {p}", *rest) for p, *rest in
+            [("attn.q/o", d, c.n_heads * c.hd, None, 2 * n),
+             ("attn.k/v", d, kv, None, 2 * n), *mlp,
+             ("mlp.down", f, d, None, n), ("unembed", d, c.vocab, None, 1)]]
+
+
+def phase_recurrent_shapes(peaks):
+    """The new shapes this slice's paths give the kernel
+    (``recurrent_shape`` lines; then the phase's summary line): the
+    recurrent families' at B=4 (decode) and B=128 (prefill rows) -- the
+    M-tails at 3,352 and 50,280, two and six banks, the 256,000-column
+    unembed -- and recurrentgemma's at the long prompt's 2,560 rows; then
+    the dense configs' shapes that no earlier line holds, at B=4 and 128
+    (starcoder2's 2,304 + 768-row banks, granite's 7 banks with a 512-row
+    tail, llama's 128,256-column unembed, k/v at M = 256, 512, 1,024)."""
+    rows, worst = kernel_shapes(MAMBA2_SHAPES + RG_SHAPES, (4, 128), peaks,
+                                "recurrent_shape")
+    long_rows, long_worst = kernel_shapes(
+        [s for s in RG_SHAPES if "unembed" not in s[0]], (RG_LONG_PROMPT,),
+        peaks, "recurrent_shape")
+    held = {(s[1], s[2], s[3]) for s in MAIN_SHAPES + MAMBA2_SHAPES
+            + RG_SHAPES}
+    new = {}
+    for name in DENSE_DEPTH:
+        for s in dense_shapes(name):
+            new.setdefault((s[1], s[2], s[3]), s)
+    dense_rows, dense_worst = kernel_shapes(
+        [s for k, s in new.items() if k not in held], (4, 128), peaks,
+        "recurrent_shape")
+    per_step = {model: {k: sum(rows[(s[0], 4)][k] * s[4] for s in shapes)
+                        for k in ("ms", "plain_ms", "bound_ms")}
+                for model, shapes in (("mamba2-130m", MAMBA2_SHAPES),
+                                      ("recurrentgemma-9b", RG_SHAPES))}
+    worst = max(worst, long_worst, dense_worst)
+    emit("recurrent_shapes",
+         shapes=len(rows) + len(long_rows) + len(dense_rows),
+         bitwise_unfused=True, max_abs_err_fused=worst,
+         fused_tolerance=FUSED_TOL, decode_step_at_b4=per_step)
+    return rows, worst, per_step
 
 
 def device_profile(step, t_step_ms: float, steps: int = 3) -> dict:
@@ -502,22 +620,31 @@ def greedy_agreement(a: np.ndarray, b: np.ndarray) -> int:
     return int((a == b).sum())
 
 
-def phase_serve(peaks):
-    """Full-width olmo-1b served through the kernel, then the plain path."""
-    cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
+def serve_on_kernel(cfg, per_fwd: int, images: int, batch: int = 4,
+                    prompt: int = 32, new: int = 16, max_seq: int = 256):
+    """Full-width ``cfg`` (random weights from seed 0) served through
+    ``Engine`` with every managed projection on the kernel: the main path
+    (``generate``, counts at 0 just before, read just after), then a timed
+    prefill and ``new - 1`` timed decode steps, each counted, and a
+    profiled decode.  Returns (engine, prompts, tokens, prefill logits,
+    the phase's figures, the decode profile)."""
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, 0, device="cuda")
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    scfg = ServeConfig(max_seq=256, max_new_tokens=16)
     t0 = time.perf_counter()
-    engine = Engine(params, cfg, scfg, device="cuda")
+    engine = Engine(params, cfg, ServeConfig(max_seq=max_seq,
+                                             max_new_tokens=new),
+                    device="cuda")
     torch.cuda.synchronize()
     t_program = time.perf_counter() - t0
+    del params
     check(engine.program is not None
-          and len(engine.program.images) == 8, "program images missing")
+          and len(engine.program.images) == images,
+          f"{cfg.name}: program images missing")
     g = torch.Generator(device="cuda").manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab, (4, 32), generator=g,
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=g,
                             device="cuda")
 
     # the main path: counts at 0 just before, read just after
@@ -527,11 +654,11 @@ def phase_serve(peaks):
     t_generate = time.perf_counter() - t0
     launches = K.cima_mvm_planes.launches
     steps = engine.last_decode_steps
-    check(tokens.shape == (4, 16), f"tokens shape {tokens.shape}")
+    check(tokens.shape == (batch, new), f"tokens shape {tokens.shape}")
     check(((tokens >= 0) & (tokens < cfg.vocab)).all(), "token out of vocab")
-    check(steps == 15, f"{steps} decode steps, expected 15")
-    check(launches == LAUNCHES_PER_FORWARD * (1 + steps),
-          f"{launches} kernel launches for {1 + steps} forwards")
+    check(steps == new - 1, f"{steps} decode steps, expected {new - 1}")
+    check(launches == per_fwd * (1 + steps),
+          f"{cfg.name}: {launches} kernel launches for {1 + steps} forwards")
 
     # timed prefill and decode steps, counted per forward
     K.cima_mvm_planes.launches = 0
@@ -540,32 +667,84 @@ def phase_serve(peaks):
     logits, cache = engine.prefill(prompts)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    check(K.cima_mvm_planes.launches == LAUNCHES_PER_FORWARD,
-          f"prefill launched {K.cima_mvm_planes.launches}")
+    check(K.cima_mvm_planes.launches == per_fwd,
+          f"{cfg.name}: prefill launched {K.cima_mvm_planes.launches}")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
     tok = torch.argmax(logits, -1)
     step_s = []
-    for _ in range(15):
+    for _ in range(new - 1):
         K.cima_mvm_planes.launches = 0
         t0 = time.perf_counter()
         out, cache = engine.decode(tok, cache)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-        check(K.cima_mvm_planes.launches == LAUNCHES_PER_FORWARD,
-              f"decode step launched {K.cima_mvm_planes.launches}")
+        check(K.cima_mvm_planes.launches == per_fwd,
+              f"{cfg.name}: decode step launched "
+              f"{K.cima_mvm_planes.launches}")
         tok = torch.argmax(out, -1)
     t_decode = statistics.median(step_s)
     profile = decode_profile(engine, tok, cache, t_decode)
-    emit("serve_kernel", config="olmo-1b", layers=cfg.n_layers,
-         d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab, batch=4,
-         prompt=32, new_tokens=16, max_seq=256, init_params_s=t_init,
-         program_build_s=t_program, generate_s=t_generate,
-         generate_tokens_per_s=4 * 16 / t_generate, prefill_ms=t_prefill * 1e3,
-         decode_ms_per_step=t_decode * 1e3,
-         decode_tokens_per_s=4 / t_decode,
-         kernel_launches_generate=launches,
-         launches_per_forward=LAUNCHES_PER_FORWARD,
-         tokens=tokens.tolist())
+    row = dict(config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               d_ff=cfg.d_ff, vocab=cfg.vocab, batch=batch, prompt=prompt,
+               new_tokens=new, max_seq=max_seq, init_params_s=t_init,
+               program_build_s=t_program, generate_s=t_generate,
+               generate_tokens_per_s=batch * new / t_generate,
+               prefill_ms=t_prefill * 1e3, decode_ms_per_step=t_decode * 1e3,
+               decode_tokens_per_s=batch / t_decode,
+               kernel_launches_generate=launches,
+               launches_per_forward=per_fwd,
+               parameter_bytes=tensor_bytes(engine.params),
+               image_bytes=image_bytes(engine),
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               tokens=tokens.tolist())
+    return engine, prompts, tokens, logits, row, profile
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of the tensors of a parameter tree (installed images not
+    counted)."""
+    return sum(t.numel() * t.element_size() for t in leaves(tree)
+               if torch.is_tensor(t))
+
+
+def image_bytes(engine, prefix: str = "") -> int:
+    """Bytes of the engine's program images (int8 planes, int16 grids,
+    scales) whose install path starts with ``prefix``."""
+    return sum(t.numel() * t.element_size()
+               for path, img in engine.program.images.items()
+               if path.startswith(prefix) for t in (img.ws, img.wq, img.scale))
+
+
+def published_depth_bytes(engine) -> dict:
+    """Parameter and image bytes of the engine's config at its published
+    depth, from the cut model's own bytes per layer of each block kind
+    (the stacked units, as ``stack_layout`` names them): why a phase cuts
+    the depth."""
+    p, layout = engine.params, stack_layout(engine.cfg)
+    per: dict = {}
+    for j, kind in enumerate(layout.unit):
+        per.setdefault(kind, (
+            tensor_bytes(p["stack"]["scanned"][f"u{j}"]) / layout.n_rep,
+            image_bytes(engine, f"stack.scanned.u{j}.") / layout.n_rep))
+    kinds = get_config(engine.cfg.name).pattern()
+    n = {k: kinds.count(k) for k in per}
+    rest = {k: v for k, v in p.items() if k != "stack"}
+    return dict(layers=len(kinds), layers_of_kind=n,
+                parameter_bytes=tensor_bytes(rest) + sum(
+                    n[k] * per[k][0] for k in per),
+                image_bytes=image_bytes(engine, "embed.")
+                + image_bytes(engine, "lm_head.") + sum(
+                    n[k] * per[k][1] for k in per),
+                device_memory_bytes=torch.cuda.get_device_properties(0)
+                .total_memory)
+
+
+def phase_serve(peaks):
+    """Full-width olmo-1b served through the kernel, then the plain path."""
+    cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
+    engine, prompts, tokens, logits, row, profile = serve_on_kernel(
+        cfg, LAUNCHES_PER_FORWARD, images=8)
+    emit("serve_kernel", **row)
     emit("decode_profile", **profile)
 
     # the plain path on the same engine and image: no kernel launches
@@ -584,7 +763,7 @@ def phase_serve(peaks):
          prefill_logits_max_abs=scale, tolerance_rel=0.05,
          greedy_tokens_agree=greedy_agreement(tokens, plain_tokens),
          greedy_tokens_total=int(tokens.size))
-    return launches
+    return row["kernel_launches_generate"]
 
 
 def replay_schedule(budgets, n_slots: int, cap) -> dict:
@@ -630,10 +809,12 @@ def top2_gap(engine, prompt, tokens, step: int):
     return float(top[0] - top[1]), float(logits.abs().max())
 
 
-def phase_serve_batcher():
-    """Full-width olmo-1b through the slot-level continuous batcher:
-    ragged prompts and budgets, no EOS."""
-    cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
+def run_batcher(cfg, per_fwd: int) -> dict:
+    """Full-width ``cfg`` through the slot-level continuous batcher:
+    ragged prompts and budgets, no EOS.  Stats held to the schedule the
+    budgets fix, launches to ``per_fwd`` a forward, every stream to a solo
+    ``Engine.generate`` of its request (a stream may leave it only at a
+    near-tie).  Returns the phase's figures."""
     scfg = ServeConfig(max_seq=256, max_new_tokens=16, eos_id=-1)
     cb = ContinuousBatcher(init_params(cfg, 0, device="cuda"), cfg, scfg,
                            BATCH_SLOTS, device="cuda")
@@ -653,10 +834,11 @@ def phase_serve_batcher():
     stats = dict(cb.stats)
     want = replay_schedule(BATCH_BUDGETS, BATCH_SLOTS,
                            scfg.max_admit_per_step)
-    check(stats == want, f"batcher stats {stats} != schedule {want}")
+    check(stats == want, f"{cfg.name}: batcher stats {stats} != schedule "
+          f"{want}")
     forwards = stats["decode_steps"] + stats["prefills"]
-    check(launches == LAUNCHES_PER_FORWARD * forwards,
-          f"{launches} cima_mvm launches for {forwards} forwards")
+    check(launches == per_fwd * forwards,
+          f"{cfg.name}: {launches} cima_mvm launches for {forwards} forwards")
     for rid, m in zip(rids, BATCH_BUDGETS):
         check(len(results[rid]) == m, f"request {rid}: {len(results[rid])} "
               f"tokens for a budget of {m}")
@@ -680,18 +862,256 @@ def phase_serve_batcher():
                        solo=solo[step], top2_gap=gap, logit_scale=scale)
             print(f"chip_smoke: near-tie check {tie}", flush=True)
             check(gap < NEAR_TIE_REL * scale,
-                  f"request {rid} leaves solo generate at step {step} "
-                  f"with a top-2 gap of {gap} (logit scale {scale})")
+                  f"{cfg.name}: request {rid} leaves solo generate at step "
+                  f"{step} with a top-2 gap of {gap} (logit scale {scale})")
             near_ties.append(tie)
-    emit("serve_batcher", config="olmo-1b", slots=BATCH_SLOTS,
-         prompt_lengths=list(BATCH_PROMPTS), budgets=list(BATCH_BUDGETS),
-         max_admit_per_step=scfg.max_admit_per_step, **stats,
-         slot_utilisation=stats["slot_steps"] / (stats["decode_steps"]
-                                                 * BATCH_SLOTS),
-         run_s=seconds, tokens_per_s=stats["generated_tokens"] / seconds,
-         cima_mvm_launches=launches, launches_per_forward=LAUNCHES_PER_FORWARD,
-         tokens_equal_to_solo=equal, tokens_total=total,
-         near_ties=near_ties)
+    del cb
+    torch.cuda.empty_cache()
+    return dict(config=cfg.name, layers=cfg.n_layers, slots=BATCH_SLOTS,
+                prompt_lengths=list(BATCH_PROMPTS),
+                budgets=list(BATCH_BUDGETS),
+                max_admit_per_step=scfg.max_admit_per_step, **stats,
+                slot_utilisation=stats["slot_steps"] / (stats["decode_steps"]
+                                                        * BATCH_SLOTS),
+                run_s=seconds,
+                tokens_per_s=stats["generated_tokens"] / seconds,
+                cima_mvm_launches=launches, launches_per_forward=per_fwd,
+                tokens_equal_to_solo=equal, tokens_total=total,
+                near_ties=near_ties)
+
+
+def phase_serve_batcher() -> int:
+    """Full-width olmo-1b through the slot-level continuous batcher."""
+    row = run_batcher(get_config("olmo-1b").with_accel("kernel", ba=4, bx=4),
+                      LAUNCHES_PER_FORWARD)
+    emit("serve_batcher", **row)
+    return row["cima_mvm_launches"]
+
+
+def kernel_vs_plain(cfg, engine, prompts, tokens, logits) -> dict:
+    """The engine's prefill and greedy tokens again with the kernel routed
+    to its plain version on the card (same program, same glue; the
+    kernel's launch count must not move): prefill logits within FUSED_TOL
+    of the kernel route's (the kernel's fused GELU/SiLU may round a
+    float32 ulp apart) and tokens equal."""
+    before = K.cima_mvm_planes.launches
+    with routed_launches(K.cima_mvm_planes_reference, keep=False):
+        plain_logits, _ = engine.prefill(prompts)
+        plain_tokens = engine.generate(prompts)
+    check(K.cima_mvm_planes.launches == before,
+          "the plain route launched the kernel")
+    check(torch.allclose(logits, plain_logits, **FUSED_TOL),
+          f"{cfg.name}: prefill logits differ from the plain route's by "
+          f"{float((logits - plain_logits).abs().max())}")
+    check(np.array_equal(tokens, plain_tokens),
+          f"{cfg.name}: kernel route tokens differ from the plain route's "
+          f"in {int((tokens != plain_tokens).sum())} of {tokens.size}")
+    return dict(tokens_equal_to_plain_route=int((tokens == plain_tokens)
+                                                .sum()),
+                tokens_total=int(tokens.size),
+                prefill_logits_max_abs_diff_vs_plain_route=float(
+                    (logits - plain_logits).abs().max()))
+
+
+def cache_bytes(cfg, s_max: int) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in leaves(init_cache(cfg, 4, s_max, "cuda").layers))
+
+
+def resume_check(engine, prompts, head: int) -> dict:
+    """``prefill_resume`` of the prompts' tail on a head prefill against a
+    full prefill, on the kernel in the serving scope (per-row input
+    scales): max |diff| within RESUME_REL of max |logit|; the same resume
+    from planted faults -- every carried state zeroed, and the SSM layers'
+    conv states alone zeroed (the tail's first k-1 conv inputs lost) --
+    must exceed it."""
+    cfg, params, s_max = engine.cfg, engine.params, engine.scfg.max_seq
+
+    def every_state(layers):
+        for t in leaves(layers):
+            t.zero_()
+
+    def conv_states(layers):
+        for c in (list(layers["prefix"]) + list(layers["scanned"].values())
+                  + list(layers["suffix"])):
+            if isinstance(c, SSMState):
+                c.conv.zero_()
+
+    faults = {}
+    with engine._scope():
+        full, _ = prefill(params, prompts, cfg, s_max)
+        _, part = prefill(params, prompts[:, :head], cfg, s_max)
+        resumed, out = prefill_resume(params, prompts[:, head:], cfg, part)
+        for fault, plant in (("zeroed_states", every_state),
+                             ("zeroed_conv_states", conv_states)):
+            _, dropped = prefill(params, prompts[:, :head], cfg, s_max)
+            plant(dropped.layers)
+            faulty, _ = prefill_resume(params, prompts[:, head:], cfg,
+                                       dropped)
+            faults[fault] = float((faulty - full).abs().max())
+    scale = float(full.abs().max())
+    diff = float((resumed - full).abs().max())
+    check(out.pos.tolist() == [prompts.shape[1]] * prompts.shape[0],
+          f"resumed pos {out.pos.tolist()}")
+    check(diff <= RESUME_REL * scale, f"{cfg.name}: resumed prefill differs "
+          f"by {diff} (max |logit| {scale})")
+    for fault, err in faults.items():
+        check(err > RESUME_REL * scale, f"{cfg.name}: a resume with {fault} "
+              f"passes the limit ({err}, max |logit| {scale})")
+    return dict(head=head, tail=prompts.shape[1] - head,
+                logits_max_abs_diff=diff, logits_max_abs=scale,
+                tolerance_rel=RESUME_REL,
+                planted_faults_max_abs_diff=faults,
+                argmax_equal=int((resumed.argmax(-1) == full.argmax(-1))
+                                 .sum()))
+
+
+def phase_serve_mamba2() -> int:
+    """Full mamba2-130m (24 SSM layers, published widths) served on the
+    kernel: ``serve_on_kernel``'s figures, tokens equal to the plain
+    route's, the bounded decode state and a resumed prefill."""
+    cfg = get_config("mamba2-130m").with_accel("kernel", ba=4, bx=4)
+    engine, prompts, tokens, logits, row, profile = serve_on_kernel(
+        cfg, MAMBA2_LAUNCHES, images=3)
+    row.update(kernel_vs_plain(cfg, engine, prompts, tokens, logits))
+    small, large = cache_bytes(cfg, 128), cache_bytes(cfg, 4096)
+    check(small == large, f"mamba2 cache bytes {small} at s_max 128, "
+          f"{large} at 4096")
+    row["resume"] = resume_check(engine, prompts, head=24)
+    emit("serve_mamba2", **row, cache_bytes_s_max_128=small,
+         cache_bytes_s_max_4096=large, decode_profile=profile)
+    del engine
+    torch.cuda.empty_cache()
+    return row["kernel_launches_generate"]
+
+
+def recurrentgemma_cut():
+    """recurrentgemma-9b at published widths, RG_LAYERS deep."""
+    return dataclasses.replace(get_config("recurrentgemma-9b"),
+                               n_layers=RG_LAYERS)
+
+
+def long_greedy(engine, prompt, steps: int):
+    """A prefill of ``prompt`` (into a cache as long as the prompt and the
+    steps; a windowed layer's ring keeps the window) and ``steps`` greedy
+    decode steps; (first logits, tokens, cache, prefill seconds)."""
+    s_max = prompt.shape[1] + steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with engine._scope():
+        logits, cache = prefill(engine.params, prompt, engine.cfg, s_max)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    first = logits
+    out = [torch.argmax(logits, -1)]
+    for _ in range(steps):
+        logits, cache = engine.decode(out[-1], cache)
+        out.append(torch.argmax(logits, -1))
+    return first, torch.stack(out, 1).cpu().numpy(), cache, t_prefill
+
+
+def phase_serve_recurrentgemma() -> int:
+    """recurrentgemma-9b at published widths, RG_LAYERS of 38 layers,
+    served on the kernel (``serve_on_kernel``, tokens equal to the plain
+    route's), then one row of RG_LONG_PROMPT tokens (the ring cache wraps,
+    the chunked attention path runs) and RG_LONG_STEPS decode steps,
+    kernel against plain route."""
+    base = get_config("recurrentgemma-9b")
+    cfg = recurrentgemma_cut().with_accel("kernel", ba=4, bx=4)
+    check(cfg.pattern() == ("rec", "rec", "attn") * 2 + ("rec", "rec"),
+          f"pattern {cfg.pattern()}")
+    engine, prompts, tokens, logits, row, profile = serve_on_kernel(
+        cfg, RG_LAUNCHES, images=32)
+    row.update(kernel_vs_plain(cfg, engine, prompts, tokens, logits))
+    # bounded state: LRU states and a ring cache one window long
+    small, large = cache_bytes(cfg, 128), cache_bytes(cfg, 4096)
+    check(large == cache_bytes(cfg, base.attn_window),
+          f"recurrentgemma cache bytes grow past the window: {large}")
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    long = torch.randint(0, cfg.vocab, (1, RG_LONG_PROMPT), generator=g,
+                         device="cuda")
+    # the long path: counts at 0 just before, read just after
+    K.cima_mvm_planes.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, long_tokens, cache, t_long_prefill = long_greedy(
+        engine, long, RG_LONG_STEPS)
+    torch.cuda.synchronize()
+    t_long = time.perf_counter() - t0
+    long_launches = K.cima_mvm_planes.launches
+    check(long_launches == RG_LAUNCHES * (1 + RG_LONG_STEPS),
+          f"long prompt: {long_launches} launches")
+    attn_unit = f"u{stack_layout(cfg).unit.index('attn')}"
+    ring = cache.layers["scanned"][attn_unit].k.shape[2]
+    check(ring == base.attn_window, f"ring cache of {ring} slots")
+    check(bool(torch.isfinite(first).all()), "non-finite long logits")
+    del cache
+    with routed_launches(K.cima_mvm_planes_reference, keep=False):
+        plain_first, plain_long, _, _ = long_greedy(engine, long,
+                                                    RG_LONG_STEPS)
+    check(K.cima_mvm_planes.launches == long_launches,
+          "the plain route launched the kernel")
+    check(torch.allclose(first, plain_first, **FUSED_TOL), "long prompt: "
+          "first logits differ from the plain route's by "
+          f"{float((first - plain_first).abs().max())}")
+    check(np.array_equal(long_tokens, plain_long), "long prompt: kernel "
+          f"tokens {long_tokens.tolist()} != plain {plain_long.tolist()}")
+    emit("serve_recurrentgemma", **row, layers_of_published=base.n_layers,
+         published_depth=published_depth_bytes(engine),
+         pattern=list(cfg.pattern()), cache_bytes_s_max_128=small,
+         cache_bytes_s_max_4096=large, decode_profile=profile,
+         long_prompt=dict(
+             prompt_tokens=RG_LONG_PROMPT, decode_steps=RG_LONG_STEPS,
+             window=base.attn_window, ring_cache_slots=ring,
+             launches=long_launches, seconds=t_long,
+             prefill_ms=t_long_prefill * 1e3,
+             tokens_equal_to_plain_route=int((long_tokens == plain_long)
+                                             .sum()),
+             tokens=long_tokens.tolist(),
+             first_logits_max_abs_diff_vs_plain_route=float(
+                 (first - plain_first).abs().max())))
+    del engine
+    torch.cuda.empty_cache()
+    return row["kernel_launches_generate"] + long_launches
+
+
+def phase_serve_recurrent_batcher() -> int:
+    """``ContinuousBatcher`` on full mamba2-130m and on recurrentgemma-9b
+    at RG_LAYERS: the pad-masked re-prefill and the splice of the SSM and
+    LRU states (``run_batcher``)."""
+    launches = 0
+    for cfg, per_fwd in ((get_config("mamba2-130m"), MAMBA2_LAUNCHES),
+                         (recurrentgemma_cut(), RG_LAUNCHES)):
+        row = run_batcher(cfg.with_accel("kernel", ba=4, bx=4), per_fwd)
+        emit("serve_recurrent_batcher", **row)
+        launches += row["cima_mvm_launches"]
+    return launches
+
+
+def phase_serve_dense_archs() -> int:
+    """llama3.2-1b (GQA at head dim 64, vocab 128,256), granite-8b and
+    starcoder2-3b (window 4,096, LayerNorm and the GELU MLP) at published
+    widths, DENSE_DEPTH layers deep, 8 new tokens, kernel against plain
+    route."""
+    launches = 0
+    for name, depth in DENSE_DEPTH.items():
+        base = get_config(name)
+        cfg = dataclasses.replace(base, n_layers=depth).with_accel(
+            "kernel", ba=4, bx=4)
+        per_fwd = sum(s[4] for s in dense_shapes(name))
+        # one image a projection of a layer, and the unembed's
+        engine, prompts, tokens, logits, row, profile = serve_on_kernel(
+            cfg, per_fwd, images=(per_fwd - 1) // depth + 1, new=8)
+        row.update(kernel_vs_plain(cfg, engine, prompts, tokens, logits))
+        emit("serve_dense_archs", **row, layers_of_published=base.n_layers,
+             published_depth=(published_depth_bytes(engine)
+                              if depth < base.n_layers else None),
+             decode_profile=profile)
+        launches += row["kernel_launches_generate"]
+        del engine
+        torch.cuda.empty_cache()
+    return launches
 
 
 def fa_errors(o, ref):
@@ -1700,6 +2120,11 @@ def main():
     rows, err_main = phase_main_shapes(peaks)
     launches = phase_serve(peaks)
     phase_serve_batcher()
+    _, rec_err, rec_step = phase_recurrent_shapes(peaks)
+    mamba2_launches = phase_serve_mamba2()
+    rg_launches = phase_serve_recurrentgemma()
+    rec_batcher_launches = phase_serve_recurrent_batcher()
+    dense_launches = phase_serve_dense_archs()
     fa_err = phase_flash_cases()
     fa_rows, fa_launches = phase_flash_main_shapes(peaks)
     cifar_rows, cifar_launches, cifar_err = phase_cifar(peaks)
@@ -1728,17 +2153,29 @@ def main():
         "name": "cima_mvm", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES,
         "launches": (launches + cifar_launches + qat_launches + lm_launches
-                     + trainer_launches),
-        "max_abs_err": max(err_cases, err_main, cifar_err),
+                     + trainer_launches + mamba2_launches + rg_launches
+                     + rec_batcher_launches + dense_launches),
+        "max_abs_err": max(err_cases, err_main, cifar_err, rec_err),
         "ms": step["ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step_bound_by,
         "library_ms": None,
-        "per": "one decode step's 113 launches at B=4; launches: the "
-               "16-forward generate, one CIFAR Network A and B forward (9 "
-               "each), 8 QAT steps of each (9 each), 3 olmo-1b train steps "
-               "(225 each) and the reduced trainer's 6 steps (29 each); "
+        "per": "one olmo-1b decode step's 113 launches at B=4; launches: "
+               "olmo-1b's 16-forward generate, mamba2-130m's (49 a "
+               "forward), recurrentgemma-9b's at 8 layers (51) and its "
+               "2,560-token prompt with 8 decode steps, both recurrent "
+               "batchers, the dense configs' 8-forward generates "
+               "(llama3.2-1b at 16 layers: 113 a forward, granite-8b at "
+               "2: 15, starcoder2-3b at 30: 181), one CIFAR Network A "
+               "and B forward (9 each), 8 QAT steps of each (9 each), 3 "
+               "olmo-1b train steps (225 each) and the reduced trainer's "
+               "6 steps (29 each); "
                "the noisy paths (noise, noise_qat, noise_corner) run bpbs "
                "and launch it 0 times",
+        "recurrent_decode_step_ms": {m: v["ms"] for m, v in rec_step.items()},
+        "recurrent_decode_step_plain_ms": {m: v["plain_ms"]
+                                           for m, v in rec_step.items()},
+        "recurrent_decode_step_bound_ms": {m: v["bound_ms"]
+                                           for m, v in rec_step.items()},
         "train_step_ms": train["ms"], "train_step_plain_ms": train["plain_ms"],
         "train_step_bound_ms": train["bound_ms"],
         "qat_launches_per_step": {r["net"]: r["launches_per_step"]

@@ -109,6 +109,22 @@ def segment_dma_words() -> int:
     return E.A_ROW_SEGMENT // E.DMA_WORD
 
 
+# output columns decomposed into planes at a time: the float32 planes of
+# a whole 4,096 x 256,000 unembed would take 17 GB at once
+PLANE_COLUMNS = 8192
+
+
+def _int8_planes(q: torch.Tensor, cfg) -> torch.Tensor:
+    """``weight_planes(q)`` as int8 [N, B_A, M], a block of PLANE_COLUMNS
+    columns at a time (the decomposition is elementwise: same bits)."""
+    n, m = q.shape
+    out = torch.empty((n, cfg.ba, m), dtype=torch.int8, device=q.device)
+    for c in range(0, m, PLANE_COLUMNS):
+        out[:, :, c:c + PLANE_COLUMNS] = weight_planes(
+            q[:, c:c + PLANE_COLUMNS], cfg).permute(0, 2, 1)
+    return out
+
+
 def _compile_image(w: torch.Tensor, spec, path: str) -> CimaImage:
     """Quantize + decompose one (possibly stacked) projection exactly as
     the on-the-fly backends do per call, one copy at a time."""
@@ -120,16 +136,15 @@ def _compile_image(w: torch.Tensor, spec, path: str) -> CimaImage:
     for wi in flat:
         qw = quantize(wi.to(torch.float32), spec.ba, spec.coding,
                       axis=1 if spec.per_channel else None)
-        ws.append(weight_planes(qw.q, cfg).permute(0, 2, 1).to(torch.int8))
+        ws.append(_int8_planes(qw.q, cfg))
         wq.append(qw.q.to(torch.int16))
         scale.append(qw.scale)
-    ws, wq, scale = torch.stack(ws), torch.stack(wq), torch.stack(scale)
     if not lead:
         ws, wq, scale = ws[0], wq[0], scale[0]
     else:
-        ws = ws.reshape(lead + ws.shape[1:])
-        wq = wq.reshape(lead + wq.shape[1:])
-        scale = scale.reshape(lead + scale.shape[1:])
+        ws = torch.stack(ws).reshape(lead + ws[0].shape)
+        wq = torch.stack(wq).reshape(lead + wq[0].shape)
+        scale = torch.stack(scale).reshape(lead + scale[0].shape)
     return CimaImage(ws=ws.contiguous(), wq=wq, scale=scale, path=path,
                      tag=spec.tag, ba=spec.ba, coding=Coding(spec.coding),
                      per_channel=spec.per_channel, n=n, m=m,
@@ -162,12 +177,19 @@ _ATTN = {"wq": "q", "wk": "k", "wv": "v", "wo": "o"}
 
 def _classify(names: tuple) -> Optional[tuple]:
     """(policy_path, kind) of the linear dict at key chain ``names``, or
-    None for unmanaged projections."""
+    None for unmanaged / by-design-digital projections (the RG-LRU gates
+    ``w_rg``/``w_ig`` dispatch with ``spec=None`` and never quantize)."""
     leaf = names[-1]
     if leaf == "lm_head":
         return "unembed", "unembed"
     if "attn" in names:
         return (f"attn.{_ATTN[leaf]}", "attn") if leaf in _ATTN else None
+    if "rec" in names:
+        return (f"rec.{leaf}", "rec") if leaf in ("in_x", "in_gate", "out") \
+            else None
+    if "ssm" in names:
+        return (f"ssm.{leaf}", "ssm") if leaf in ("in_proj", "out_proj") \
+            else None
     if "mlp" in names and leaf in ("gate", "up", "down"):
         return f"mlp.{leaf}", "mlp"
     return None

@@ -1,4 +1,7 @@
-"""Model API for the dense decoder path.  Port of ``repro.models.model``.
+"""Model API for the decoder families the port runs: dense (GQA, local
+windows), hybrid RG-LRU (recurrentgemma) and SSM (mamba2).  Port of
+``repro.models.model``; MoE, MLA, encoder-decoder and frontend models
+raise ``NotImplementedError``.
 
 * ``init_params(cfg, gen, device)``   — the parameter tree (same nested
   dict keys as the reference, stacked ``"scanned"`` layer leaves).
@@ -193,8 +196,8 @@ def prefill_resume(params, tokens: torch.Tensor, cfg, cache: DecodeCache):
 
 def _map_slot(fn, caches):
     """``fn(batch_axis, *leaves)`` over one or more ``DecodeCache.layers``
-    trees: prefix/suffix block caches carry the batch at axis 0, stacked
-    ``"scanned"`` caches at axis 1."""
+    trees (KV caches, SSM and LRU states): prefix/suffix block caches
+    carry the batch at axis 0, stacked ``"scanned"`` caches at axis 1."""
     return {part: tree_map(functools.partial(fn, 1 if part == "scanned"
                                               else 0),
                             *[c[part] for c in caches])

@@ -1,0 +1,211 @@
+"""Mamba2 SSD mixer (state-space duality, arXiv:2405.21060).  Port of
+``repro.models.ssm``.
+
+Chunked SSD for train/prefill: quadratic attention-like compute within
+chunks, a linear recurrence across chunks (a loop over the chunk states,
+the reference's ``lax.scan``).  Single-step recurrence for decode with a
+constant-size (conv, ssm) state.
+
+The in/out projections are static-weight MVMs and run through
+``accel.matmul`` (policy paths ``ssm.in_proj``/``ssm.out_proj``); the SSD
+scan multiplies two activations, so it stays digital: plain torch ops,
+as plain XLA ops in the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from .layers import init_linear, linear
+
+
+class SSMState(NamedTuple):
+    conv: torch.Tensor      # [B, k-1, conv_dim] trailing inputs of the conv
+    ssm: torch.Tensor       # [B, H, P, N] recurrent state
+
+
+def dims(cfg):
+    d_inner = cfg.ssm_expand * cfg.d_model
+    n_heads = d_inner // cfg.ssm_head_dim
+    conv_dim = d_inner + 2 * cfg.ssm_state    # x, B, C go through the conv
+    return d_inner, n_heads, conv_dim
+
+
+def init_ssm(gen, cfg, device, lead: tuple = ()) -> dict:
+    """The mixer's params; ``lead`` prepends stacked-layer axes."""
+    d = cfg.d_model
+    d_inner, n_heads, conv_dim = dims(cfg)
+    in_proj = init_linear(gen, d, 2 * d_inner + 2 * cfg.ssm_state + n_heads,
+                          device, lead)
+    conv_w = 0.1 * torch.randn(lead + (cfg.conv1d_size, conv_dim),
+                               generator=gen, device=device)
+    u = torch.empty(lead + (n_heads,), device=device).uniform_(
+        math.log(1e-3), math.log(1e-1), generator=gen)
+    a_log = torch.log(torch.arange(1, n_heads + 1, dtype=torch.float32,
+                                   device=device))
+    return {
+        # in_proj -> [z, xBC, dt]
+        "in_proj": in_proj,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros(lead + (conv_dim,), device=device),
+        "A_log": a_log.expand(lead + (n_heads,)).clone(),
+        "D": torch.ones(lead + (n_heads,), device=device),
+        "dt_bias": torch.log(torch.expm1(torch.exp(u))),
+        "norm_scale": torch.ones(lead + (d_inner,), device=device),
+        "out_proj": init_linear(gen, d_inner, d, device, lead),
+    }
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _causal_conv(x, w, b, state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv1d.  x: [B, S, C]; w: [k, C].  Returns (y, new
+    trailing state [B, k-1, C]).  The k shifted products are summed left
+    to right, as the reference sums them."""
+    k = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    s = x.shape[1]
+    y = sum(xp[:, i:i + s, :] * w[i] for i in range(k))
+    new_state = xp[:, -(k - 1):, :] if k > 1 else state
+    return y + b, new_state
+
+
+def _segsum(dA: torch.Tensor) -> torch.Tensor:
+    """Cumulative decay matrix: L[i,j] = sum_{j<l<=i} dA_l (lower-tri),
+    -inf above the diagonal."""
+    q = dA.shape[-1]
+    cs = torch.cumsum(dA, dim=-1)
+    L = cs[..., :, None] - cs[..., None, :]
+    i = torch.arange(q, device=dA.device)
+    return torch.where(i[:, None] >= i[None, :], L, -torch.inf)
+
+
+def ssd_chunked(x, dt, A, B_, C_, chunk: int, init_state=None):
+    """Chunked SSD.  x: [B,S,H,P]; dt: [B,S,H]; A: [H]; B_,C_: [B,S,N].
+    Returns (y [B,S,H,P], final_state [B,H,P,N]).
+
+    ``init_state`` ([B,H,P,N], default zeros) seeds the inter-chunk
+    recurrence, so a resumed prefill continues from a carried state.
+    The reference's three-operand einsums contract here pairwise."""
+    b, s, h, p = x.shape
+    n = B_.shape[-1]
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B_ = F.pad(B_, (0, 0, 0, pad))
+        C_ = F.pad(C_, (0, 0, 0, pad))
+    nc = x.shape[1] // chunk
+    xc = x.reshape(b, nc, chunk, h, p)
+    dtc = dt.reshape(b, nc, chunk, h)
+    Bc = B_.reshape(b, nc, chunk, n)
+    Cc = C_.reshape(b, nc, chunk, n)
+
+    dA = dtc * (-torch.exp(A))[None, None, None, :]       # [B,nc,Q,H] (<0)
+    dA = dA.permute(0, 1, 3, 2)                            # [B,nc,H,Q]
+    L = torch.exp(_segsum(dA))                             # [B,nc,H,Q,Q]
+
+    xdt = xc * dtc[..., None]                              # dt-weighted input
+    # intra-chunk (diagonal blocks): y = (C B^T o L) (dt x)
+    cb = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)           # [B,nc,Q,Q]
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", cb[:, :, None] * L, xdt)
+    # states at chunk ends: S_c = sum_k exp(dA_cum_end - dA_cum_k) B_k x_k
+    dA_cum = torch.cumsum(dA, dim=-1)                      # [B,nc,H,Q]
+    decay_to_end = torch.exp(dA_cum[..., -1:] - dA_cum)    # [B,nc,H,Q]
+    states = torch.einsum("bckn,bckhp->bchpn", Bc,
+                          xdt * decay_to_end.permute(0, 1, 3, 2)[..., None])
+    chunk_decay = torch.exp(dA_cum[..., -1])               # [B,nc,H]
+
+    # inter-chunk recurrence over the nc chunks
+    st = (torch.zeros_like(states[:, 0]) if init_state is None
+          else init_state.to(states.dtype))
+    prev = []
+    for c in range(nc):
+        prev.append(st)
+        st = st * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                 # [B,nc,H,P,N]
+
+    # inter-chunk contribution: y += C_q exp(dA_cum_q) S_prev
+    in_decay = torch.exp(dA_cum).permute(0, 1, 3, 2)       # [B,nc,Q,H]
+    y_off = torch.einsum("bcqn,bchpn->bcqhp", Cc, prev_states) \
+        * in_decay[..., None]
+
+    y = (y_diag + y_off).reshape(b, nc * chunk, h, p)[:, :s]
+    return y, st
+
+
+def ssm_forward(params, x, cfg, state: Optional[SSMState] = None,
+                decode: bool = False, dtype=torch.bfloat16, pad_mask=None):
+    """Full mixer.  x: [B, S, d].  Returns (y, new_state).
+
+    ``pad_mask`` ([B, S] bool, True = real token; left-padded prefill):
+    padded steps are identity transitions: conv inputs zeroed (so the
+    carried conv state matches an unpadded run) and ``dt`` zeroed (so
+    ``exp(dt*A) = 1`` passes the SSD state through and the padded step
+    adds nothing to any real position's output)."""
+    b, s, _ = x.shape
+    d_inner, n_heads, conv_dim = dims(cfg)
+    n = cfg.ssm_state
+    sp = cfg.policy.resolver("ssm")
+
+    zxbcdt = linear(params["in_proj"], x, sp("ssm.in_proj"), dtype)
+    z = zxbcdt[..., :d_inner]
+    xbc = zxbcdt[..., d_inner:d_inner + conv_dim]
+    dt = _softplus(zxbcdt[..., -n_heads:].to(torch.float32)
+                   + params["dt_bias"])
+    if pad_mask is not None:
+        xbc = xbc * pad_mask[..., None].to(xbc.dtype)
+        dt = dt * pad_mask[..., None].to(dt.dtype)
+
+    conv_state = state.conv if state is not None else None
+    xbc, new_conv = _causal_conv(xbc, params["conv_w"].to(dtype),
+                                 params["conv_b"].to(dtype), conv_state)
+    xbc = F.silu(xbc)
+    xs = xbc[..., :d_inner].reshape(b, s, n_heads, cfg.ssm_head_dim)
+    B_ = xbc[..., d_inner:d_inner + n].to(torch.float32)
+    C_ = xbc[..., d_inner + n:].to(torch.float32)
+    A = params["A_log"]
+
+    if decode:
+        assert s == 1
+        dA = torch.exp(dt[:, 0] * (-torch.exp(A))[None, :])     # [B,H]
+        xdt = xs[:, 0].to(torch.float32) * dt[:, 0, :, None]   # [B,H,P]
+        new_ssm = state.ssm * dA[..., None, None] \
+            + xdt[..., None] * B_[:, 0, None, None, :]
+        y = torch.einsum("bn,bhpn->bhp", C_[:, 0], new_ssm)[:, None]
+    else:
+        y, new_ssm = ssd_chunked(xs.to(torch.float32), dt, A, B_, C_,
+                                 cfg.ssm_chunk,
+                                 init_state=(state.ssm if state is not None
+                                             else None))
+    y = y + params["D"][None, None, :, None] * xs.to(torch.float32)
+    y = y.reshape(b, s, d_inner).to(dtype)
+
+    # gated RMSNorm (mamba2)
+    yf = y.to(torch.float32) * F.silu(z.to(torch.float32))
+    yf = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + 1e-6)
+    y = (yf * params["norm_scale"]).to(dtype)
+
+    out = linear(params["out_proj"], y, sp("ssm.out_proj"), dtype)
+    return out, SSMState(new_conv, new_ssm)
+
+
+def init_ssm_state(cfg, batch: int, dtype, device,
+                   lead: tuple = ()) -> SSMState:
+    d_inner, n_heads, conv_dim = dims(cfg)
+    return SSMState(
+        conv=torch.zeros(lead + (batch, cfg.conv1d_size - 1, conv_dim),
+                         dtype=dtype, device=device),
+        ssm=torch.zeros(lead + (batch, n_heads, cfg.ssm_head_dim,
+                                cfg.ssm_state),
+                        dtype=torch.float32, device=device),
+    )

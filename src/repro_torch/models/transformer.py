@@ -1,5 +1,6 @@
 """Decoder blocks and stacked layers.  Port of
-``repro.models.transformer`` for kind ``"attn"`` blocks.
+``repro.models.transformer`` for block kinds ``"attn"``, ``"rec"``
+(RG-LRU) and ``"ssm"`` (Mamba2); MoE and MLA blocks come later.
 
 The reference compiles a stack with ``lax.scan`` over stacked layer
 parameters; here :func:`apply_stack` loops over the leading layer dim of
@@ -21,38 +22,77 @@ from repro_torch.accel import context as accel_context
 from repro_torch.tree import leaves
 
 from . import attention as attn_mod
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
 from .layers import init_mlp, init_norm, mlp, norm
 
 
-def _kind_check(kind: str) -> None:
-    if kind != "attn":
+def _kind_check(cfg, kind: str) -> None:
+    if kind == "moe" or cfg.mla:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet; this slice runs dense "
-            "attention blocks")
+            f"{cfg.name}: MoE and MLA blocks are not ported yet; they come "
+            "with the MoE/MLA slice of the port")
+    if kind not in ("attn", "rec", "ssm"):
+        raise ValueError(f"unknown block kind {kind!r}")
 
 
 def init_block(gen, cfg, kind: str, device, lead: tuple = ()) -> dict:
     """One block's params; ``lead`` prepends stacked-layer axes."""
-    _kind_check(kind)
-    return {"ln1": init_norm(cfg.d_model, cfg.norm, device, lead),
-            "attn": attn_mod.init_attention(gen, cfg, device, lead),
-            "ln2": init_norm(cfg.d_model, cfg.norm, device, lead),
-            "mlp": init_mlp(gen, cfg, device, lead)}
+    _kind_check(cfg, kind)
+    p = {"ln1": init_norm(cfg.d_model, cfg.norm, device, lead)}
+    if kind == "attn":
+        p["attn"] = attn_mod.init_attention(gen, cfg, device, lead)
+    elif kind == "rec":
+        p["rec"] = rglru_mod.init_rglru(gen, cfg, device, lead)
+    else:
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg, device, lead)
+        return p                       # mamba blocks have no separate MLP
+    p["ln2"] = init_norm(cfg.d_model, cfg.norm, device, lead)
+    p["mlp"] = init_mlp(gen, cfg, device, lead)
+    return p
 
 
 def init_block_cache(cfg, kind: str, batch: int, s_max: int, dtype, device,
                      lead: tuple = ()):
-    _kind_check(kind)
+    _kind_check(cfg, kind)
+    if kind == "rec":
+        return rglru_mod.init_lru_state(cfg, batch, dtype, device, lead)
+    if kind == "ssm":
+        return ssm_mod.init_ssm_state(cfg, batch, dtype, device, lead)
     return attn_mod.init_kv_cache(cfg, batch, s_max, dtype, device, lead)
+
+
+def _store(cache, new):
+    """Write a recurrent mixer's new state into ``cache`` in place (every
+    cache write of the port is in place) and return the cache."""
+    if cache is None:
+        return None
+    for dst, src in zip(cache, new):
+        dst.copy_(src)
+    return cache
 
 
 def apply_block(params: dict, x, cfg, kind: str, positions, cache=None,
                 cache_pos=None, dtype=torch.bfloat16, pad_mask=None):
     """Returns (x, cache)."""
-    _kind_check(kind)
+    _kind_check(cfg, kind)
+    # single-step decode for the recurrent mixers; a multi-token call with
+    # cache_pos (a resumed prefill) runs their sequence path seeded from
+    # the carried state instead
+    decode = cache_pos is not None and x.shape[1] == 1
     h = norm(params["ln1"], x, cfg.norm)
-    mix, cache = attn_mod.attention(params["attn"], h, cfg, positions, cache,
-                                    cache_pos, dtype, pad_mask=pad_mask)
+    if kind == "attn":
+        mix, cache = attn_mod.attention(params["attn"], h, cfg, positions,
+                                        cache, cache_pos, dtype,
+                                        pad_mask=pad_mask)
+    elif kind == "rec":
+        mix, new = rglru_mod.rglru_forward(params["rec"], h, cfg, cache,
+                                           decode, dtype, pad_mask=pad_mask)
+        cache = _store(cache, new)
+    else:
+        mix, new = ssm_mod.ssm_forward(params["ssm"], h, cfg, cache, decode,
+                                       dtype, pad_mask=pad_mask)
+        return x + mix, _store(cache, new)
     x = x + mix
     h2 = norm(params["ln2"], x, cfg.norm)
     # the residual stream rides the down projection's fused datapath
@@ -109,8 +149,8 @@ def layer_slice(tree, i: int):
         return {k: layer_slice(v, i) for k, v in tree.items()}
     if isinstance(tree, CimaImage):
         return tree.layer(i)
-    if isinstance(tree, attn_mod.KVCache):
-        return attn_mod.KVCache(tree.k[i], tree.v[i])
+    if isinstance(tree, tuple):          # KVCache, SSMState, LRUState
+        return type(tree)(*(t[i] for t in tree))
     return tree[i]
 
 

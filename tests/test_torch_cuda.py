@@ -221,6 +221,67 @@ def test_kernel_at_cifar_layer_shapes(cuda, case, rows):
         assert set(torch.unique(y).tolist()) <= {-1.0, 1.0}
 
 
+# the recurrent families' new projection shapes (name, N, M, fused act):
+# column counts off the 16-wide tile (mamba2's in_proj M = 3,352 and its
+# 50,280-word unembed), two ragged banks (4,096 = 2,304 + 1,792 rows),
+# six banks (12,288) and the 256-wide MQA k/v of recurrentgemma-9b
+RECURRENT_SHAPES = [
+    ("mamba2.in_proj", 768, 3352, None), ("mamba2.out_proj", 1536, 768, None),
+    ("mamba2.unembed", 768, 50280, None), ("rec.in_gate", 4096, 4096, "gelu"),
+    ("attn.kv", 4096, 256, None), ("mlp.down", 12288, 4096, None),
+    ("mlp.gate", 4096, 12288, "gelu"),
+]
+
+
+@pytest.mark.parametrize("rows", [4, 128])
+@pytest.mark.parametrize("case", RECURRENT_SHAPES, ids=lambda c: c[0])
+def test_kernel_at_recurrent_shapes(cuda, case, rows):
+    """Per-row quantized operands at each shape, as a forward makes them:
+    the kernel equals its plain version bitwise, and with the fused
+    per-row scale and GELU within rtol/atol 1e-6."""
+    from repro_torch.core.quant import quantize
+
+    _, n, m, act = case
+    cfg = BpbsConfig(ba=4, bx=4)
+    g = torch.Generator(device=cuda).manual_seed(n + m + rows)
+    x = torch.randn(rows, n, generator=g, device=cuda)
+    w = torch.randn(n, m, generator=g, device=cuda) * n ** -0.5
+    qx = quantize(x, cfg.bx, cfg.coding, per_row=True)
+    qw = quantize(w, cfg.ba, cfg.coding, axis=1)
+    xs, nu, _ = K.prepare_inputs(qx.q.to(torch.int8), cfg)
+    ws, fs = K.prepare_weights(qw.q, cfg)
+    y = K.cima_mvm_planes(xs, ws, nu, fs, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(y, K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg))
+    if act:
+        es = (qx.scale * qw.scale.reshape(1, -1)).contiguous()
+        y = K.cima_mvm_planes(xs, ws, nu, fs, cfg, es, None, act)
+        yr = K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg, es, None, act)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, yr, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["mamba2-130m", "recurrentgemma-9b"])
+def test_reduced_recurrent_model_kernel_equals_plain_version(cuda,
+                                                             monkeypatch,
+                                                             name):
+    """Reduced mamba2 (4 SSM layers: 2 launches each) and recurrentgemma
+    (rec, rec, attn: 6 + 6 + 7) served on the kernel: launches per
+    forward as counted, and greedy tokens equal to the same engine with
+    the kernel routed to its plain version on the card."""
+    cfg = get_config(name).reduced().with_accel("kernel", ba=4, bx=4)
+    per_fwd = {"mamba2-130m": 4 * 2 + 1, "recurrentgemma-9b": 20}[name]
+    engine = Engine(init_params(cfg, 0, device=cuda), cfg,
+                    ServeConfig(max_seq=32, max_new_tokens=6), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 8), generator=g, device=cuda)
+    before = K.cima_mvm_planes.launches
+    got = engine.generate(toks)
+    assert K.cima_mvm_planes.launches - before == per_fwd * 6
+    monkeypatch.setattr(K, "cima_mvm_planes", K.cima_mvm_planes_reference)
+    np.testing.assert_array_equal(got, engine.generate(toks))
+
+
 @pytest.mark.parametrize("net", [NETWORK_A, NETWORK_B], ids=lambda n: n.name)
 def test_reduced_cifar_forward_on_the_card(cuda, monkeypatch, net):
     """cnn_forward on the kernel: 9 launches a forward, and logits bitwise

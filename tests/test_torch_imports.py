@@ -40,6 +40,9 @@ def test_port_imports_with_jax_and_repro_blocked():
         "sys.meta_path.insert(0, Block())\n"
         "import repro_torch, repro_torch.accel, repro_torch.configs\n"
         "import repro_torch.kernels.cima_mvm, repro_torch.models\n"
+        "import repro_torch.models.ssm, repro_torch.models.rglru\n"
+        "import repro_torch.configs.mamba2_130m\n"
+        "import repro_torch.configs.recurrentgemma_9b\n"
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.ops\n"
         "import repro_torch.serve, repro_torch.convert\n"
         "import repro_torch.core.energy, repro_torch.core.sqnr\n"

@@ -341,3 +341,22 @@ def test_engine_streams_with_bitwise_equal_tokens(ref):
     assert len(tr) == 4 * 7 + 1 and sum(r.load_prologue for r in tr) == 1
     assert taccel.energy_summary(tr)["load_cycles"] == \
         eng.program.reload_cycles_per_pass()
+
+
+def test_image_planes_in_column_blocks_are_the_same_bits(ref, monkeypatch):
+    """``build_program`` decomposes a weight into planes a block of
+    columns at a time (a 256,000-column unembed's float32 planes would
+    not fit beside the model); any block width gives the bits of the
+    whole-matrix decomposition, ragged last block included."""
+    from repro_torch.core.bpbs import weight_planes
+
+    _, tc = _cfgs(ref, "kernel")
+    spec = tc.policy.resolve("unembed", kind="unembed")
+    w = ref[3]["embed"]["table"].T
+    qw = tprogram.quantize(w, spec.ba, spec.coding, axis=1)
+    whole = weight_planes(qw.q, spec.bpbs()).permute(0, 2, 1).to(torch.int8)
+    monkeypatch.setattr(tprogram, "PLANE_COLUMNS", 37)
+    assert w.shape[1] % 37
+    img = tprogram._compile_image(w, spec, "embed")
+    assert torch.equal(img.ws, whole)
+    assert img.ws.dtype == torch.int8 and img.ws.is_contiguous()
