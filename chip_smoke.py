@@ -28,6 +28,18 @@ into ``build/`` (one ``nvcc`` per source, started together), then
   splice of SSM and LRU states); and serves llama3.2-1b, granite-8b and
   starcoder2-3b at published widths (llama3.2-1b and starcoder2-3b at
   their published depth, granite-8b at 2 of 36 layers);
+* holds the kernel to its plain version, bitwise, at deepseek-v2-lite-16b's
+  projection shapes: its 64 routed experts' gate/up/down as ONE grouped
+  launch each (the experts on the grid, as ``jax.vmap`` batches the
+  Pallas kernel), at decode (capacity 1) and at a 128-token prefill
+  (capacity 15), and its MLA, shared-expert, dense-layer and unembed
+  projections as 2-D launches, each timed beside its bound; serves
+  deepseek-v2-lite-16b at published widths and 8 of its 27 layers (the
+  dense first layer and 7 MoE layers) through ``Engine`` with 86 launches
+  a forward (the routed experts 3 a MoE layer), prefill logits and greedy
+  tokens equal to the kernel's plain route's, and through
+  ``ContinuousBatcher`` (dropless: capacity factor 64) with streams equal
+  to solo ``generate``;
 * holds the flash-attention kernel to its plain version on the
   ``FA_CASES`` shapes, then drives ``kernels.ops.flash_attention`` at the
   full widths of olmo-1b (32k-token prefill), recurrentgemma-9b (local
@@ -106,6 +118,7 @@ from repro_torch.models import (init_cache, init_params, loss_fn,  # noqa: E402
                                 prefill, prefill_resume)
 from repro_torch.models.cnn import (cnn_forward, cnn_loss, init_cnn,  # noqa: E402
                                     update_bn_stats)
+from repro_torch.models.moe import capacity as moe_capacity  # noqa: E402
 from repro_torch.models.ssm import SSMState  # noqa: E402
 from repro_torch.models.transformer import stack_layout  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
@@ -175,6 +188,37 @@ RG_LONG_PROMPT, RG_LONG_STEPS = 2560, 8
 # (the serve_dense_archs line's published_depth on an H100 80GB HBM3):
 # 81.3 of its 85.0 GB before activations, caches and the build workspace
 DENSE_DEPTH = {"llama3.2-1b": 16, "granite-8b": 2, "starcoder2-3b": 30}
+# deepseek-v2-lite-16b at published widths, DS_LAYERS of its 27 layers: the
+# dense first layer (MLA + a 10,944-wide SwiGLU) and 7 MoE layers (MLA, 64
+# routed experts of width 1,408 at top-6, 2 shared experts: 2,816 wide),
+# since 27 layers hold ~156 GB of float32 parameters and images; the
+# untied 102,400-word unembed.  Fields as MAIN_SHAPES; launches per forward
+DS_LAYERS = 8
+DS_MOE_LAYERS = DS_LAYERS - 1
+DS_EXPERTS = 64
+DS_MLA_SHAPES = [("deepseek attn.q", 2048, 3072, None, DS_LAYERS),
+                 ("deepseek attn.dkv", 2048, 512, None, DS_LAYERS),
+                 ("deepseek attn.krope", 2048, 64, None, DS_LAYERS),
+                 ("deepseek attn.o", 2048, 2048, None, DS_LAYERS)]
+# w_ukv expands the whole latent cache every decode step: B x s_max rows
+DS_UKV_SHAPES = [("deepseek attn.ukv", 512, 4096, None, DS_LAYERS)]
+DS_FFN_SHAPES = [
+    ("deepseek moe.shared.gate", 2048, 2816, "silu", DS_MOE_LAYERS),
+    ("deepseek moe.shared.up", 2048, 2816, None, DS_MOE_LAYERS),
+    ("deepseek moe.shared.down", 2816, 2048, None, DS_MOE_LAYERS),
+    ("deepseek mlp.gate", 2048, 10944, "silu", 1),
+    ("deepseek mlp.up", 2048, 10944, None, 1),
+    ("deepseek mlp.down", 10944, 2048, None, 1),
+    ("deepseek unembed", 2048, 102400, None, 1)]
+# the routed experts, one grouped launch of DS_EXPERTS groups each
+DS_EXPERT_SHAPES = [("deepseek moe.gate", 2048, 1408, "silu", DS_MOE_LAYERS),
+                    ("deepseek moe.up", 2048, 1408, None, DS_MOE_LAYERS),
+                    ("deepseek moe.down", 1408, 2048, None, DS_MOE_LAYERS)]
+DS_LAUNCHES = sum(s[4] for s in DS_MLA_SHAPES + DS_UKV_SHAPES + DS_FFN_SHAPES
+                  + DS_EXPERT_SHAPES)                         # 86
+# serve_on_kernel's batch, prompt and cache: decode rows, the prefill's
+# 4 x 32 rows, and the latent cache's rows at decode (B x max_seq)
+DS_BATCH, DS_PROMPT, DS_MAX_SEQ = 4, 32, 256
 # a resumed prefill against the full one: max |diff| within about eight
 # float32 ulps of max |logit| (the readings are 0.0); the planted faults
 # (every carried state zeroed, the conv states alone zeroed) must exceed it
@@ -718,18 +762,25 @@ def image_bytes(engine, prefix: str = "") -> int:
 def published_depth_bytes(engine) -> dict:
     """Parameter and image bytes of the engine's config at its published
     depth, from the cut model's own bytes per layer of each block kind
-    (the stacked units, as ``stack_layout`` names them): why a phase cuts
-    the depth."""
+    (the stacked units, as ``stack_layout`` names them, then the kinds
+    only the unstacked prefix or suffix holds, such as deepseek's dense
+    first layer): why a phase cuts the depth."""
     p, layout = engine.params, stack_layout(engine.cfg)
     per: dict = {}
     for j, kind in enumerate(layout.unit):
         per.setdefault(kind, (
             tensor_bytes(p["stack"]["scanned"][f"u{j}"]) / layout.n_rep,
             image_bytes(engine, f"stack.scanned.u{j}.") / layout.n_rep))
+    for part in ("prefix", "suffix"):
+        for i, kind in enumerate(getattr(layout, part)):
+            per.setdefault(kind, (tensor_bytes(p["stack"][part][i]),
+                                  image_bytes(engine, f"stack.{part}.{i}.")))
     kinds = get_config(engine.cfg.name).pattern()
     n = {k: kinds.count(k) for k in per}
     rest = {k: v for k, v in p.items() if k != "stack"}
     return dict(layers=len(kinds), layers_of_kind=n,
+                bytes_per_layer={k: dict(parameters=v[0], images=v[1])
+                                 for k, v in per.items()},
                 parameter_bytes=tensor_bytes(rest) + sum(
                     n[k] * per[k][0] for k in per),
                 image_bytes=image_bytes(engine, "embed.")
@@ -1112,6 +1163,197 @@ def phase_serve_dense_archs() -> int:
         del engine
         torch.cuda.empty_cache()
     return launches
+
+
+def grouped_bound_ms(g, c, n, m, cfg, fused, peaks):
+    """``bound_ms`` of a grouped launch: ``g`` groups of ``c`` rows, each
+    group's operands read once and its output written once (the shared
+    bank full scales once), and every group's plane products."""
+    n_banks = -(-n // cfg.bank_n)
+    nbytes = g * (n * cfg.ba * m + c * cfg.bx * n + 4 * c * n_banks
+                  + 4 * c * m + (4 * c * m if fused else 0)) + 4 * n_banks
+    ops = 2 * g * c * cfg.bx * cfg.ba * n * m
+    t_bytes, t_ops = nbytes / peaks[0], ops / peaks[1]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def grouped_shapes(shapes, caps, groups, peaks, phase: str):
+    """Each expert projection as one grouped launch of ``groups`` experts
+    at each capacity of ``caps`` (rows per expert), per-row quantized as
+    the forward quantizes them, one expert's rows all zero (an expert no
+    token reached): the kernel against its grouped plain version, bitwise
+    without the epilogue and within FUSED_TOL with the per-expert per-row
+    scale and the activation where the forward fuses one, and the first
+    and last experts bitwise against their own 2-D launches; then device
+    times of the kernel (back to back; the planes alone are 738 MB, past
+    the L2), the grouped plain version and, for context only, torch.bmm
+    of the integer grids (the ideal-ADC product, not the same function).
+    One ``phase`` line per shape and capacity."""
+    cfg = BpbsConfig(ba=4, bx=4)
+    rows, worst = {}, 0.0
+    for name, n, m, act, per_fwd in shapes:
+        for c in caps:
+            g = torch.Generator(device="cuda").manual_seed(n * 7 + m + c)
+            x = torch.randn(groups, c, n, generator=g, device="cuda")
+            x[groups // 2] = 0.0
+            w = torch.randn(groups, n, m, generator=g, device="cuda") \
+                * n ** -0.5
+            qx = quantize(x, cfg.bx, cfg.coding, per_row=True)
+            qws = [quantize(wi, cfg.ba, cfg.coding, axis=1) for wi in w]
+            wq = torch.stack([q.q for q in qws])
+            w_scale = torch.stack([q.scale for q in qws])        # [G, 1, M]
+            del x, w, qws
+            xs, nu, _ = K.prepare_inputs(qx.q.to(torch.int8), cfg,
+                                         grouped=True)
+            ws, fs = K.prepare_weights(wq, cfg)
+            y = K.cima_mvm_planes(xs, ws, nu, fs, cfg)
+            ref = K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg)
+            torch.cuda.synchronize()
+            check(torch.equal(y, ref), f"grouped kernel != plain on {name} "
+                  f"C={c}")
+            for i in (0, groups - 1):
+                check(torch.equal(y[i], K.cima_mvm_planes(
+                    xs[i], ws[i], nu[i], fs, cfg)),
+                    f"{name} C={c}: group {i} != its 2-D launch")
+            epi, err = (None, None, None, None), 0.0
+            if act:
+                epi = ((qx.scale * w_scale).contiguous(), None, act, None)
+                y = K.cima_mvm_planes(xs, ws, nu, fs, cfg, *epi)
+                ref = K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg, *epi)
+                torch.cuda.synchronize()
+                check(torch.allclose(y, ref, **FUSED_TOL),
+                      f"fused grouped kernel != plain on {name} C={c}")
+                err = float((y - ref).abs().max())
+            worst = max(worst, err)
+            del y, ref
+            t_kernel = device_ms(lambda i: K.cima_mvm_planes(
+                xs, ws, nu, fs, cfg, *epi))
+            t_plain = median_ms(lambda i: K.cima_mvm_planes_reference(
+                xs, ws, nu, fs, cfg, *epi), reps=5, warmup=1)
+            xq, wqf = qx.q.to(torch.float32), wq.to(torch.float32)
+            t_bmm = median_ms(lambda i: torch.bmm(xq, wqf), reps=10)
+            bms, by, nbytes, n_ops = grouped_bound_ms(
+                groups, c, n, m, cfg, act is not None, peaks)
+            rows[(name, c)] = dict(ms=t_kernel, plain_ms=t_plain,
+                                   bound_ms=bms, bound_by=by)
+            mt, tb, cs = K.launch_shape(c, n, m, cfg, K._sm_count(0), groups)
+            emit(phase, name=name, groups=groups, rows_per_group=c, n=n, m=m,
+                 n_banks=-(-n // cfg.bank_n), fused_act_per_row=act,
+                 launches_per_forward=per_fwd, bitwise_unfused=True,
+                 groups_bitwise_to_2d_launch=True, max_abs_err_fused=err,
+                 kernel_ms=t_kernel, plain_ms=t_plain, bound_ms=bms,
+                 bound_by=by, times_bound=t_kernel / bms,
+                 achieved_tb_per_s=nbytes / t_kernel / 1e9,
+                 achieved_int8_tops=n_ops / t_kernel / 1e9,
+                 m16_tiles=mt, batch_rows_per_block=tb, cluster=cs,
+                 bmm_ideal_adc_context_ms=t_bmm)
+            del xs, ws, nu, xq, wqf, wq, qx
+            torch.cuda.empty_cache()
+    return rows, worst
+
+
+def deepseek_cut():
+    """deepseek-v2-lite-16b at published widths, DS_LAYERS deep."""
+    return dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                               n_layers=DS_LAYERS)
+
+
+def phase_moe_shapes(peaks):
+    """deepseek-v2-lite-16b's projection shapes (``moe_shape`` lines, then
+    the phase's summary): the routed experts as grouped launches at the
+    capacities serving gives them (decode at B = 4 and the 4 x 32-token
+    prefill), and the 2-D launches (MLA's q, dkv, krope, o and ukv over
+    the latent cache, the shared experts, the dense first layer, the
+    unembed) at the same rows.  The per-forward sums are the launches'
+    times at one forward's shapes."""
+    cfg = deepseek_cut()
+    prefill_rows = DS_BATCH * DS_PROMPT
+    caps = (moe_capacity(DS_BATCH, cfg), moe_capacity(prefill_rows, cfg))
+    check(caps == (1, 15), f"expert capacities {caps}")
+    flat, err = kernel_shapes(DS_MLA_SHAPES + DS_FFN_SHAPES,
+                              (DS_BATCH, prefill_rows), peaks, "moe_shape")
+    ukv, ukv_err = kernel_shapes(DS_UKV_SHAPES,
+                                 (DS_BATCH * DS_MAX_SEQ, prefill_rows), peaks,
+                                 "moe_shape")
+    grouped, g_err = grouped_shapes(DS_EXPERT_SHAPES, caps, DS_EXPERTS,
+                                    peaks, "moe_shape")
+
+    def forward(rows_2d, ukv_rows, cap):
+        parts = ([(flat[(s[0], rows_2d)], s[4])
+                  for s in DS_MLA_SHAPES + DS_FFN_SHAPES]
+                 + [(ukv[(s[0], ukv_rows)], s[4]) for s in DS_UKV_SHAPES]
+                 + [(grouped[(s[0], cap)], s[4]) for s in DS_EXPERT_SHAPES])
+        out = {k: sum(r[k] * n for r, n in parts)
+               for k in ("ms", "plain_ms", "bound_ms")}
+        out["experts_ms"] = sum(grouped[(s[0], cap)]["ms"] * s[4]
+                                for s in DS_EXPERT_SHAPES)
+        out["experts_bound_ms"] = sum(grouped[(s[0], cap)]["bound_ms"] * s[4]
+                                      for s in DS_EXPERT_SHAPES)
+        return out
+
+    step = forward(DS_BATCH, DS_BATCH * DS_MAX_SEQ, caps[0])
+    prefill_fwd = forward(prefill_rows, prefill_rows, caps[1])
+    worst = max(err, ukv_err, g_err)
+    emit("moe_shapes", shapes=len(flat) + len(ukv) + len(grouped),
+         bitwise_unfused=True, max_abs_err_fused=worst,
+         fused_tolerance=FUSED_TOL, expert_capacity_decode=caps[0],
+         expert_capacity_prefill=caps[1], launches_per_forward=DS_LAUNCHES,
+         decode_step_at_b4=step, prefill_forward_128_rows=prefill_fwd)
+    return worst, step
+
+
+def phase_serve_deepseek() -> int:
+    """deepseek-v2-lite-16b at published widths, DS_LAYERS of 27 layers,
+    served on the kernel (``serve_on_kernel``: DS_LAUNCHES a forward;
+    tokens and prefill logits equal to the plain route's); then the
+    launches of one decode step read one by one: the routed experts are
+    exactly 3 grouped launches a MoE layer, over all DS_EXPERTS."""
+    base = get_config("deepseek-v2-lite-16b")
+    cfg = deepseek_cut().with_accel("kernel", ba=4, bx=4)
+    check(cfg.pattern() == ("attn",) + ("moe",) * DS_MOE_LAYERS,
+          f"pattern {cfg.pattern()}")
+    # images: the dense layer's 5 MLA + 3 MLP, the stacked MoE layers' 5
+    # MLA + 3 expert + 3 shared-expert, the unembed
+    engine, prompts, tokens, logits, row, profile = serve_on_kernel(
+        cfg, DS_LAUNCHES, images=8 + 11 + 1, batch=DS_BATCH,
+        prompt=DS_PROMPT, max_seq=DS_MAX_SEQ)
+    row.update(kernel_vs_plain(cfg, engine, prompts, tokens, logits))
+    _, cache = engine.prefill(prompts)
+    tok = torch.as_tensor(tokens[:, 0], device="cuda")
+    with routed_launches(K.cima_mvm_planes) as calls:
+        engine.decode(tok, cache)
+    torch.cuda.synchronize()
+    grouped = [args for args, _ in calls if args[0].ndim == 4]
+    check(len(calls) == DS_LAUNCHES, f"{len(calls)} launches in a decode "
+          f"step")
+    check(len(grouped) == 3 * DS_MOE_LAYERS
+          and all(a[0].shape[0] == DS_EXPERTS for a in grouped),
+          f"{len(grouped)} grouped expert launches in a decode step")
+    del calls, grouped, cache
+    emit("serve_deepseek", **row, layers_of_published=base.n_layers,
+         published_depth=published_depth_bytes(engine),
+         pattern=list(cfg.pattern()),
+         expert_capacity_decode=moe_capacity(DS_BATCH, cfg),
+         expert_capacity_prefill=moe_capacity(DS_BATCH * DS_PROMPT, cfg),
+         grouped_launches_per_decode_step=3 * DS_MOE_LAYERS,
+         expert_image_bytes=image_bytes(engine, "stack.scanned.u0.moe.cima"),
+         decode_profile=profile)
+    del engine
+    torch.cuda.empty_cache()
+    return row["kernel_launches_generate"] + DS_LAUNCHES
+
+
+def phase_serve_deepseek_batcher() -> int:
+    """deepseek-v2-lite-16b at DS_LAYERS through ``ContinuousBatcher``,
+    dropless (capacity factor 64.0): expert capacity is shared by a
+    step's tokens, so only without drops must a slot's stream equal its
+    solo ``generate`` (``run_batcher``)."""
+    cfg = dataclasses.replace(deepseek_cut(), moe_capacity_factor=64.0)
+    row = run_batcher(cfg.with_accel("kernel", ba=4, bx=4), DS_LAUNCHES)
+    emit("serve_deepseek_batcher", **row,
+         moe_capacity_factor=cfg.moe_capacity_factor)
+    return row["cima_mvm_launches"]
 
 
 def fa_errors(o, ref):
@@ -2125,6 +2367,9 @@ def main():
     rg_launches = phase_serve_recurrentgemma()
     rec_batcher_launches = phase_serve_recurrent_batcher()
     dense_launches = phase_serve_dense_archs()
+    moe_err, ds_step = phase_moe_shapes(peaks)
+    ds_launches = phase_serve_deepseek()
+    ds_batcher_launches = phase_serve_deepseek_batcher()
     fa_err = phase_flash_cases()
     fa_rows, fa_launches = phase_flash_main_shapes(peaks)
     cifar_rows, cifar_launches, cifar_err = phase_cifar(peaks)
@@ -2154,8 +2399,9 @@ def main():
         "replaces": REPLACES,
         "launches": (launches + cifar_launches + qat_launches + lm_launches
                      + trainer_launches + mamba2_launches + rg_launches
-                     + rec_batcher_launches + dense_launches),
-        "max_abs_err": max(err_cases, err_main, cifar_err, rec_err),
+                     + rec_batcher_launches + dense_launches + ds_launches
+                     + ds_batcher_launches),
+        "max_abs_err": max(err_cases, err_main, cifar_err, rec_err, moe_err),
         "ms": step["ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step_bound_by,
         "library_ms": None,
@@ -2165,7 +2411,11 @@ def main():
                "2,560-token prompt with 8 decode steps, both recurrent "
                "batchers, the dense configs' 8-forward generates "
                "(llama3.2-1b at 16 layers: 113 a forward, granite-8b at "
-               "2: 15, starcoder2-3b at 30: 181), one CIFAR Network A "
+               "2: 15, starcoder2-3b at 30: 181), deepseek-v2-lite-16b's "
+               "at 8 layers (86 a forward: the routed experts' 3 grouped "
+               "launches a MoE layer among them) with one decode step "
+               "read launch by launch, and its dropless batcher, one "
+               "CIFAR Network A "
                "and B forward (9 each), 8 QAT steps of each (9 each), 3 "
                "olmo-1b train steps (225 each) and the reduced trainer's "
                "6 steps (29 each); "
@@ -2176,6 +2426,11 @@ def main():
                                            for m, v in rec_step.items()},
         "recurrent_decode_step_bound_ms": {m: v["bound_ms"]
                                            for m, v in rec_step.items()},
+        "deepseek_decode_step_ms": ds_step["ms"],
+        "deepseek_decode_step_plain_ms": ds_step["plain_ms"],
+        "deepseek_decode_step_bound_ms": ds_step["bound_ms"],
+        "deepseek_experts_decode_step_ms": ds_step["experts_ms"],
+        "deepseek_experts_decode_step_bound_ms": ds_step["experts_bound_ms"],
         "train_step_ms": train["ms"], "train_step_plain_ms": train["plain_ms"],
         "train_step_bound_ms": train["bound_ms"],
         "qat_launches_per_step": {r["net"]: r["launches_per_step"]

@@ -6,6 +6,10 @@ Every quantizing backend shares one operand-quantization discipline
 construction.  When ``ctx.image`` carries a compiled
 :class:`~repro_torch.accel.program.CimaImage`, the weight side comes from
 the stored planes/grid and no per-call weight quantization runs.
+
+Grouped calls (``w`` [G, N, M]: the MoE experts) reach the ``kernel``
+backend whole, one grouped launch; :func:`~repro_torch.accel.dispatch.
+matmul` runs the others group by group.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import torch
 from repro_torch.core.bpbs import (bpbs_matmul_planes,
                                    bpbs_matmul_planes_reference,
                                    weight_planes)
-from repro_torch.core.quant import QTensor, quantize
+from repro_torch.core.quant import Coding, QTensor, quantize
 from repro_torch.kernels import ops as kernel_ops
 
 from .context import ExecContext
@@ -34,6 +38,26 @@ def quantize_input(x: torch.Tensor, spec: ExecSpec) -> QTensor:
 def _quantize_weight(w: torch.Tensor, spec: ExecSpec) -> QTensor:
     return quantize(w, spec.ba, spec.coding,
                     axis=1 if spec.per_channel else None)
+
+
+def quantize_input_groups(x: torch.Tensor, spec: ExecSpec) -> QTensor:
+    """:func:`quantize_input` of each group of ``x`` [G, R, N] on its own
+    (scale [G, R or 1, 1]), in one set of ops: a per-tensor scale is each
+    group's amax, and amax is the same in any order.  The XNOR 1-bit
+    scale is a mean, which a batched reduction may sum in another order:
+    those groups quantize one by one."""
+    if spec.x_per_row:
+        return quantize_input(x, spec)
+    g = x.shape[0]
+    if Coding(spec.coding) == Coding.XNOR and spec.bx == 1:
+        parts = [quantize_input(xg, spec) for xg in x]
+        return QTensor(torch.stack([p.q for p in parts]),
+                       torch.stack([p.scale for p in parts]).reshape(g, 1, 1),
+                       spec.bx, spec.coding)
+    qx = quantize_input(x.reshape(g, -1), dataclasses.replace(
+        spec, x_per_row=True))
+    return QTensor(qx.q.reshape(x.shape), qx.scale.reshape(g, 1, 1),
+                   spec.bx, spec.coding)
 
 
 def weight_grid(w: torch.Tensor, spec: ExecSpec, ctx: ExecContext) -> QTensor:
@@ -127,19 +151,46 @@ def kernel(x, w, spec: ExecSpec, ctx: ExecContext) -> torch.Tensor:
     the quantization rescale folds into the scale registers and the
     output leaves the kernel already post-reduced.  Like the reference's
     Pallas backend it takes no noise: at ``adc_sigma_lsb > 0`` it warns
-    and runs noiseless (noisy runs take ``bpbs``)."""
-    qx = quantize_input(x, spec)
+    and runs noiseless (noisy runs take ``bpbs``).  A grouped call
+    (``w`` [G, N, M]) is one grouped launch."""
+    if w.ndim == 3:
+        g = w.shape[0]
+        y = _kernel(x.reshape(g, -1, x.shape[-1]), w, spec, ctx, g)
+        return y.reshape(x.shape[:-1] + y.shape[-1:])
+    return _kernel(x, w, spec, ctx, 0)
+
+
+kernel.grouped = True
+
+
+def _kernel(x, w, spec: ExecSpec, ctx: ExecContext, groups: int):
+    """The kernel backend on a 2-D call, or on ``groups`` groups (``x``
+    [G, R, N]), each with its own input and weight scales: per-group
+    scales are [G, R or 1, 1] and [G, 1, M or 1], the shapes the grouped
+    kernel takes as registers [G, 1 or R, M]."""
+    if groups:
+        qx = quantize_input_groups(x, spec)
+    else:
+        qx = quantize_input(x, spec)
     img = ctx.image
     if img is not None:
         ws_planes, w_scale = img.ws, img.scale
+    elif groups:
+        qws = [_quantize_weight(wg, spec) for wg in w]
+        ws_planes, w_scale = None, torch.stack([q.scale for q in qws])
+        qw = QTensor(torch.stack([q.q for q in qws]), w_scale, spec.ba,
+                     spec.coding)
     else:
         qw = _quantize_weight(w, spec)
         ws_planes, w_scale = None, qw.scale
+    if groups:
+        w_scale = w_scale.reshape(groups, 1, -1)
 
     post = ctx.post
     m = int(w.shape[-1])
     if post is not None and _kernel_fusable(post, m):
-        sw = w_scale.reshape(-1) if spec.per_channel else w_scale
+        sw = (w_scale.reshape(-1) if spec.per_channel and not groups
+              else w_scale)
         escale = qx.scale * sw
         if post.scale is not None:
             escale = escale * post.scale
@@ -154,4 +205,6 @@ def kernel(x, w, spec: ExecSpec, ctx: ExecContext) -> torch.Tensor:
         y_int = kernel_ops.cima_mvm_from_planes(qx.q, ws_planes, spec.bpbs())
     else:
         y_int = kernel_ops.cima_mvm(qx.q, qw.q, spec.bpbs())
+    if groups:
+        return apply_post(y_int * qx.scale * w_scale, post, spec)
     return apply_post(rescale(y_int, qx.scale, w_scale, spec), post, spec)

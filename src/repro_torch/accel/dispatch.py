@@ -20,6 +20,14 @@ float32 products.  When autograd records the call, a
 the reference differentiates matmul-then-epilogue; otherwise (serving
 under ``inference_mode``, or nothing requires grad) the backend runs it
 fused, as before.
+
+A **grouped** call (``w`` [G, N, M], ``x`` [G, ..., N], an image stacked
+[G, ...]) is G independent products in one dispatch: what the reference
+computes by ``jax.vmap`` over the MoE experts.  Each group keeps its own
+input and weight scales, its own image slice and the shared epilogue, so
+the result equals a loop of 2-D dispatches over the groups bit for bit.
+A backend marked ``grouped`` (the kernel: one grouped launch) takes the
+whole call; any other runs group by group.
 """
 from __future__ import annotations
 
@@ -80,19 +88,23 @@ def _record_mvm(spec: ExecSpec, x: torch.Tensor, w: torch.Tensor,
                 image=None, post=None) -> None:
     """One :class:`MvmRecord` into every open trace.  Outside a trace it
     does nothing: the measurements read counts back to the host, and the
-    serving path must not pay for them."""
+    serving path must not pay for them.  A grouped call records one
+    group's shape and rows (the caller's :func:`~repro_torch.accel.
+    context.vmapped` scales them) and measures no sparsity, as the
+    reference sees tracers under ``vmap``."""
     if not tracing():
         return
+    grouped = w.ndim == 3
     streamed = image is not None and not image.resident
     overlap = streamed and image.overlap
     # the first streamed load of a pass has no compute to hide behind;
     # checked against the innermost trace before this record lands
     prologue = 1 if (overlap and not streamed_load_seen()) else 0
-    skipped, total = _measured_planes(spec, x)
+    skipped, total = (None, None) if grouped else _measured_planes(spec, x)
     record(MvmRecord(
         tag=spec.tag, backend=spec.backend,
-        n=int(w.shape[0]), m=int(w.shape[1]), ba=spec.ba, bx=spec.bx,
-        calls=int(math.prod(x.shape[:-1])),
+        n=int(w.shape[-2]), m=int(w.shape[-1]), ba=spec.ba, bx=spec.bx,
+        calls=int(math.prod(x.shape[int(grouped):-1])),
         program=image is not None,
         loads=1 if streamed else 0,
         load_segments=image.segments if streamed else 0,
@@ -103,7 +115,7 @@ def _record_mvm(spec: ExecSpec, x: torch.Tensor, w: torch.Tensor,
         data_shards=(max(image.data_shards, 1) if image is not None
                      else 1),
         post_ops=post.n_ops() if post is not None else 0,
-        sparsity=_measured_sparsity(spec, x),
+        sparsity=None if grouped else _measured_sparsity(spec, x),
         planes_skipped=skipped,
         planes_total=total))
 
@@ -126,6 +138,19 @@ class _StraightThrough(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = torch.einsum("...n,...m->nm", x, g)
         return dx, dw, None, None, None
+
+
+def _run(fn, x, w, spec: ExecSpec, ctx: ExecContext) -> torch.Tensor:
+    """The backend on a 2-D call, or on a grouped one: whole where the
+    backend takes groups, else group by group with each group's image
+    slice, stacked."""
+    if w.ndim == 2 or getattr(fn, "grouped", False):
+        return fn(x, w, spec, ctx)
+    img = ctx.image
+    return torch.stack([
+        fn(x[g], w[g], spec, dataclasses.replace(
+            ctx, image=img.layer(g) if img is not None else None))
+        for g in range(w.shape[0])])
 
 
 def _records_grad(*ts) -> bool:
@@ -156,6 +181,11 @@ def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
       autograd records the call, the backend runs without it and
       ``post.apply`` follows under autograd (STE through the matmul, the
       true gradient through the epilogue and its registers).
+    * Grouped: ``w`` [G, N, M] and ``x`` [G, ..., N] (``image`` stacked
+      [G, ...], ``post`` shared by the groups) -> [G, ..., M], equal to a
+      loop of 2-D calls over the groups.  A digital spec differentiates
+      natively; a quantizing one under autograd raises (the grouped
+      straight-through backward is the MoE training slice's).
     """
     if spec is None:
         dt = dtype or x.dtype
@@ -180,9 +210,18 @@ def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
         dt = dtype or x.dtype
         if post is not None:
             ctx = dataclasses.replace(ctx, post=post)
-        return fn(x.to(dt), w.to(dt), spec, ctx)
+        return _run(fn, x.to(dt), w.to(dt), spec, ctx)
     xf, wf = x.to(torch.float32), w.to(torch.float32)
     regs = (post.scale, post.bias) if post is not None else ()
+    if w.ndim == 3:
+        if _records_grad(xf, wf, *regs):
+            raise NotImplementedError(
+                f"accel.matmul: a grouped {spec.backend!r} call under "
+                "autograd; the grouped straight-through backward comes "
+                "with the MoE training slice of the port")
+        if post is not None:
+            ctx = dataclasses.replace(ctx, post=post)
+        return _run(fn, xf, wf, spec, ctx)
     if _records_grad(xf, wf, *regs):
         y = _StraightThrough.apply(xf, wf, fn, spec,
                                    dataclasses.replace(ctx, post=None))

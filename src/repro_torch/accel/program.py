@@ -19,7 +19,8 @@ The **bank allocator** places images onto ``capacity_chips`` physical
 CIMAs (2304 rows x 256 columns = 590kb each).  An [N, M] image at B_A
 bits occupies ``ceil(N/2304) * ceil(M*B_A/256)`` array tiles per copy
 (stacked layers are separate copies; residency is decided per stacked
-leaf, all copies together).  Images are placed first-fit in model order;
+leaf, all copies together; a MoE layer's experts are copies too).
+Images are placed first-fit in model order;
 what exceeds capacity is *streamed*: reloaded on every forward pass,
 double-buffered behind compute unless ``double_buffer=False``, and
 charged in :func:`~repro_torch.accel.context.trace` records and
@@ -50,7 +51,7 @@ class CimaImage:
     """One projection compiled for the CIMA: int8 bit planes + scales.
 
     ``ws`` is the kernel layout ``[..., N, B_A, M]`` (leading axes are
-    stacked copies: scanned layers); ``wq`` is the same matrix on the
+    stacked copies: scanned layers, experts); ``wq`` is the same matrix on the
     integer grid (int16, what ``digital_int`` consumes); ``scale`` is the
     weight quantization scale (``[..., 1, M]`` per channel, ``[...]`` per
     tensor)."""
@@ -65,7 +66,7 @@ class CimaImage:
     per_channel: bool = True
     n: int = 0                    # per-copy rows
     m: int = 0                    # per-copy output columns
-    copies: int = 1               # stacked instances (layers)
+    copies: int = 1               # stacked instances (layers x experts)
     tiles: int = 0                # 2304x256 array tiles per copy
     segments: int = 0             # 768-b row segments per copy
     resident: bool = True         # placed in the standing allocation?
@@ -79,11 +80,12 @@ class CimaImage:
     data_shards: int = 1
 
     def layer(self, i: int) -> "CimaImage":
-        """The image of stacked copy ``i`` (one scanned layer): one copy,
-        with the stack's placement, so each layer's dispatch charges its
-        own copy's reload."""
+        """The image of index ``i`` on the leading stacked axis (one
+        scanned layer, or one expert of a layer), with the stack's
+        placement, so each dispatch charges its own copies' reloads."""
         return dataclasses.replace(self, ws=self.ws[i], wq=self.wq[i],
-                                   scale=self.scale[i], copies=1)
+                                   scale=self.scale[i],
+                                   copies=self.copies // self.ws.shape[0])
 
 
 def image_tiles(n: int, m: int, ba: int) -> int:
@@ -127,25 +129,30 @@ def _int8_planes(q: torch.Tensor, cfg) -> torch.Tensor:
 
 def _compile_image(w: torch.Tensor, spec, path: str) -> CimaImage:
     """Quantize + decompose one (possibly stacked) projection exactly as
-    the on-the-fly backends do per call, one copy at a time."""
+    the on-the-fly backends do per call, one copy at a time, each written
+    into its slot of the preallocated stacked image (a MoE stack of
+    7 x 64 experts would hold its planes twice over if they were stacked
+    from a list)."""
     lead = tuple(w.shape[:-2])
     n, m = int(w.shape[-2]), int(w.shape[-1])
     cfg = spec.bpbs()
     flat = w.reshape((-1, n, m))
-    ws, wq, scale = [], [], []
-    for wi in flat:
+    copies = flat.shape[0]
+    ws = torch.empty((copies, n, cfg.ba, m), dtype=torch.int8,
+                     device=w.device)
+    wq = torch.empty((copies, n, m), dtype=torch.int16, device=w.device)
+    scales = []
+    for i, wi in enumerate(flat):
         qw = quantize(wi.to(torch.float32), spec.ba, spec.coding,
                       axis=1 if spec.per_channel else None)
-        ws.append(_int8_planes(qw.q, cfg))
-        wq.append(qw.q.to(torch.int16))
-        scale.append(qw.scale)
-    if not lead:
-        ws, wq, scale = ws[0], wq[0], scale[0]
-    else:
-        ws = torch.stack(ws).reshape(lead + ws[0].shape)
-        wq = torch.stack(wq).reshape(lead + wq[0].shape)
-        scale = torch.stack(scale).reshape(lead + scale[0].shape)
-    return CimaImage(ws=ws.contiguous(), wq=wq, scale=scale, path=path,
+        ws[i] = _int8_planes(qw.q, cfg)
+        wq[i] = qw.q
+        scales.append(qw.scale)
+    scale = torch.stack(scales)
+    ws = ws.reshape(lead + ws.shape[1:])
+    wq = wq.reshape(lead + wq.shape[1:])
+    scale = scale.reshape(lead + scale.shape[1:])
+    return CimaImage(ws=ws, wq=wq, scale=scale, path=path,
                      tag=spec.tag, ba=spec.ba, coding=Coding(spec.coding),
                      per_channel=spec.per_channel, n=n, m=m,
                      copies=int(math.prod(lead)) if lead else 1,
@@ -164,21 +171,25 @@ def image_matches(img: Optional[CimaImage], spec, w: torch.Tensor) -> bool:
         and img.ba == spec.ba
         and Coding(img.coding) == Coding(spec.coding)
         and img.per_channel == spec.per_channel
-        and img.ws.ndim == 3
-        and tuple(img.ws.shape) == (w.shape[0], spec.ba, w.shape[1])
+        and tuple(img.ws.shape) == (tuple(w.shape[:-1]) + (spec.ba,)
+                                    + tuple(w.shape[-1:]))
     )
 
 
 # ------------------------------------------------------ param-tree walk
 
 # attention param names -> policy path suffixes (see models.attention)
-_ATTN = {"wq": "q", "wk": "k", "wv": "v", "wo": "o"}
+_ATTN = {"wq": "q", "wk": "k", "wv": "v", "wo": "o",
+         "w_dkv": "dkv", "w_krope": "krope", "w_ukv": "ukv"}
+# raw stacked expert arrays in the moe dict -> policy paths
+_MOE_EXPERT = {"w_gate": "moe.gate", "w_up": "moe.up", "w_down": "moe.down"}
 
 
 def _classify(names: tuple) -> Optional[tuple]:
     """(policy_path, kind) of the linear dict at key chain ``names``, or
-    None for unmanaged / by-design-digital projections (the RG-LRU gates
-    ``w_rg``/``w_ig`` dispatch with ``spec=None`` and never quantize)."""
+    None for unmanaged / by-design-digital projections (the MoE router and
+    the RG-LRU gates ``w_rg``/``w_ig`` dispatch with ``spec=None`` and
+    never quantize)."""
     leaf = names[-1]
     if leaf == "lm_head":
         return "unembed", "unembed"
@@ -190,14 +201,21 @@ def _classify(names: tuple) -> Optional[tuple]:
     if "ssm" in names:
         return (f"ssm.{leaf}", "ssm") if leaf in ("in_proj", "out_proj") \
             else None
+    if "moe" in names:
+        if "shared" in names and leaf in ("gate", "up", "down"):
+            return f"moe.shared.{leaf}", "moe"
+        return None                       # router: digital by design
     if "mlp" in names and leaf in ("gate", "up", "down"):
         return f"mlp.{leaf}", "mlp"
     return None
 
 
 def _walk(params: Any, cfg) -> Iterator[tuple]:
-    """Yield ``(container_path, tag, kind, w)`` per managed projection,
-    in model order; the image installs at ``container_path + ("cima",)``."""
+    """Yield ``(container_path, install_key, tag, kind, w)`` per managed
+    projection, in model order; the image installs at ``container_path``
+    under ``install_key``: ``"cima"`` beside a linear's ``"w"``, or
+    ``("cima", "gate")`` (``up``, ``down``) for the raw stacked expert
+    arrays ``w_gate``/``w_up``/``w_down`` [..., E, N, M] of a moe dict."""
 
     def visit(node, path):
         if isinstance(node, dict):
@@ -206,10 +224,15 @@ def _walk(params: Any, cfg) -> Iterator[tuple]:
                 names = tuple(k for k in path if isinstance(k, str))
                 hit = _classify(names) if names else None
                 if hit is not None:
-                    yield path, hit[0], hit[1], node["w"]
+                    yield path, "cima", hit[0], hit[1], node["w"]
                 return                      # a linear dict is a leaf module
             for k, v in node.items():
-                yield from visit(v, path + (k,))
+                if k in _MOE_EXPERT and "moe" in path \
+                        and isinstance(v, torch.Tensor) and v.ndim >= 2:
+                    yield (path, ("cima", _MOE_EXPERT[k].split(".")[1]),
+                           _MOE_EXPERT[k], "moe", v)
+                else:
+                    yield from visit(v, path + (k,))
         elif isinstance(node, (list, tuple)):
             for i, v in enumerate(node):
                 yield from visit(v, path + (i,))
@@ -218,11 +241,13 @@ def _walk(params: Any, cfg) -> Iterator[tuple]:
     # tied unembed: the managed MVM is x @ table.T — compile the transpose
     if cfg.tie_embeddings and isinstance(params, dict) \
             and "table" in params.get("embed", {}):
-        yield ("embed",), "unembed", "unembed", params["embed"]["table"].T
+        yield (("embed",), "cima", "unembed", "unembed",
+               params["embed"]["table"].T)
 
 
-def _path_str(path: tuple) -> str:
-    return ".".join([str(p) for p in path] + ["cima"])
+def _path_str(path: tuple, key) -> str:
+    return ".".join([str(p) for p in path]
+                    + (list(key) if isinstance(key, tuple) else [key]))
 
 
 # ----------------------------------------------------- footprints & plans
@@ -237,7 +262,7 @@ class ImageFootprint:
     kind: str         # policy kind ("attn", "mlp", ...)
     n: int            # per-copy contraction rows
     m: int            # per-copy output columns
-    copies: int = 1   # stacked instances (layers)
+    copies: int = 1   # stacked instances (layers x experts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,10 +286,10 @@ def model_footprint(params, cfg) -> list:
     :class:`ImageFootprint`, in model (= allocation) order; reads shapes
     only."""
     out = []
-    for path, tag, kind, w in _walk(params, cfg):
+    for path, key, tag, kind, w in _walk(params, cfg):
         lead = tuple(w.shape[:-2])
         out.append(ImageFootprint(
-            path=_path_str(path), tag=tag, kind=kind,
+            path=_path_str(path, key), tag=tag, kind=kind,
             n=int(w.shape[-2]), m=int(w.shape[-1]),
             copies=int(math.prod(lead)) if lead else 1))
     return out
@@ -402,11 +427,11 @@ def build_program(params, cfg, capacity_chips: Optional[int] = None,
                            capacity_chips=capacity_chips,
                            double_buffer=double_buffer)
     images: dict = {}
-    for path, _tag, _kind, w in _walk(params, cfg):
-        pl = plan.get(_path_str(path))
+    for path, key, _tag, _kind, w in _walk(params, cfg):
+        pl = plan.get(_path_str(path, key))
         if pl is None:
             continue
-        img = _compile_image(w, pl.spec, _path_str(path))
+        img = _compile_image(w, pl.spec, _path_str(path, key))
         if not pl.resident:
             img = dataclasses.replace(img, resident=False,
                                       overlap=pl.overlap)
@@ -415,16 +440,20 @@ def build_program(params, cfg, capacity_chips: Optional[int] = None,
                        version=version, double_buffer=bool(double_buffer))
 
 
-def _set_in(tree, path: tuple, value):
-    """Copy of ``tree`` with ``value`` at ``tree[path...]["cima"]``; the
-    containers on the path are copied, the tensors shared."""
+def _set_in(tree, path: tuple, key, value):
+    """Copy of ``tree`` with ``value`` at ``tree[path...][key]`` (a key
+    tuple nests: ``("cima", "gate")`` fills ``tree[path...]["cima"]
+    ["gate"]``); the containers on the path are copied, the tensors
+    shared."""
     if not path:
+        keys = key if isinstance(key, tuple) else (key,)
         out = dict(tree)
-        out["cima"] = value
+        out[keys[0]] = (value if len(keys) == 1 else
+                        _set_in(tree.get(keys[0], {}), (), keys[1:], value))
         return out
     head, rest = path[0], path[1:]
     out = dict(tree) if isinstance(tree, dict) else list(tree)
-    out[head] = _set_in(tree[head], rest, value)
+    out[head] = _set_in(tree[head], rest, key, value)
     return out if isinstance(tree, dict) else type(tree)(out)
 
 
@@ -433,18 +462,26 @@ def install_program(params, program: CimaProgram, cfg):
     (key ``"cima"``).  Don't train on installed params: the images go
     stale on the first optimizer step."""
     out = params
-    for path, _tag, _kind, _w in _walk(params, cfg):
-        img = program.images.get(_path_str(path))
+    for path, key, _tag, _kind, _w in _walk(params, cfg):
+        img = program.images.get(_path_str(path, key))
         if img is not None:
-            out = _set_in(out, path, img)
+            out = _set_in(out, path, key, img)
     return out
 
 
+def _image_container(v) -> bool:
+    """A moe dict's ``"cima"`` entry: a dict of expert images only."""
+    return isinstance(v, dict) and bool(v) and all(
+        isinstance(x, CimaImage) for x in v.values())
+
+
 def strip_program(params):
-    """Remove every installed image (the inverse of install_program)."""
+    """Remove every installed image (the inverse of install_program),
+    the MoE expert images' container dict with them: an empty
+    ``moe["cima"]`` would send ``moe_ffn`` down its image branch."""
     if isinstance(params, dict):
         return {k: strip_program(v) for k, v in params.items()
-                if not isinstance(v, CimaImage)}
+                if not isinstance(v, CimaImage) and not _image_container(v)}
     if isinstance(params, (list, tuple)):
         return type(params)(strip_program(v) for v in params)
     return params

@@ -10,7 +10,9 @@ and how it is laid out); this module holds
 * :func:`cima_mvm_planes`, the wrapper: on CUDA tensors it launches the
   kernel (or raises), on CPU tensors it runs
   :func:`cima_mvm_planes_reference`, the plain torch version of the same
-  function;
+  function.  Operands with a leading group axis (the MoE experts, which
+  the reference runs through the Pallas kernel under ``jax.vmap``) take
+  one grouped launch, each group computed as its own 2-D product;
 * the binding: :mod:`._build` compiles the source into ``build/`` at the
   repo root on first use, and ``ctypes`` binds its plain C launcher.
 """
@@ -47,7 +49,7 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(_build.build(SOURCE)))
         fn = lib.cima_mvm_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 20 \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 23 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = lib
@@ -56,10 +58,18 @@ def _library() -> ctypes.CDLL:
 
 # ------------------------------------------------------------ plain glue
 
-def prepare_inputs(x_q: torch.Tensor, cfg: BpbsConfig):
+def prepare_inputs(x_q: torch.Tensor, cfg: BpbsConfig, grouped: bool = False):
     """Input bit planes ``xs`` [B, BX, N] int8 and per-bank unmasked-row
     counts ``nu`` [B, n_banks] f32 (the reshaping buffer and sparsity
-    controller roles); also returns the leading shape of ``x_q``."""
+    controller roles); also returns the leading shape of ``x_q``.  With
+    ``grouped`` the first axis of ``x_q`` [G, ..., N] is the group:
+    ``xs`` [G, B, BX, N], ``nu`` [G, B, n_banks] (each group counting its
+    own rows) and the leading shape without G."""
+    if grouped:
+        g = x_q.shape[0]
+        xs, nu, lead = prepare_inputs(x_q.reshape(-1, x_q.shape[-1]), cfg)
+        return (xs.reshape((g, -1) + xs.shape[1:]),
+                nu.reshape((g, -1) + nu.shape[1:]), tuple(x_q.shape[1:-1]))
     lead = tuple(x_q.shape[:-1])
     n = x_q.shape[-1]
     planes, mask = input_planes(x_q.reshape(-1, n), cfg)   # [B,N,BX], [B,N]
@@ -87,18 +97,26 @@ def bank_full_scales(n: int, cfg: BpbsConfig,
 
 def prepare_weights(w_q: torch.Tensor, cfg: BpbsConfig):
     """Weight bit planes ``ws`` [N, BA, M] int8 (the layout a compiled
-    :class:`~repro_torch.accel.program.CimaImage` stores) and the bank
-    full scales."""
-    ws = weight_planes(w_q, cfg).permute(0, 2, 1).to(torch.int8).contiguous()
-    return ws, bank_full_scales(w_q.shape[0], cfg, w_q.device)
+    :class:`~repro_torch.accel.program.CimaImage` stores; [G, N, BA, M]
+    for grouped ``w_q`` [G, N, M]) and the bank full scales."""
+    ws = weight_planes(w_q, cfg).transpose(-1, -2).to(torch.int8).contiguous()
+    return ws, bank_full_scales(w_q.shape[-2], cfg, w_q.device)
 
 
 # -------------------------------------------------------- the plain version
 
-def _epilogue_operand(v, rows: int, m: int, device) -> torch.Tensor:
+def _epilogue_operand(v, rows: int, m: int, device,
+                      groups: int = 0) -> torch.Tensor:
     """A scale/bias register operand as a contiguous f32 [1, M] (per
-    column) or [B, M] (per row) tensor."""
+    column) or [B, M] (per row) tensor; for a grouped call (``groups``
+    > 0) a 3-D operand [G, 1 or B, M] keeps its group axis (one set of
+    registers per group) and anything else is shared by every group."""
     v = torch.as_tensor(v, dtype=torch.float32, device=device)
+    if groups and v.ndim == 3:
+        if v.shape[0] != groups or v.shape[1] not in (1, rows):
+            raise ValueError(f"epilogue operand {tuple(v.shape)}; the "
+                             f"kernel takes [{groups}, 1 or {rows}, {m}]")
+        return v.expand(groups, v.shape[1], m).contiguous()
     if v.ndim >= 2:
         v = v.reshape(-1, v.shape[-1])
         v = v.expand(v.shape[0], m)
@@ -124,28 +142,42 @@ def cima_mvm_planes_reference(xs: torch.Tensor, ws: torch.Tensor,
     bank one exact f32 product over all plane pairs (exact with TF32 off:
     every partial sum is a small integer), the ADC epilogue, the
     shift-accumulate of the bank's pairs (kx outer, ka inner) added to the
-    running output, then the optional fused Postreduce."""
-    b, bx, n = xs.shape
-    m = ws.shape[2]
+    running output, then the optional fused Postreduce.  Grouped operands
+    (a leading G on all but ``fs``) run as one batch of the same torch
+    ops, each group in the order of its own 2-D call."""
+    lead = tuple(xs.shape[:-3])                  # () or (G,)
+    b, bx, n = xs.shape[-3:]
+    m = ws.shape[-1]
     wx, wa = cfg.wx, cfg.wa
     xf = xs.to(torch.float32)
-    y = torch.zeros((b, m), dtype=torch.float32, device=xs.device)
-    for k in range(nu.shape[1]):
+    y = torch.zeros(lead + (b, m), dtype=torch.float32, device=xs.device)
+    for k in range(nu.shape[-1]):
         s, e = k * cfg.bank_n, min((k + 1) * cfg.bank_n, n)
-        x2 = xf[:, :, s:e].reshape(b * bx, e - s)
-        w2 = ws[s:e].to(torch.float32).reshape(e - s, cfg.ba * m)
-        d = (x2 @ w2).reshape(b, bx, cfg.ba, m)
-        d_hat = gemm_adc_epilogue(d, nu[:, k].reshape(b, 1, 1, 1), fs[k], cfg)
-        acc = torch.zeros((b, m), dtype=torch.float32, device=xs.device)
+        x2 = xf[..., s:e].reshape(lead + (b * bx, e - s))
+        w2 = ws[..., s:e, :, :].to(torch.float32).reshape(
+            lead + (e - s, cfg.ba * m))
+        d = (x2 @ w2).reshape(lead + (b, bx, cfg.ba, m))
+        d_hat = gemm_adc_epilogue(d, nu[..., k].reshape(lead + (b, 1, 1, 1)),
+                                  fs[k], cfg)
+        acc = torch.zeros(lead + (b, m), dtype=torch.float32,
+                          device=xs.device)
         for kx in range(bx):
             for ka in range(cfg.ba):
-                acc = acc + float(wx[kx] * wa[ka]) * d_hat[:, kx, ka]
+                acc = acc + float(wx[kx] * wa[ka]) * d_hat[..., kx, ka, :]
         y = y + acc
     if _fused(escale, pbias, act, by_bits):
-        es = 1.0 if escale is None else _epilogue_operand(escale, b, m, y.device)
-        pb = 0.0 if pbias is None else _epilogue_operand(pbias, b, m, y.device)
+        g = lead[0] if lead else 0
+        es = (1.0 if escale is None
+              else _epilogue_operand(escale, b, m, y.device, g))
+        pb = (0.0 if pbias is None
+              else _epilogue_operand(pbias, b, m, y.device, g))
         y = y * es + pb
-        if act:
+        if act and lead:
+            # group by group: torch's CPU activations round an element by
+            # where it falls in their vectorised loop, so each group goes
+            # through it as its 2-D call does (G launches of one op)
+            y = torch.stack([ACTIVATIONS[act](yg) for yg in y])
+        elif act:
             y = ACTIVATIONS[act](y)
         if by_bits:
             y = saturate(y, by_bits)
@@ -160,20 +192,23 @@ CLUSTER_SIZE_MAX = 4
 
 
 @functools.lru_cache(maxsize=256)
-def launch_shape(b: int, n: int, m: int, cfg: BpbsConfig, sms: int):
-    """The kernel's tiling for a [B, N] x [N, M] call on a card with
-    ``sms`` SMs: ``(mt, tb, cs)``.  A block owns ``mt`` m16 tiles of A rows
-    (1, 2 or 4: the fewest that hold all B*B_X rows, at most 4, and 1 for
-    B_A > 4), ``tb = 16*mt // B_X`` whole batch rows, and splits each bank
+def launch_shape(b: int, n: int, m: int, cfg: BpbsConfig, sms: int,
+                 groups: int = 1):
+    """The kernel's tiling for a [B, N] x [N, M] call (``groups`` of them
+    in a grouped launch) on a card with ``sms`` SMs: ``(mt, tb, cs)``.  A
+    block owns ``mt`` m16 tiles of A rows (1, 2 or 4: the fewest that hold
+    all B*B_X rows, at most 4, and 1 for B_A > 4), ``tb = 16*mt // B_X``
+    whole batch rows, and splits each bank
     over a cluster of ``cs`` blocks: the largest of 1, 2 and 4 that keeps
     the grid within two blocks per SM and at least two chunks of the
-    largest bank per block.  Cached: a forward asks for a few shapes only."""
+    largest bank per block, counting every group's blocks.  Cached: a
+    forward asks for a few shapes only."""
     mt = 1
     if cfg.ba <= 4:
         while mt < 4 and b > 16 * mt // cfg.bx:
             mt *= 2
     tb = 16 * mt // cfg.bx
-    blocks = -(-m // TILE_M) * -(-b // tb)
+    blocks = groups * -(-m // TILE_M) * -(-b // tb)
     chunks = -(-min(cfg.bank_n, n) // CHUNK_ROWS)
     cs = 1
     while (cs < CLUSTER_SIZE_MAX and blocks * 2 * cs <= 2 * sms
@@ -187,10 +222,16 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+# gridDim.z carries the groups of a grouped launch
+MAX_GROUPS = 65535
+
+
 def _check_launch(xs, ws, nu, fs, cfg: BpbsConfig, act) -> None:
     dev = xs.device
-    for name, t, dt, nd in (("xs", xs, torch.int8, 3), ("ws", ws, torch.int8, 3),
-                            ("nu", nu, torch.float32, 2),
+    g = int(xs.ndim == 4)           # a grouped call's leading axis
+    for name, t, dt, nd in (("xs", xs, torch.int8, 3 + g),
+                            ("ws", ws, torch.int8, 3 + g),
+                            ("nu", nu, torch.float32, 2 + g),
                             ("fs", fs, torch.float32, 1)):
         if t.device != dev:
             raise ValueError(f"cima_mvm: {name} is on {t.device}, xs on {dev}")
@@ -199,16 +240,21 @@ def _check_launch(xs, ws, nu, fs, cfg: BpbsConfig, act) -> None:
                              f"{t.ndim}-D {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"cima_mvm: {name} must be contiguous")
-    b, bx, n = xs.shape
+    if g and not (ws.shape[0] == nu.shape[0] == xs.shape[0]
+                  and 1 <= xs.shape[0] <= MAX_GROUPS):
+        raise ValueError(f"cima_mvm: groups of xs {tuple(xs.shape)}, ws "
+                         f"{tuple(ws.shape)} and nu {tuple(nu.shape)} must "
+                         f"match and lie in 1..{MAX_GROUPS}")
+    b, bx, n = xs.shape[-3:]
     n_banks = -(-n // cfg.bank_n)
     if not (1 <= cfg.bx <= 8 and 1 <= cfg.ba <= 8):
         raise ValueError(f"cima_mvm: B_X, B_A must be in 1..8, got "
                          f"{cfg.bx}, {cfg.ba}")
-    if bx != cfg.bx or ws.shape[0] != n or ws.shape[1] != cfg.ba:
+    if bx != cfg.bx or ws.shape[-3] != n or ws.shape[-2] != cfg.ba:
         raise ValueError(f"cima_mvm: xs {tuple(xs.shape)} / ws "
                          f"{tuple(ws.shape)} do not match B_X={cfg.bx}, "
                          f"B_A={cfg.ba}")
-    if tuple(nu.shape) != (b, n_banks) or tuple(fs.shape) != (n_banks,):
+    if tuple(nu.shape[-2:]) != (b, n_banks) or tuple(fs.shape) != (n_banks,):
         raise ValueError(f"cima_mvm: nu {tuple(nu.shape)} / fs "
                          f"{tuple(fs.shape)}; want ({b}, {n_banks}) / "
                          f"({n_banks},)")
@@ -217,7 +263,7 @@ def _check_launch(xs, ws, nu, fs, cfg: BpbsConfig, act) -> None:
                          f"{cfg.adc_bits}")
     if act not in ACT_CODES:
         raise ValueError(f"cima_mvm: unknown activation {act!r}")
-    if (-(-ws.shape[2] // TILE_M) * CLUSTER_SIZE_MAX > 65535
+    if (-(-ws.shape[-1] // TILE_M) * CLUSTER_SIZE_MAX > 65535
             or n >= 2 ** 31 or ws.numel() >= 2 ** 62):
         raise ValueError("cima_mvm: shape out of the kernel's range")
 
@@ -233,6 +279,11 @@ def cima_mvm_planes(xs: torch.Tensor, ws: torch.Tensor, nu: torch.Tensor,
     :func:`launch_shape` picks the kernel's tiling; every tiling gives the
     same bits.
 
+    Grouped: ``xs`` [G, B, BX, N], ``ws`` [G, N, BA, M], ``nu``
+    [G, B, n_banks] (``fs`` shared; ``escale``/``pbias`` [G, 1 or B, M]
+    per group, or shared) -> [G, B, M] in ONE launch; each group's result
+    is the 2-D call's on that group's operands, bit for bit.
+
     CUDA tensors launch the kernel (counted in ``cima_mvm_planes.launches``)
     or raise; CPU tensors run :func:`cima_mvm_planes_reference`.  Like the
     Pallas kernel, it draws no ADC noise (``adc_sigma_lsb > 0`` warns)."""
@@ -246,16 +297,20 @@ def cima_mvm_planes(xs: torch.Tensor, ws: torch.Tensor, nu: torch.Tensor,
         warnings.warn("cima_mvm kernel: adc_sigma_lsb > 0 requested; the "
                       "kernel draws no noise and runs NOISELESS",
                       RuntimeWarning, stacklevel=2)
-    b, _, n = xs.shape
-    m = ws.shape[2]
-    out = torch.empty((b, m), dtype=torch.float32, device=xs.device)
+    groups = xs.shape[0] if xs.ndim == 4 else 0
+    b, _, n = xs.shape[-3:]
+    m = ws.shape[-1]
+    lead = (groups,) if groups else ()
+    out = torch.empty(lead + (b, m), dtype=torch.float32, device=xs.device)
     fused = _fused(escale, pbias, act, by_bits)
     es = pb = None
     if fused and escale is not None:
-        es = _epilogue_operand(escale, b, m, xs.device)
+        es = _epilogue_operand(escale, b, m, xs.device, groups)
     if fused and pbias is not None:
-        pb = _epilogue_operand(pbias, b, m, xs.device)
-    mt, tb, cs = launch_shape(b, n, m, cfg, _sm_count(xs.device.index or 0))
+        pb = _epilogue_operand(pbias, b, m, xs.device, groups)
+    es_g, pb_g = (int(t is not None and t.ndim == 3) for t in (es, pb))
+    mt, tb, cs = launch_shape(b, n, m, cfg, _sm_count(xs.device.index or 0),
+                              max(groups, 1))
     vec_x = int(n % 16 == 0 and cfg.bank_n % 16 == 0
                 and xs.data_ptr() % 16 == 0)
     vec_w = int(m % 16 == 0 and ws.data_ptr() % 16 == 0)
@@ -266,9 +321,10 @@ def cima_mvm_planes(xs: torch.Tensor, ws: torch.Tensor, nu: torch.Tensor,
         out.data_ptr(), b, n, m, cfg.bx, cfg.ba, cfg.bank_n,
         int(cfg.coding == Coding.AND), int(cfg.adaptive_range),
         int(cfg.ideal_adc), cfg.adc_bits, int(fused),
-        int(es is not None and es.shape[0] > 1),
-        int(pb is not None and pb.shape[0] > 1),
+        int(es is not None and es.shape[-2] > 1),
+        int(pb is not None and pb.shape[-2] > 1),
         ACT_CODES[act], int(by_bits or 0), mt, tb, cs, vec_x, vec_w,
+        max(groups, 1), es_g, pb_g,
         torch.cuda.current_stream(xs.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"cima_mvm kernel launch failed: cudaError {rc}")
@@ -284,11 +340,12 @@ cima_mvm_planes.launches = 0
 def cima_mvm(x_q: torch.Tensor, w_q: torch.Tensor, cfg: BpbsConfig,
              escale=None, pbias=None, act: Optional[str] = None,
              by_bits: Optional[int] = None) -> torch.Tensor:
-    """BP/BS MVM on integer-grid operands: [..., N] x [N, M] -> [..., M]."""
-    xs, nu, lead = prepare_inputs(x_q, cfg)
+    """BP/BS MVM on integer-grid operands: [..., N] x [N, M] -> [..., M];
+    grouped, [G, ..., N] x [G, N, M] -> [G, ..., M] in one launch."""
+    xs, nu, _ = prepare_inputs(x_q, cfg, grouped=w_q.ndim == 3)
     ws, fs = prepare_weights(w_q, cfg)
     y = cima_mvm_planes(xs, ws, nu, fs, cfg, escale, pbias, act, by_bits)
-    return y.reshape(lead + (w_q.shape[1],))
+    return y.reshape(tuple(x_q.shape[:-1]) + (w_q.shape[-1],))
 
 
 def cima_mvm_from_planes(x_q: torch.Tensor, ws: torch.Tensor,
@@ -296,8 +353,9 @@ def cima_mvm_from_planes(x_q: torch.Tensor, ws: torch.Tensor,
                          act: Optional[str] = None,
                          by_bits: Optional[int] = None) -> torch.Tensor:
     """Weight-stationary entry: ``ws`` [N, BA, M] int8 planes from a
-    compiled image; only the inputs are decomposed per call."""
-    xs, nu, lead = prepare_inputs(x_q, cfg)
-    fs = bank_full_scales(ws.shape[0], cfg, ws.device)
+    compiled image (grouped: [G, N, BA, M] with ``x_q`` [G, ..., N]); only
+    the inputs are decomposed per call."""
+    xs, nu, _ = prepare_inputs(x_q, cfg, grouped=ws.ndim == 4)
+    fs = bank_full_scales(ws.shape[-3], cfg, ws.device)
     y = cima_mvm_planes(xs, ws, nu, fs, cfg, escale, pbias, act, by_bits)
-    return y.reshape(lead + (ws.shape[2],))
+    return y.reshape(tuple(x_q.shape[:-1]) + (ws.shape[-1],))

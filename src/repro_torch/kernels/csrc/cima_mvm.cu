@@ -54,6 +54,14 @@
 //    output is bitwise equal to the plain torch version.  The two IEEE
 //    divisions depend on the row and bank only and run once per output.
 //    Build without --use_fast_math.
+//  * Groups: the expert FFNs of a MoE layer (the Pallas kernel under
+//    jax.vmap, which adds a grid axis) are one launch with the group on
+//    gridDim.z.  Every operand but fs gains a leading group axis, and each
+//    block offsets its pointers by its group's slice; the cluster stays
+//    within one group's column tiles.  A group is computed exactly as a
+//    2-D launch on its own operands, so each gives the same bits.  At
+//    decode a group holds one row (or none), so the launch is bound by
+//    the bytes of all G groups' planes, read even for an empty group.
 // wgmma, TMA, warp specialisation and bit-packed planes are the next
 // redesign's work.
 #include <atomic>
@@ -76,18 +84,21 @@ constexpr int AST = KC + 16;    // A row stride in bytes: conflict-free
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_GELU = 2, ACT_SILU = 3,
            ACT_SIGN = 4, ACT_IDENTITY = 5 };
 
+// One group's operands; a grouped launch holds G of each (but fs) back to
+// back and a block offsets the pointers by its group, blockIdx.z.
 struct Params {
-  const int8_t* xs;   // [B, BX, N] masked input planes
-  const int8_t* ws;   // [N, BA, M] weight planes
-  const float* nu;    // [B, n_banks] unmasked rows per bank
-  const float* fs;    // [n_banks] static ADC full scale per bank
-  const float* es;    // [1 or B, M] fused scale registers (or null)
-  const float* pb;    // [1 or B, M] fused bias registers (or null)
-  float* out;         // [B, M]
+  const int8_t* xs;   // [G, B, BX, N] masked input planes
+  const int8_t* ws;   // [G, N, BA, M] weight planes
+  const float* nu;    // [G, B, n_banks] unmasked rows per bank
+  const float* fs;    // [n_banks] static ADC full scale per bank, shared
+  const float* es;    // [G or 1, 1 or B, M] fused scale registers (or null)
+  const float* pb;    // [G or 1, 1 or B, M] fused bias registers (or null)
+  float* out;         // [G, B, M]
   int B, N, M, BX, bank_n, n_banks;
   int coding_and, adaptive, ideal;
   float cmax;         // 2^adc_bits - 1
   int fused, es_rows, pb_rows, act, by_bits;
+  int es_groups, pb_groups;   // es / pb carry a group axis
   int tb, cs, vec_x, vec_w;
 };
 
@@ -172,7 +183,7 @@ constexpr size_t smem_bytes() {
 }
 
 template <int BA, int MT>
-__global__ void __launch_bounds__(THREADS, 2) cima_mvm_kernel(const Params p) {
+__global__ void __launch_bounds__(THREADS, 2) cima_mvm_kernel(Params p) {
   constexpr int ROWS = 16 * MT;          // A rows per tile
   constexpr int WB = BA * TM;            // B columns = bytes per staged row
   constexpr int NTW = WB / 8 / WARPS;    // n8 tiles per warp (2*BA)
@@ -181,6 +192,15 @@ __global__ void __launch_bounds__(THREADS, 2) cima_mvm_kernel(const Params p) {
   int8_t* sW = reinterpret_cast<int8_t*>(smem4);
   int8_t* sA = sW + STAGES * KC * WB;
   int* sC = reinterpret_cast<int*>(smem4);   // over the ring, between banks
+
+  // this block's group: every per-group operand starts at its slice
+  const size_t grp = blockIdx.z;
+  p.xs += grp * p.B * p.BX * (size_t)p.N;
+  p.ws += grp * p.N * BA * (size_t)p.M;
+  p.nu += grp * p.B * (size_t)p.n_banks;
+  p.out += grp * p.B * (size_t)p.M;
+  if (p.es && p.es_groups) p.es += grp * (p.es_rows ? p.B : 1) * (size_t)p.M;
+  if (p.pb && p.pb_groups) p.pb += grp * (p.pb_rows ? p.B : 1) * (size_t)p.M;
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -368,7 +388,7 @@ __global__ void __launch_bounds__(THREADS, 2) cima_mvm_kernel(const Params p) {
 constexpr int MAX_DEVICES = 64;
 
 template <int BA, int MT>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+cudaError_t launch(const Params& p, int groups, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<BA, MT>();
   // the shared-memory limit is a per-device attribute of the instance: set
   // it at the first launch on each device, not at every launch
@@ -385,7 +405,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     smem_set[dev].store(true, std::memory_order_release);
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((p.B + p.tb - 1) / p.tb, ((p.M + TM - 1) / TM) * p.cs);
+  cfg.gridDim = dim3((p.B + p.tb - 1) / p.tb, ((p.M + TM - 1) / TM) * p.cs,
+                     groups);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -402,22 +423,22 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }
 
 template <int MT>
-cudaError_t launch_ba(int ba, const Params& p, cudaStream_t s) {
+cudaError_t launch_ba(int ba, const Params& p, int g, cudaStream_t s) {
   switch (ba) {
-    case 1: return launch<1, MT>(p, s);
-    case 2: return launch<2, MT>(p, s);
-    case 3: return launch<3, MT>(p, s);
-    case 4: return launch<4, MT>(p, s);
+    case 1: return launch<1, MT>(p, g, s);
+    case 2: return launch<2, MT>(p, g, s);
+    case 3: return launch<3, MT>(p, g, s);
+    case 4: return launch<4, MT>(p, g, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t launch_wide(int ba, const Params& p, cudaStream_t s) {
+cudaError_t launch_wide(int ba, const Params& p, int g, cudaStream_t s) {
   switch (ba) {
-    case 5: return launch<5, 1>(p, s);
-    case 6: return launch<6, 1>(p, s);
-    case 7: return launch<7, 1>(p, s);
-    case 8: return launch<8, 1>(p, s);
+    case 5: return launch<5, 1>(p, g, s);
+    case 6: return launch<6, 1>(p, g, s);
+    case 7: return launch<7, 1>(p, g, s);
+    case 8: return launch<8, 1>(p, g, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -427,17 +448,22 @@ cudaError_t launch_wide(int ba, const Params& p, cudaStream_t s) {
 // Plain C entry point for ctypes.  `mt` (1, 2 or 4; above 1 only for
 // ba <= 4) is the m16 tiles a block owns, `tb` its batch rows (tb*bx <=
 // 16*mt), `cs` the cluster size (1, 2 or 4); vec_x / vec_w say the
-// input / weight planes may be copied in 16-byte chunks.  Launches on
-// `stream` without synchronising and returns the launch's CUDA error
-// (0 = launched).
+// input / weight planes may be copied in 16-byte chunks.  `groups` (1 to
+// 65,535) independent products run in the one launch: xs, ws, nu and out
+// hold that many back to back, and es / pb too where es_groups /
+// pb_groups is set (else one set of registers serves every group).
+// Launches on `stream` without synchronising and returns the launch's
+// CUDA error (0 = launched).
 extern "C" int cima_mvm_launch(
     const void* xs, const void* ws, const void* nu, const void* fs,
     const void* es, const void* pb, void* out,
     int B, int N, int M, int bx, int ba, int bank_n,
     int coding_and, int adaptive, int ideal, int adc_bits,
     int fused, int es_rows, int pb_rows, int act, int by_bits,
-    int mt, int tb, int cs, int vec_x, int vec_w, void* stream) {
-  if (B <= 0 || N <= 0 || M <= 0 || bx < 1 || bx > 8 || ba < 1 || ba > 8 ||
+    int mt, int tb, int cs, int vec_x, int vec_w,
+    int groups, int es_groups, int pb_groups, void* stream) {
+  if (groups < 1 || groups > 65535 ||
+      B <= 0 || N <= 0 || M <= 0 || bx < 1 || bx > 8 || ba < 1 || ba > 8 ||
       bank_n <= 0 || (mt != 1 && mt != 2 && mt != 4) || (mt > 1 && ba > 4) ||
       tb < 1 || tb * bx > 16 * mt ||
       (cs != 1 && cs != 2 && cs != 4) ||
@@ -457,12 +483,13 @@ extern "C" int cima_mvm_launch(
   p.cmax = (float)((1 << adc_bits) - 1);
   p.fused = fused; p.es_rows = es_rows; p.pb_rows = pb_rows;
   p.act = act; p.by_bits = by_bits;
+  p.es_groups = es_groups; p.pb_groups = pb_groups;
   p.tb = tb; p.cs = cs; p.vec_x = vec_x; p.vec_w = vec_w;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ba > 4) return (int)launch_wide(ba, p, s);
+  if (ba > 4) return (int)launch_wide(ba, p, groups, s);
   switch (mt) {
-    case 1: return (int)launch_ba<1>(ba, p, s);
-    case 2: return (int)launch_ba<2>(ba, p, s);
-    default: return (int)launch_ba<4>(ba, p, s);
+    case 1: return (int)launch_ba<1>(ba, p, groups, s);
+    case 2: return (int)launch_ba<2>(ba, p, groups, s);
+    default: return (int)launch_ba<4>(ba, p, groups, s);
   }
 }

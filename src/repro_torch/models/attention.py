@@ -1,15 +1,17 @@
 """Attention: GQA/MHA with a dense path, a chunked online-softmax path
-for long caches, and KV-cache prefill/decode.  Port of
-``repro.models.attention`` (MLA and cross-attention come with the
-families that use them).
+for long caches, and KV-cache prefill/decode; and deepseek-v2's
+Multi-head Latent Attention (MLA).  Port of ``repro.models.attention``
+(cross-attention comes with the encoder-decoder slice).
 
-Only the static-weight projections (q/k/v/o, policy paths ``attn.*``,
-kind ``attn``) resolve an ``ExecSpec``; the score/value products have two
-dynamic operands and stay digital by design, as on the chip.
+Only the static-weight projections (q/k/v/o, MLA's dkv/krope/ukv, policy
+paths ``attn.*``, kind ``attn``) resolve an ``ExecSpec``; the score/value
+products have two dynamic operands and stay digital by design, as on the
+chip.
 
-KV caches are updated IN PLACE (the reference returns fresh arrays): a
-prefill writes its keys into the cache it is given, a decode step writes
-one slot per row, and both return that same cache.
+KV caches (and MLA's latent caches) are updated IN PLACE (the reference
+returns fresh arrays): a prefill writes its keys into the cache it is
+given, a decode step writes one slot per row, and both return that same
+cache.
 """
 from __future__ import annotations
 
@@ -259,4 +261,92 @@ def attention(params, x, cfg, positions, cache: Optional[KVCache] = None,
         o = sdpa(q, cache.k, cache.v, causal=True, window=cfg.attn_window,
                  dtype=dtype, kv_positions=kv_pos, q_positions=offs)
     out = linear(params["wo"], o.reshape(b, s, h * hd), sp("attn.o"), dtype)
+    return out, cache
+
+
+# ------------------------------------------------------------------ MLA
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor       # [B, S_max, kv_lora]  compressed latents
+    k_rope: torch.Tensor     # [B, S_max, rope_dim] shared rope key
+
+
+def init_mla_cache(cfg, batch: int, s_max: int, dtype, device,
+                   lead: tuple = ()) -> MLACache:
+    return MLACache(
+        torch.zeros(lead + (batch, s_max, cfg.kv_lora_rank), dtype=dtype,
+                    device=device),
+        torch.zeros(lead + (batch, s_max, cfg.qk_rope_head_dim), dtype=dtype,
+                    device=device))
+
+
+def init_mla(gen, cfg, device, lead: tuple = ()) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_head_dim,
+                     cfg.qk_rope_head_dim, cfg.v_head_dim)
+    return {
+        "wq": init_linear(gen, d, h * (dn + dr), device, lead),
+        "w_dkv": init_linear(gen, d, r, device, lead),       # compression
+        "w_krope": init_linear(gen, d, dr, device, lead),    # shared rope key
+        "w_ukv": init_linear(gen, r, h * (dn + dv), device, lead),
+        "wo": init_linear(gen, h * dv, d, device, lead),
+    }
+
+
+def mla_attention(params, x, cfg, positions, cache: Optional[MLACache] = None,
+                  cache_pos=None, dtype=torch.bfloat16, pad_mask=None):
+    """Multi-head Latent Attention (deepseek-v2): the cache stores only
+    the rank-``kv_lora_rank`` latent and the shared rope key per token,
+    and ``w_ukv`` expands the latents it attends over (at decode, the
+    whole cache) into per-head keys and values.  ``pad_mask`` and a
+    per-row ``cache_pos`` as in :func:`attention`.  Returns (out,
+    cache)."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    sp = cfg.policy.resolver("attn")
+
+    q = linear(params["wq"], x, sp("attn.q"), dtype).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q = torch.cat([q_nope, apply_rope(q_rope, positions, cfg.rope_theta)],
+                  dim=-1)
+    c_kv = linear(params["w_dkv"], x, sp("attn.dkv"), dtype)       # [B,S,r]
+    k_rope = linear(params["w_krope"], x, sp("attn.krope"),
+                    dtype)[:, :, None, :]
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)        # [B,S,1,dr]
+
+    q_pos = kv_pos = None
+    if cache_pos is None:
+        full_c, full_rope = c_kv, k_rope
+        if pad_mask is not None:
+            q_pos = positions
+            kv_pos = torch.where(pad_mask, positions, -1)
+        if cache is not None:   # prefill into the pre-allocated cache
+            ckv_w, krope_w = c_kv, k_rope[:, :, 0, :]
+            if pad_mask is not None:
+                ckv_w = left_align(ckv_w, pad_mask)
+                krope_w = left_align(krope_w, pad_mask)
+            cache.c_kv[:, :s] = ckv_w
+            cache.k_rope[:, :s] = krope_w
+    else:
+        # decode / resumed prefill: write the s new latents at the rows'
+        # absolute positions; slots at or above a row's position are
+        # hidden by the causal mask on q_pos (exactly zero probability)
+        cp = _row_positions(cache_pos, b, x.device)
+        offs = cp[:, None] + torch.arange(s, device=x.device)[None, :]
+        rows = torch.arange(b, device=x.device)[:, None]
+        cache.c_kv[rows, offs] = c_kv.to(cache.c_kv.dtype)
+        cache.k_rope[rows, offs] = k_rope[:, :, 0, :].to(cache.k_rope.dtype)
+        full_c, full_rope = cache.c_kv, cache.k_rope[:, :, None, :]
+        q_pos = offs
+
+    length = full_c.shape[1]
+    kvu = linear(params["w_ukv"], full_c, sp("attn.ukv"), dtype).reshape(
+        b, length, h, dn + dv)
+    k_nope, v = kvu[..., :dn], kvu[..., dn:]
+    k = torch.cat([k_nope, full_rope.expand(b, length, h, dr)], dim=-1)
+    o = sdpa(q, k, v, causal=True, scale=(dn + dr) ** -0.5, dtype=dtype,
+             kv_positions=kv_pos, q_positions=q_pos,
+             scan_remat=cfg.attn_scan_remat, bf16_probs=cfg.attn_bf16_probs)
+    out = linear(params["wo"], o.reshape(b, s, h * dv), sp("attn.o"), dtype)
     return out, cache

@@ -1,7 +1,7 @@
 """Model API for the decoder families the port runs: dense (GQA, local
-windows), hybrid RG-LRU (recurrentgemma) and SSM (mamba2).  Port of
-``repro.models.model``; MoE, MLA, encoder-decoder and frontend models
-raise ``NotImplementedError``.
+windows), hybrid RG-LRU (recurrentgemma), SSM (mamba2) and MoE with MLA
+(deepseek-v2).  Port of ``repro.models.model``; encoder-decoder and
+frontend models raise ``NotImplementedError``.
 
 * ``init_params(cfg, gen, device)``   — the parameter tree (same nested
   dict keys as the reference, stacked ``"scanned"`` layer leaves).
@@ -34,10 +34,14 @@ def _dtype(cfg) -> torch.dtype:
 
 
 def _supported(cfg) -> None:
-    if cfg.is_encdec or cfg.frontend != "none":
+    if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and frontend models are not "
-            "ported yet")
+            f"{cfg.name}: encoder-decoder models are not ported yet; they "
+            "come with the encoder-decoder slice of the port")
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.frontend} frontend models are not ported "
+            "yet; they come with the frontend slice of the port")
 
 
 # ---------------------------------------------------------------- params
@@ -72,15 +76,16 @@ def _lm_logits(params, x, cfg, dtype):
 
 def forward(params, tokens: torch.Tensor, cfg):
     """Full-sequence logits [B, S, vocab] (training / teacher forcing) and
-    the auxiliary loss (0 for the dense family)."""
+    the MoE blocks' summed auxiliary loss (0 without MoE blocks)."""
     _supported(cfg)
     dtype = _dtype(cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = embed(params["embed"], tokens, dtype)
-    x, _ = tfm.apply_stack(params["stack"], x, cfg, positions, dtype=dtype)
+    x, _, aux = tfm.apply_stack(params["stack"], x, cfg, positions,
+                                dtype=dtype)
     x = norm(params["final_norm"], x, cfg.norm)
     logits = _lm_logits(params, x, cfg, dtype)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 def loss_fn(params, batch: dict, cfg):
@@ -125,7 +130,10 @@ def prefill(params, tokens: torch.Tensor, cfg, s_max: Optional[int] = None,
     DecodeCache).  ``pad_mask`` ([B, S] bool, True = real token) admits
     LEFT-padded prompts: pads are masked out of attention, positions are
     the true token indices, the cache is written left-aligned and
-    ``cache.pos`` carries each row's true length."""
+    ``cache.pos`` carries each row's true length.  MoE expert capacity is
+    shared by every token of the batch, pads included, so under a tight
+    ``moe_capacity_factor`` a padded prefill may drop other tokens than
+    an unpadded one (as in the reference)."""
     from repro_torch.accel import pad_positions
 
     dtype = _dtype(cfg)
@@ -144,9 +152,9 @@ def prefill(params, tokens: torch.Tensor, cfg, s_max: Optional[int] = None,
     scope = (pad_positions(pad_mask) if pad_mask is not None
              else contextlib.nullcontext())
     with scope:
-        x, layers = tfm.apply_stack(params["stack"], x, cfg, positions,
-                                    cache.layers, dtype=dtype,
-                                    pad_mask=pad_mask)
+        x, layers, _ = tfm.apply_stack(params["stack"], x, cfg, positions,
+                                       cache.layers, dtype=dtype,
+                                       pad_mask=pad_mask)
     x = norm(params["final_norm"], x[:, -1:], cfg.norm)
     logits = _lm_logits(params, x, cfg, dtype)
     return logits[:, 0], DecodeCache(layers, pos_out, None)
@@ -161,8 +169,8 @@ def decode_step(params, token: torch.Tensor, cache: DecodeCache, cfg):
     if pos.ndim == 0:
         pos = pos.expand(b)
     x = embed(params["embed"], token[:, None], dtype)
-    x, layers = tfm.apply_stack(params["stack"], x, cfg, pos[:, None],
-                                cache.layers, cache_pos=pos, dtype=dtype)
+    x, layers, _ = tfm.apply_stack(params["stack"], x, cfg, pos[:, None],
+                                   cache.layers, cache_pos=pos, dtype=dtype)
     x = norm(params["final_norm"], x, cfg.norm)
     logits = _lm_logits(params, x, cfg, dtype)
     return logits[:, 0], DecodeCache(layers, pos + 1, cache.cross_kv)
@@ -185,8 +193,8 @@ def prefill_resume(params, tokens: torch.Tensor, cfg, cache: DecodeCache):
         pos = pos.expand(b)
     positions = pos[:, None] + torch.arange(s, device=tokens.device)[None, :]
     x = embed(params["embed"], tokens, dtype)
-    x, layers = tfm.apply_stack(params["stack"], x, cfg, positions,
-                                cache.layers, cache_pos=pos, dtype=dtype)
+    x, layers, _ = tfm.apply_stack(params["stack"], x, cfg, positions,
+                                   cache.layers, cache_pos=pos, dtype=dtype)
     x = norm(params["final_norm"], x[:, -1:], cfg.norm)
     logits = _lm_logits(params, x, cfg, dtype)
     return logits[:, 0], DecodeCache(layers, pos + s, cache.cross_kv)

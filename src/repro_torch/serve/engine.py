@@ -235,6 +235,12 @@ class ContinuousBatcher:
     ``slot_steps`` (sum of active slots over those steps; utilisation is
     ``slot_steps / (decode_steps * n_slots)``), ``prefills`` and
     ``generated_tokens``.
+
+    A MoE model's expert capacity is shared by the tokens of one step
+    (idle rows and pads included), so under a tight
+    ``moe_capacity_factor`` a slot's stream may differ from its solo
+    ``generate``, as in the reference; a dropless factor makes them
+    equal.
     """
 
     def __init__(self, params, cfg, serve_cfg: ServeConfig, n_slots: int,

@@ -1,8 +1,9 @@
 """The port's model families against the JAX package, per architecture:
 the recurrent ones (mamba2-130m: SSM; recurrentgemma-9b: RG-LRU + local
-attention, at its reduced 3 layers and at 5, so the stack's suffix runs)
-and the three dense configs that ride along (llama3.2-1b, granite-8b,
-starcoder2-3b).
+attention, at its reduced 3 layers and at 5, so the stack's suffix runs),
+the three dense configs that ride along (llama3.2-1b, granite-8b,
+starcoder2-3b) and the MoE + MLA deepseek-v2-lite-16b (a dense first
+layer, then MoE layers: 8 experts top-2 and 2 shared when reduced).
 
 Reduced configs (``reduced()``: d_model 128, float32) with the
 reference's ``init_params`` converted key for key.  Logits are float32
@@ -13,6 +14,8 @@ on these CPU tensors; the reference runs ``pallas`` in interpret mode).
 """
 import dataclasses
 import functools
+
+from test_torch_moe import port_config
 
 import jax
 import jax.numpy as jnp
@@ -49,7 +52,8 @@ RECURRENT = [("mamba2-130m", None), ("recurrentgemma-9b", None),
              ("recurrentgemma-9b", 5)]
 DENSE = [("llama3.2-1b", None), ("granite-8b", None),
          ("starcoder2-3b", None)]
-ARCHS = RECURRENT + DENSE
+MOE = [("deepseek-v2-lite-16b", None)]
+ARCHS = RECURRENT + DENSE + MOE
 
 
 def _id(arch):
@@ -89,7 +93,7 @@ def _tokens(vocab, shape, seed=0):
 def test_all_archs_registered():
     assert set(ALL_ARCHS) == {"olmo-1b", "llama3.2-1b", "granite-8b",
                               "starcoder2-3b", "mamba2-130m",
-                              "recurrentgemma-9b"}
+                              "recurrentgemma-9b", "deepseek-v2-lite-16b"}
     for name in ALL_ARCHS:
         jc, tc = jget(name), tget(name)
         fields = [f.name for f in dataclasses.fields(tc) if f.name != "policy"]
@@ -116,20 +120,28 @@ def test_port_init_matches_reference_tree(arch):
 def test_forward_logits_match_reference(arch):
     jc, tc, pj, pt = _ref(*arch)
     toks = _tokens(jc.vocab, (2, 16))
-    lj, _ = jforward(pj, jnp.asarray(toks), jc)
+    lj, aj = jforward(pj, jnp.asarray(toks), jc)
     with torch.inference_mode():
         lt, aux = tforward(pt, torch.from_numpy(toks).long(), tc)
     assert tuple(lt.shape) == (2, 16, tc.vocab)
-    assert bool(torch.isfinite(lt).all()) and float(aux) == 0.0
+    assert bool(torch.isfinite(lt).all())
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    # the MoE layers' summed load-balancing loss (0 without MoE layers)
+    np.testing.assert_allclose(float(aux), float(aj), rtol=1e-6)
+    assert (float(aux) > 0) == tc.moe
 
 
 @pytest.mark.parametrize("arch", ARCHS, ids=_id)
 def test_prefill_decode_matches_forward(arch):
     """Cache correctness (the port of ``test_prefill_decode_matches_
     forward``): prefill(8) + 4 decode steps equal the full teacher-forced
-    forward at those positions, and the reference's prefill/decode."""
+    forward at those positions, and the reference's prefill/decode.  MoE
+    runs dropless (capacity factor 64), as the reference's test does: a
+    decode step's capacity is not the forward's."""
     jc, tc, pj, pt = _ref(*arch)
+    if tc.moe:
+        jc = dataclasses.replace(jc, moe_capacity_factor=64.0)
+        tc = dataclasses.replace(tc, moe_capacity_factor=64.0)
     toks = _tokens(jc.vocab, (2, 16))
     with torch.inference_mode():
         full, _ = tforward(pt, torch.from_numpy(toks).long(), tc)
@@ -153,7 +165,8 @@ def test_prefill_decode_matches_forward(arch):
 
 
 def _stream_cases():
-    cases = [(a, b) for a in RECURRENT for b in ("digital", "bpbs", "kernel")]
+    cases = [(a, b) for a in RECURRENT + MOE
+             for b in ("digital", "bpbs", "kernel")]
     return cases + [(a, b) for a in DENSE for b in ("digital", "bpbs")]
 
 
@@ -171,12 +184,21 @@ def test_greedy_streams_equal_reference(arch, backend):
     np.testing.assert_array_equal(gt, gj)
 
 
-@pytest.mark.parametrize("arch", RECURRENT[:2], ids=_id)
+_MEASURED = dict(sparsity=None, planes_skipped=None, planes_total=None)
+
+
+@pytest.mark.parametrize("arch", RECURRENT[:2] + MOE, ids=_id)
 def test_program_tags_and_trace_match_reference(arch):
     """``build_program`` installs images on the reference's projections
     (``rec.in_x``/``in_gate``/``out`` and ``ssm.in_proj``/``out_proj``,
-    never the digital ``w_rg``/``w_ig`` gates), and a traced prefill
-    records the same calls per tag, every one served by an image."""
+    never the digital ``w_rg``/``w_ig`` gates; MLA's ``dkv``/``krope``/
+    ``ukv``, the stacked experts and the shared experts, never the
+    router), and a traced prefill records the same calls per tag, every
+    one served by an image.  The expert records are one per projection
+    and layer, scaled by the experts as the reference's ``vmap`` is, with
+    no measured sparsity; ``energy_summary`` with the measured fields
+    cleared equals the reference's (its stacked layers run in a
+    ``lax.scan`` and measure none)."""
     jc, tc, pj, pt = _ref(*arch)
     jc, tc = _cfgs(jc, tc, "kernel")
     jp = jaccel.build_program(pj, jc)
@@ -186,6 +208,10 @@ def test_program_tags_and_trace_match_reference(arch):
     assert sorted(tp.images) == sorted(jp.images)
     assert tp.summary() == jp.summary()
     want = ({"ssm.in_proj", "ssm.out_proj"} if tc.family == "ssm" else
+            {"attn.q", "attn.dkv", "attn.krope", "attn.ukv", "attn.o",
+             "mlp.gate", "mlp.up", "mlp.down", "moe.gate", "moe.up",
+             "moe.down", "moe.shared.gate", "moe.shared.up",
+             "moe.shared.down"} if tc.moe else
             {"rec.in_x", "rec.in_gate", "rec.out", "attn.q", "attn.k",
              "attn.v", "attn.o", "mlp.gate", "mlp.up", "mlp.down"})
     assert set(tags) == want | {"unembed"}
@@ -205,8 +231,26 @@ def test_program_tags_and_trace_match_reference(arch):
 
     assert calls(tt) == calls(jt)
     assert all(r.program for r in tt)
-    per_layer = {"ssm": 2, "rec": 6, "attn": 7}
+    per_layer = ({"attn": 8, "moe": 11} if tc.mla else
+                 {"ssm": 2, "rec": 6, "attn": 7})
     assert len(tt) == sum(per_layer[k] for k in tc.pattern()) + 1
+    if not tc.moe:
+        return
+    experts = [r for r in tt if r.tag in ("moe.gate", "moe.up", "moe.down")]
+    cap = 5             # round(16 tokens x 2 / 8 experts x 1.25)
+    assert len(experts) == 3 * tc.pattern().count("moe")
+    assert all(r.copies == tc.n_experts and r.sparsity is None
+               and r.calls == cap * tc.n_experts for r in experts)
+    ts = taccel.energy_summary([dataclasses.replace(r, **_MEASURED)
+                                for r in tt])
+    js = jaccel.energy_summary([dataclasses.replace(r, **_MEASURED)
+                                for r in jt])
+    for k in ("total_cycles", "load_cycles", "input_sparsity", "plane_skip"):
+        assert ts[k] == js[k], k
+    for k in ("total_pj", "post_pj"):
+        assert ts[k] == pytest.approx(js[k], rel=1e-12, abs=0.0), k
+    assert {t: row["mvms"] for t, row in ts["by_tag"].items()} == \
+        {t: row["mvms"] for t, row in js["by_tag"].items()}
 
 
 @pytest.mark.parametrize("name", ["mamba2-130m", "recurrentgemma-9b"])
@@ -279,19 +323,19 @@ def test_loss_and_gradient_step_mamba2():
     assert np.isfinite(float(l2))
 
 
-@pytest.mark.parametrize("what", ["moe", "mla"])
-def test_moe_and_mla_raise_not_implemented(what):
-    """An MoE or MLA config is refused with a message naming its slice,
-    never run as a dense block."""
+@pytest.mark.parametrize("name,slice_", [
+    ("llama4-scout-17b-a16e", "frontend slice"),
+    ("phi-3-vision-4.2b", "frontend slice"),
+    ("whisper-tiny", "encoder-decoder slice")])
+def test_frontend_and_encdec_configs_raise_not_implemented(name, slice_):
+    """The reference's configs the port does not run yet (a vision
+    frontend, an encoder-decoder) are refused with a message naming their
+    slice, never run as a decoder without their frontend or encoder."""
+    cfg = port_config(jget(name).reduced())
     base = tget("llama3.2-1b").reduced()
-    cfg = (dataclasses.replace(base, name="moe-probe", moe=True, n_experts=4,
-                               experts_per_tok=2, moe_d_ff=64)
-           if what == "moe" else
-           dataclasses.replace(base, name="mla-probe", mla=True,
-                               kv_lora_rank=32))
     for fn in (lambda: tinit(cfg, 0, device="cpu"),
                lambda: tinit_cache(cfg, 1, 16, device="cpu"),
                lambda: tforward(tinit(base, 0, device="cpu"),
                                 torch.zeros(1, 4, dtype=torch.long), cfg)):
-        with pytest.raises(NotImplementedError, match="MoE/MLA slice"):
+        with pytest.raises(NotImplementedError, match=slice_):
             fn()

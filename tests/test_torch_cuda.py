@@ -123,8 +123,8 @@ def _force_cluster(monkeypatch, cluster):
     if cluster is None:
         return
     pick = K.launch_shape
-    monkeypatch.setattr(K, "launch_shape", lambda b, n, m, cfg, sms:
-                        pick(b, n, m, cfg, sms)[:2] + (cluster,))
+    monkeypatch.setattr(K, "launch_shape", lambda *shape:
+                        pick(*shape)[:2] + (cluster,))
 
 
 @pytest.mark.parametrize("cluster", [None, 1, 2, 4])
@@ -537,3 +537,110 @@ def test_reduced_batcher_on_the_card_equals_solo_generate(cuda):
         solo = cb.engine.generate(torch.as_tensor(p[None], device=cuda),
                                   request_ids=[rid])[0].tolist()
         assert got[rid] == solo
+
+
+# --------------------------------------------------------- grouped launch
+
+def _grouped_planes(groups, rows, n, m, device, seed=0):
+    """Per-row quantized operands of ``groups`` experts, as a MoE layer
+    makes them (the middle group all zero: an expert no token reached),
+    as grouped planes."""
+    from repro_torch.core.quant import quantize
+
+    cfg = BpbsConfig(ba=4, bx=4)
+    g = torch.Generator(device=device).manual_seed(seed + groups + rows)
+    x = torch.randn(groups, rows, n, generator=g, device=device)
+    if groups > 1:
+        x[groups // 2] = 0.0
+    w = torch.randn(groups, n, m, generator=g, device=device) * n ** -0.5
+    qx = quantize(x, cfg.bx, cfg.coding, per_row=True)
+    qw = torch.stack([quantize(wi, cfg.ba, cfg.coding, axis=1).q for wi in w])
+    xs, nu, _ = K.prepare_inputs(qx.q.to(torch.int8), cfg, grouped=True)
+    ws, fs = K.prepare_weights(qw, cfg)
+    return xs, ws, nu, fs, cfg
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4])
+@pytest.mark.parametrize("rows", [1, 5, 15])
+@pytest.mark.parametrize("groups", [1, 8, 64])
+def test_grouped_launch_equals_plain_version(cuda, monkeypatch, groups, rows,
+                                             cluster):
+    """One grouped launch (the experts on gridDim.z) over a ragged last
+    bank (2,400 rows) and a partial column tile (M = 144): bitwise equal
+    to the grouped plain version and, group by group, to the 2-D launch
+    on that group's operands, at every cluster size; with the fused SiLU
+    and per-group per-row scales within rtol/atol 1e-6 of the plain
+    version and bitwise to each group's 2-D launch."""
+    xs, ws, nu, fs, cfg = _grouped_planes(groups, rows, 2400, 144, cuda)
+    _force_cluster(monkeypatch, cluster)
+    before = K.cima_mvm_planes.launches
+    y = K.cima_mvm_planes(xs, ws, nu, fs, cfg)
+    torch.cuda.synchronize()
+    assert K.cima_mvm_planes.launches == before + 1
+    assert tuple(y.shape) == (groups, rows, 144)
+    assert torch.equal(y, K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg))
+    g = torch.Generator(device=cuda).manual_seed(7)
+    es = torch.rand(groups, rows, 144, generator=g, device=cuda) * 1e-3
+    pb = torch.randn(144, generator=g, device=cuda)
+    yf = K.cima_mvm_planes(xs, ws, nu, fs, cfg, es, pb, "silu")
+    yr = K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg, es, pb, "silu")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(yf, yr, rtol=1e-6, atol=1e-6)
+    for i in sorted({0, groups // 2, groups - 1}):
+        assert torch.equal(y[i], K.cima_mvm_planes(xs[i], ws[i], nu[i], fs,
+                                                   cfg))
+        assert torch.equal(yf[i], K.cima_mvm_planes(
+            xs[i], ws[i], nu[i], fs, cfg, es[i], pb, "silu"))
+
+
+@pytest.mark.parametrize("rows", [1, 15])
+@pytest.mark.parametrize("shape", [(2048, 1408, "silu"), (1408, 2048, None)],
+                         ids=["gate", "down"])
+def test_grouped_launch_at_deepseek_expert_shapes(cuda, shape, rows):
+    """deepseek-v2-lite's 64 routed experts at decode (capacity 1) and
+    at a 128-token prefill (capacity 15): bitwise, and fused within
+    rtol/atol 1e-6."""
+    n, m, act = shape
+    xs, ws, nu, fs, cfg = _grouped_planes(64, rows, n, m, cuda)
+    y = K.cima_mvm_planes(xs, ws, nu, fs, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(y, K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg))
+    if act:
+        es = torch.full((64, 1, m), 1e-3, device=cuda)
+        y = K.cima_mvm_planes(xs, ws, nu, fs, cfg, es, None, act)
+        yr = K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg, es, None, act)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, yr, rtol=1e-6, atol=1e-6)
+
+
+def test_grouped_launch_rejects_mismatched_groups(cuda):
+    xs, ws, nu, fs, cfg = _grouped_planes(4, 2, 256, 64, cuda)
+    before = K.cima_mvm_planes.launches
+    for bad in (dict(ws=ws[:3].contiguous()), dict(nu=nu[:2].contiguous()),
+                dict(ws=ws[0])):
+        args = {**dict(xs=xs, ws=ws, nu=nu, fs=fs, cfg=cfg), **bad}
+        with pytest.raises(ValueError):
+            K.cima_mvm_planes(**args)
+    with pytest.raises(ValueError, match="epilogue operand"):
+        K.cima_mvm_planes(xs, ws, nu, fs, cfg, torch.ones(3, 1, 64,
+                                                          device=cuda))
+    assert K.cima_mvm_planes.launches == before
+
+
+def test_reduced_deepseek_kernel_equals_plain_version(cuda, monkeypatch):
+    """Reduced deepseek-v2-lite (a dense MLA layer: 8 launches; three MoE
+    layers: 5 MLA + 3 grouped expert + 3 shared-expert launches each; the
+    unembed) served on the kernel: 42 launches a forward, and greedy
+    tokens equal to the same engine with the kernel routed to its plain
+    version on the card."""
+    cfg = get_config("deepseek-v2-lite-16b").reduced().with_accel(
+        "kernel", ba=4, bx=4)
+    engine = Engine(init_params(cfg, 0, device=cuda), cfg,
+                    ServeConfig(max_seq=32, max_new_tokens=6), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 8), generator=g, device=cuda)
+    before = K.cima_mvm_planes.launches
+    got = engine.generate(toks)
+    assert K.cima_mvm_planes.launches - before == (8 + 3 * 11 + 1) * 6
+    monkeypatch.setattr(K, "cima_mvm_planes", K.cima_mvm_planes_reference)
+    np.testing.assert_array_equal(got, engine.generate(toks))

@@ -215,3 +215,110 @@ def test_prefill_resume_recurrent(name, backend):
         _, jpart = jprefill(pj, jnp.asarray(head), jc, 32)
         jlogits, _ = jresume(pj, jnp.asarray(tail), jc, jpart)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+
+
+# ------------------------------------------------- MoE + MLA (deepseek-v2)
+
+def _deepseek(backend="digital"):
+    """Reduced deepseek-v2-lite-16b, dropless (capacity factor 64): expert
+    capacity is shared by a batch's tokens, so only without drops does a
+    batched or padded row equal its solo run."""
+    jc, tc, pj, pt = _arch("deepseek-v2-lite-16b")
+    jc = dataclasses.replace(jc, moe_capacity_factor=64.0)
+    tc = dataclasses.replace(tc, moe_capacity_factor=64.0)
+    if backend != "digital":
+        jc = jc.with_accel(JAX_NAME[backend], ba=4, bx=4)
+        tc = tc.with_accel(backend, ba=4, bx=4)
+    return jc, tc, pj, pt
+
+
+def test_padded_prefill_batches_ragged_rows_exactly_mla():
+    """Ragged rows padded into one batch each match their own solo
+    unpadded prefill: logits, the MLA latent and rope-key caches (written
+    left-aligned) and pos."""
+    _, tc, _, pt = _deepseek()
+    rng = np.random.default_rng(0)
+    lens = [2, 7, 12]
+    s = max(lens)
+    padded = np.zeros((len(lens), s), np.int32)
+    mask = np.zeros((len(lens), s), bool)
+    rows = [rng.integers(1, tc.vocab, (n,)).astype(np.int32) for n in lens]
+    for i, (n, r) in enumerate(zip(lens, rows)):
+        padded[i, s - n:] = r
+        mask[i, s - n:] = True
+    lg, cache = _prefill(pt, padded, tc, mask)
+    assert type(cache.layers["scanned"]["u0"]).__name__ == "MLACache"
+    for i, (n, r) in enumerate(zip(lens, rows)):
+        lg_ref, cache_ref = _prefill(pt, r[None], tc)
+        torch.testing.assert_close(lg[i], lg_ref[0], **PAD_TOL)
+        sl = slice_slot(cache, i)
+        assert sl.pos.tolist() == [n]
+        _assert_cache_close(sl, cache_ref)
+
+
+def test_slice_splice_roundtrip_mla_cache():
+    """The stacked MLA caches keep the layer axis first and the batch
+    second; slice_slot/splice_slot are exact inverses, in place."""
+    _, tc, _, pt = _deepseek()
+    toks = np.random.default_rng(2).integers(1, tc.vocab, (3, 8)).astype(
+        np.int32)
+    _, full = _prefill(pt, toks, tc)
+    state = full.layers["scanned"]["u0"]
+    n_rep = tc.n_layers - tc.first_k_dense
+    assert tuple(state.c_kv.shape) == (n_rep, 3, S_MAX, tc.kv_lora_rank)
+    blank = init_cache(tc, 3, S_MAX, device="cpu")
+    live = leaves(blank.layers)
+    rebuilt = blank
+    with torch.inference_mode():
+        for i in range(3):
+            rebuilt = splice_slot(rebuilt, slice_slot(full, i), i)
+    assert all(a is b for a, b in zip(leaves(rebuilt.layers), live))
+    for a, b in zip(leaves(rebuilt.layers), leaves(full.layers)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("backend", ["digital", "kernel"])
+def test_batcher_streams_equal_solo_and_reference_moe(backend):
+    """deepseek-v2 (dropless) through the slot batcher: six ragged
+    requests on three slots; every stream equals the port's solo generate
+    and the JAX batcher's, and the stats equal the JAX batcher's."""
+    jc, tc, pj, pt = _deepseek(backend)
+    tb = ContinuousBatcher(pt, tc, ServeConfig(max_seq=48, max_new_tokens=6),
+                           3, device="cpu")
+    jb = JBatcher(pj, jc, JServe(max_seq=48, max_new_tokens=6), 3)
+    prompts = _ragged_prompts(6, tc.vocab)
+    budgets = (6, 2, 5, 3, 6, 4)
+    rids = [tb.submit(p, max_new_tokens=m) for p, m in zip(prompts, budgets)]
+    assert [jb.submit(p, max_new_tokens=m)
+            for p, m in zip(prompts, budgets)] == rids
+    got, want = tb.run(), jb.run()
+    for rid, p, m in zip(rids, prompts, budgets):
+        solo = tb.engine.generate(torch.as_tensor(p[None]),
+                                  request_ids=[rid])[0][:m].tolist()
+        assert got[rid] == solo, (rid, got[rid], solo)
+        assert got[rid] == want[rid], (rid, got[rid], want[rid])
+    assert tb.stats == jb.stats
+
+
+@pytest.mark.parametrize("backend", ["digital", "kernel"])
+def test_prefill_resume_mla(backend):
+    """A head prefill plus a resumed chunk written into the latent cache
+    at each row's position, against the full prefill and the reference's
+    resume (dropless, per-row input scales)."""
+    jc, tc, pj, pt = _deepseek(backend)
+    toks = np.random.default_rng(4).integers(0, tc.vocab, (2, 24)).astype(
+        np.int32)
+    head, tail = toks[:, :17], toks[:, 17:]
+    with torch.inference_mode(), taccel.override(x_per_row=True):
+        full_logits, full = prefill(pt, torch.from_numpy(toks).long(), tc, 32)
+        _, part = prefill(pt, torch.from_numpy(head).long(), tc, 32)
+        logits, resumed = prefill_resume(pt, torch.from_numpy(tail).long(),
+                                         tc, part)
+    torch.testing.assert_close(logits, full_logits, **TOL)
+    assert resumed.pos.tolist() == [24, 24]
+    for a, b in zip(leaves(resumed.layers), leaves(full.layers)):
+        torch.testing.assert_close(a, b, **TOL)
+    with jaccel.override(x_per_row=True):
+        _, jpart = jprefill(pj, jnp.asarray(head), jc, 32)
+        jlogits, _ = jresume(pj, jnp.asarray(tail), jc, jpart)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)

@@ -27,9 +27,11 @@ from repro_torch.accel import program as tprogram
 from repro_torch.configs import get_config as tget
 from repro_torch.convert import params_from_jax
 from repro_torch.models import decode_step as tdecode
+from repro_torch.models import forward as tforward
 from repro_torch.models import prefill as tprefill
 from repro_torch.serve import Engine as TEngine
 from repro_torch.serve import ServeConfig as TServe
+from repro_torch.tree import leaves_with_path
 
 JAX_NAME = {"digital_int": "digital_int", "bpbs": "bpbs", "kernel": "pallas"}
 # reduced olmo-1b at B_A = 4 holds 80 array tiles: 32 attention, 8 down,
@@ -360,3 +362,95 @@ def test_image_planes_in_column_blocks_are_the_same_bits(ref, monkeypatch):
     img = tprogram._compile_image(w, spec, "embed")
     assert torch.equal(img.ws, whole)
     assert img.ws.dtype == torch.int8 and img.ws.is_contiguous()
+
+
+# ------------------------------------------------------------ MoE images
+
+@pytest.fixture(scope="module")
+def moe_ref():
+    jc = jget("deepseek-v2-lite-16b").reduced()
+    pj = jinit(jc, jax.random.PRNGKey(0), max_seq=32)
+    pt = params_from_jax(jax.tree.map(np.asarray, pj), "cpu")
+    toks = np.random.default_rng(1).integers(1, jc.vocab, (2, 6))
+    return jc, tget("deepseek-v2-lite-16b").reduced(), pj, pt, toks
+
+
+def test_moe_strip_install_roundtrip(moe_ref):
+    """The port of ``test_strip_program_roundtrip`` on deepseek: install
+    writes the experts' images as ``moe["cima"] = {"gate", "up",
+    "down"}`` (stacked [layers, experts, N, B_A, M]) at the reference's
+    install paths, and ``strip_program`` removes that container whole:
+    the stripped tree is the original, and it runs."""
+    jc, tc = (moe_ref[0].with_accel("bpbs", ba=4, bx=4),
+              moe_ref[1].with_accel("bpbs", ba=4, bx=4))
+    pt = moe_ref[3]
+    prog = taccel.build_program(pt, tc)
+    assert sorted(prog.images) == sorted(
+        jaccel.build_program(moe_ref[2], jc).images)
+    pp = taccel.install_program(pt, prog, tc)
+    moe = pp["stack"]["scanned"]["u0"]["moe"]
+    assert sorted(moe["cima"]) == ["down", "gate", "up"]
+    n_rep, e = tc.n_layers - tc.first_k_dense, tc.n_experts
+    assert tuple(moe["cima"]["gate"].ws.shape) == \
+        (n_rep, e, tc.d_model, 4, tc.moe_d_ff)
+    assert moe["cima"]["gate"].copies == n_rep * e
+    stripped = taccel.strip_program(pp)
+    assert "cima" not in stripped["stack"]["scanned"]["u0"]["moe"]
+    want, got = leaves_with_path(pt), leaves_with_path(stripped)
+    assert [k for k, _ in got] == [k for k, _ in want]
+    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(got, want))
+    with torch.inference_mode():
+        lg, _ = tforward(stripped, torch.from_numpy(moe_ref[4]).long(), tc)
+    assert bool(torch.isfinite(lg).all())
+
+
+def test_partial_moe_policy_mixes_program_and_fly(moe_ref):
+    """The port of ``test_partial_moe_policy_mixes_program_and_fly``: a
+    policy that keeps ``moe.down`` digital compiles only the gate/up
+    expert images; the grouped dispatch serves those two from the program
+    and runs down digital, with the raw params' logits bit for bit."""
+    pol = taccel.PrecisionPolicy(
+        rules=(("path:moe.down", taccel.ExecSpec(backend="digital")),),
+        default=taccel.ExecSpec(backend="digital_int", ba=4, bx=4))
+    tc = dataclasses.replace(moe_ref[1], policy=pol)
+    pt = moe_ref[3]
+    program = taccel.build_program(pt, tc)
+    tags = {i.tag for i in program.images.values()}
+    assert {"moe.gate", "moe.up"} <= tags and "moe.down" not in tags
+    pp = taccel.install_program(pt, program, tc)
+    assert sorted(pp["stack"]["scanned"]["u0"]["moe"]["cima"]) == \
+        ["gate", "up"]
+    toks = torch.from_numpy(moe_ref[4]).long()
+    with taccel.trace() as tr, torch.inference_mode():
+        lg_img, _ = tforward(pp, toks, tc)
+    with torch.inference_mode():
+        lg_fly, _ = tforward(pt, toks, tc)
+    assert torch.equal(lg_img, lg_fly)
+    served = {r.tag: r.program for r in tr}
+    assert served["moe.gate"] and served["moe.up"]
+    assert not served["moe.down"]
+
+
+def test_compile_image_writes_each_copy_in_place_same_bits():
+    """``_compile_image`` writes every copy of a stacked [layers, experts,
+    N, M] weight into its slot of one preallocated image: the planes,
+    int16 grid and scales of each copy equal that copy compiled alone,
+    per channel and per tensor."""
+    w = torch.randn(2, 3, 40, 24, generator=torch.Generator().manual_seed(4))
+    for per_channel in (True, False):
+        ts = taccel.ExecSpec(backend="kernel", ba=4, bx=4,
+                             per_channel=per_channel)
+        img = tprogram._compile_image(w, ts, "w")
+        assert tuple(img.ws.shape) == (2, 3, 40, 4, 24)
+        assert img.ws.dtype == torch.int8 and img.ws.is_contiguous()
+        assert img.wq.dtype == torch.int16 and img.copies == 6
+        for i in range(2):
+            for j in range(3):
+                one = tprogram._compile_image(w[i, j], ts, "w")
+                layer = img.layer(i)
+                assert layer.copies == 3
+                for f in ("ws", "wq", "scale"):
+                    assert torch.equal(getattr(img, f)[i, j],
+                                       getattr(one, f)), (f, i, j)
+                    assert torch.equal(getattr(layer.layer(j), f),
+                                       getattr(one, f))
