@@ -40,6 +40,19 @@ into ``build/`` (one ``nvcc`` per source, started together), then
   tokens equal to the kernel's plain route's, and through
   ``ContinuousBatcher`` (dropless: capacity factor 64) with streams equal
   to solo ``generate``;
+* holds the kernel to its plain version, bitwise, at whisper-tiny's and
+  the early-fusion configs' shapes (one short bank of 384 rows at 6,000
+  encoder rows, the 51,865-column unembed and small odd column counts,
+  whisper's cross k/v as one grouped launch over its 4 decoder layers
+  with the encoder output shared by the groups, phi-3-vision's two-bank
+  and llama4-scout's three-bank projections, llama4's 16 routed experts
+  as one grouped launch, its 202,048-column lm_head); serves whisper-tiny
+  whole (synthetic frame embeddings from a seed; the encoder, the grouped
+  cross k/v, the decoder) through ``Engine`` and ``ContinuousBatcher``,
+  and phi-3-vision-4.2b whole and llama4-scout-17b-a16e at 2 of its 48
+  layers on prompts of 576 patch embeddings and 32 tokens, each with
+  tokens and prefill logits equal to the kernel's plain route's and the
+  launches of a step read one by one;
 * holds the flash-attention kernel to its plain version on the
   ``FA_CASES`` shapes, then drives ``kernels.ops.flash_attention`` at the
   full widths of olmo-1b (32k-token prefill), recurrentgemma-9b (local
@@ -114,8 +127,8 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import cima_mvm as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
-from repro_torch.models import (init_cache, init_params, loss_fn,  # noqa: E402
-                                prefill, prefill_resume)
+from repro_torch.models import (counting, init_cache, init_params,  # noqa: E402
+                                loss_fn, prefill, prefill_resume)
 from repro_torch.models.cnn import (cnn_forward, cnn_loss, init_cnn,  # noqa: E402
                                     update_bn_stats)
 from repro_torch.models.moe import capacity as moe_capacity  # noqa: E402
@@ -219,6 +232,68 @@ DS_LAUNCHES = sum(s[4] for s in DS_MLA_SHAPES + DS_UKV_SHAPES + DS_FFN_SHAPES
 # serve_on_kernel's batch, prompt and cache: decode rows, the prefill's
 # 4 x 32 rows, and the latent cache's rows at decode (B x max_seq)
 DS_BATCH, DS_PROMPT, DS_MAX_SEQ = 4, 32, 256
+# whisper-tiny whole (arXiv:2212.04356): 4 encoder and 4 decoder layers,
+# d_model 384 (one short bank of 384 rows), 6 heads of 64, d_ff 1,536 with
+# the GELU MLP, the tied 51,865-word unembed (M % 16 = 9), 1,500 frames.
+# Fields as MAIN_SHAPES, the launches counted in the forward whose rows
+# the line runs: the encoder's at WH_BATCH x WH_FRAMES rows (a prefill's),
+# the decoder's self- and cross-attention q/o and MLP at a prefill's
+# WH_BATCH x WH_PROMPT rows and a decode step's WH_BATCH, the unembed at
+# the last position's WH_BATCH; the cross k/v as ONE grouped launch each
+# over the 4 decoder layers, the encoder output shared by every group
+WH_BATCH, WH_PROMPT, WH_FRAMES = 4, 32, 1500
+WH_ENC_SHAPES = [("whisper encoder attn.q/k/v/o", 384, 384, None, 16),
+                 ("whisper encoder mlp.up", 384, 1536, "gelu", 4),
+                 ("whisper encoder mlp.down", 1536, 384, None, 4)]
+WH_DEC_SHAPES = [("whisper decoder attn.q/k/v/o, cross.q/o", 384, 384, None,
+                  24),
+                 ("whisper decoder mlp.up", 384, 1536, "gelu", 4),
+                 ("whisper decoder mlp.down", 1536, 384, None, 4),
+                 ("whisper unembed", 384, 51865, None, 1)]
+WH_CROSS_SHAPES = [("whisper cross.k", 384, 384, None, 1),
+                   ("whisper cross.v", 384, 384, None, 1)]
+WH_LAYERS = 4
+WH_DECODE_LAUNCHES = sum(s[4] for s in WH_DEC_SHAPES)            # 33
+WH_PREFILL_LAUNCHES = (WH_DECODE_LAUNCHES + len(WH_CROSS_SHAPES)
+                       + sum(s[4] for s in WH_ENC_SHAPES))       # 59
+# the first column counts off the 16-wide tile by an odd number: the
+# kernel's byte-copy weight path and per-element stores
+ODD_M_SHAPES = [("M = 17 at N = 384", 384, 17, None, 0),
+                ("M = 33 at N = 384", 384, 33, "gelu", 0)]
+# the early-fusion configs, prompts of their 576 patch positions and
+# FR_TEXT tokens: phi-3-vision-4.2b whole (hf:microsoft/Phi-3-vision-128k-
+# instruct: 32 layers, d_model 3,072 in banks of 2,304 and 768, d_ff 8,192,
+# vocab 32,064 untied) and llama4-scout-17b-a16e (hf:meta-llama/Llama-4-
+# Scout-17B-16E: d_model 5,120 in banks of 2,304, 2,304 and 512, 40 heads
+# and 8 kv heads of 128, 16 routed experts of 8,192 at top-1 and one
+# shared, vocab 202,048 untied) cut to L4_LAYERS of 48: a layer holds
+# 8.81 GB of float32 parameters and 13.21 GB of images, and 2 layers
+# peak at 71.03 of the card's 85.02 GB (the serve_frontend line's
+# published_depth and peak on an H100 80GB HBM3 at 700.00 W), so a third
+# layer does not fit
+FR_BATCH, FR_TEXT, FR_MAX_SEQ = 4, 32, 640
+PHI_SHAPES = [("phi-3-vision attn.q/k/v/o", 3072, 3072, None, 128),
+              ("phi-3-vision mlp.gate", 3072, 8192, "silu", 32),
+              ("phi-3-vision mlp.up", 3072, 8192, None, 32),
+              ("phi-3-vision mlp.down", 8192, 3072, None, 32)]
+PHI_HEAD = [("phi-3-vision lm_head", 3072, 32064, None, 1)]
+PHI_LAUNCHES = sum(s[4] for s in PHI_SHAPES + PHI_HEAD)          # 225
+L4_LAYERS = 2
+L4_EXPERTS = 16
+L4_SHAPES = [("llama4 attn.q/o", 5120, 5120, None, 2 * L4_LAYERS),
+             ("llama4 attn.k/v", 5120, 1024, None, 2 * L4_LAYERS),
+             ("llama4 moe.shared.gate", 5120, 8192, "silu", L4_LAYERS),
+             ("llama4 moe.shared.up", 5120, 8192, None, L4_LAYERS),
+             ("llama4 moe.shared.down", 8192, 5120, None, L4_LAYERS)]
+L4_HEAD = [("llama4 lm_head", 5120, 202048, None, 1)]
+L4_EXPERT_SHAPES = [("llama4 moe.gate", 5120, 8192, "silu", L4_LAYERS),
+                    ("llama4 moe.up", 5120, 8192, None, L4_LAYERS),
+                    ("llama4 moe.down", 8192, 5120, None, L4_LAYERS)]
+L4_LAUNCHES = sum(s[4] for s in L4_SHAPES + L4_HEAD
+                  + L4_EXPERT_SHAPES)                            # 21
+# the llama4 batcher runs dropless: capacity factor 16 holds every token
+# of a step at 16 experts and top-1
+L4_DROPLESS = 16.0
 # a resumed prefill against the full one: max |diff| within about eight
 # float32 ulps of max |logit| (the readings are 0.0); the planted faults
 # (every carried state zeroed, the conv states alone zeroed) must exceed it
@@ -665,13 +740,18 @@ def greedy_agreement(a: np.ndarray, b: np.ndarray) -> int:
 
 
 def serve_on_kernel(cfg, per_fwd: int, images: int, batch: int = 4,
-                    prompt: int = 32, new: int = 16, max_seq: int = 256):
+                    prompt: int = 32, new: int = 16, max_seq: int = 256,
+                    frontend=None, per_prefill=None):
     """Full-width ``cfg`` (random weights from seed 0) served through
     ``Engine`` with every managed projection on the kernel: the main path
     (``generate``, counts at 0 just before, read just after), then a timed
     prefill and ``new - 1`` timed decode steps, each counted, and a
-    profiled decode.  Returns (engine, prompts, tokens, prefill logits,
-    the phase's figures, the decode profile)."""
+    profiled decode.  ``frontend``: the frontend stub's embeddings, passed
+    to every prefill; ``per_prefill``: a prefill's launches where they are
+    not a decode step's ``per_fwd`` (whisper's encoder).  Returns (engine,
+    prompts, tokens, prefill logits, the phase's figures, the decode
+    profile)."""
+    per_prefill = per_fwd if per_prefill is None else per_prefill
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, 0, device="cuda")
@@ -694,24 +774,24 @@ def serve_on_kernel(cfg, per_fwd: int, images: int, batch: int = 4,
     # the main path: counts at 0 just before, read just after
     K.cima_mvm_planes.launches = 0
     t0 = time.perf_counter()
-    tokens = engine.generate(prompts)
+    tokens = engine.generate(prompts, frontend_embeds=frontend)
     t_generate = time.perf_counter() - t0
     launches = K.cima_mvm_planes.launches
     steps = engine.last_decode_steps
     check(tokens.shape == (batch, new), f"tokens shape {tokens.shape}")
     check(((tokens >= 0) & (tokens < cfg.vocab)).all(), "token out of vocab")
     check(steps == new - 1, f"{steps} decode steps, expected {new - 1}")
-    check(launches == per_fwd * (1 + steps),
+    check(launches == per_prefill + per_fwd * steps,
           f"{cfg.name}: {launches} kernel launches for {1 + steps} forwards")
 
     # timed prefill and decode steps, counted per forward
     K.cima_mvm_planes.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = engine.prefill(prompts)
+    logits, cache = engine.prefill(prompts, frontend)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    check(K.cima_mvm_planes.launches == per_fwd,
+    check(K.cima_mvm_planes.launches == per_prefill,
           f"{cfg.name}: prefill launched {K.cima_mvm_planes.launches}")
     check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
     tok = torch.argmax(logits, -1)
@@ -737,6 +817,7 @@ def serve_on_kernel(cfg, per_fwd: int, images: int, batch: int = 4,
                decode_tokens_per_s=batch / t_decode,
                kernel_launches_generate=launches,
                launches_per_forward=per_fwd,
+               launches_per_prefill=per_prefill,
                parameter_bytes=tensor_bytes(engine.params),
                image_bytes=image_bytes(engine),
                max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
@@ -860,12 +941,14 @@ def top2_gap(engine, prompt, tokens, step: int):
     return float(top[0] - top[1]), float(logits.abs().max())
 
 
-def run_batcher(cfg, per_fwd: int) -> dict:
+def run_batcher(cfg, per_fwd: int, per_prefill=None) -> dict:
     """Full-width ``cfg`` through the slot-level continuous batcher:
     ragged prompts and budgets, no EOS.  Stats held to the schedule the
-    budgets fix, launches to ``per_fwd`` a forward, every stream to a solo
-    ``Engine.generate`` of its request (a stream may leave it only at a
-    near-tie).  Returns the phase's figures."""
+    budgets fix, launches to ``per_fwd`` a decode step and
+    ``per_prefill`` (default ``per_fwd``) an admission prefill, every
+    stream to a solo ``Engine.generate`` of its request (a stream may
+    leave it only at a near-tie).  Returns the phase's figures."""
+    per_prefill = per_fwd if per_prefill is None else per_prefill
     scfg = ServeConfig(max_seq=256, max_new_tokens=16, eos_id=-1)
     cb = ContinuousBatcher(init_params(cfg, 0, device="cuda"), cfg, scfg,
                            BATCH_SLOTS, device="cuda")
@@ -888,7 +971,8 @@ def run_batcher(cfg, per_fwd: int) -> dict:
     check(stats == want, f"{cfg.name}: batcher stats {stats} != schedule "
           f"{want}")
     forwards = stats["decode_steps"] + stats["prefills"]
-    check(launches == per_fwd * forwards,
+    check(launches == per_fwd * stats["decode_steps"]
+          + per_prefill * stats["prefills"],
           f"{cfg.name}: {launches} cima_mvm launches for {forwards} forwards")
     for rid, m in zip(rids, BATCH_BUDGETS):
         check(len(results[rid]) == m, f"request {rid}: {len(results[rid])} "
@@ -927,6 +1011,7 @@ def run_batcher(cfg, per_fwd: int) -> dict:
                 run_s=seconds,
                 tokens_per_s=stats["generated_tokens"] / seconds,
                 cima_mvm_launches=launches, launches_per_forward=per_fwd,
+                launches_per_prefill=per_prefill,
                 tokens_equal_to_solo=equal, tokens_total=total,
                 near_ties=near_ties)
 
@@ -939,16 +1024,17 @@ def phase_serve_batcher() -> int:
     return row["cima_mvm_launches"]
 
 
-def kernel_vs_plain(cfg, engine, prompts, tokens, logits) -> dict:
+def kernel_vs_plain(cfg, engine, prompts, tokens, logits,
+                    frontend=None) -> dict:
     """The engine's prefill and greedy tokens again with the kernel routed
-    to its plain version on the card (same program, same glue; the
-    kernel's launch count must not move): prefill logits within FUSED_TOL
-    of the kernel route's (the kernel's fused GELU/SiLU may round a
-    float32 ulp apart) and tokens equal."""
+    to its plain version on the card (same program, same glue, the same
+    frontend embeddings; the kernel's launch count must not move): prefill
+    logits within FUSED_TOL of the kernel route's (the kernel's fused
+    GELU/SiLU may round a float32 ulp apart) and tokens equal."""
     before = K.cima_mvm_planes.launches
     with routed_launches(K.cima_mvm_planes_reference, keep=False):
-        plain_logits, _ = engine.prefill(prompts)
-        plain_tokens = engine.generate(prompts)
+        plain_logits, _ = engine.prefill(prompts, frontend)
+        plain_tokens = engine.generate(prompts, frontend_embeds=frontend)
     check(K.cima_mvm_planes.launches == before,
           "the plain route launched the kernel")
     check(torch.allclose(logits, plain_logits, **FUSED_TOL),
@@ -1178,14 +1264,17 @@ def grouped_bound_ms(g, c, n, m, cfg, fused, peaks):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
-def grouped_shapes(shapes, caps, groups, peaks, phase: str):
+def grouped_shapes(shapes, caps, groups, peaks, phase: str, shared=False):
     """Each expert projection as one grouped launch of ``groups`` experts
     at each capacity of ``caps`` (rows per expert), per-row quantized as
     the forward quantizes them, one expert's rows all zero (an expert no
-    token reached): the kernel against its grouped plain version, bitwise
+    token reached); with ``shared``, one input expanded over every group
+    (whisper's encoder output under the layers' cross k/v): the kernel
+    against its grouped plain version, bitwise
     without the epilogue and within FUSED_TOL with the per-expert per-row
     scale and the activation where the forward fuses one, and the first
-    and last experts bitwise against their own 2-D launches; then device
+    and last experts (every group, if ``shared``) bitwise against their
+    own 2-D launches; then device
     times of the kernel (back to back; the planes alone are 738 MB, past
     the L2), the grouped plain version and, for context only, torch.bmm
     of the integer grids (the ideal-ADC product, not the same function).
@@ -1195,8 +1284,12 @@ def grouped_shapes(shapes, caps, groups, peaks, phase: str):
     for name, n, m, act, per_fwd in shapes:
         for c in caps:
             g = torch.Generator(device="cuda").manual_seed(n * 7 + m + c)
-            x = torch.randn(groups, c, n, generator=g, device="cuda")
-            x[groups // 2] = 0.0
+            if shared:
+                x = torch.randn(c, n, generator=g, device="cuda").expand(
+                    groups, c, n)
+            else:
+                x = torch.randn(groups, c, n, generator=g, device="cuda")
+                x[groups // 2] = 0.0
             w = torch.randn(groups, n, m, generator=g, device="cuda") \
                 * n ** -0.5
             qx = quantize(x, cfg.bx, cfg.coding, per_row=True)
@@ -1212,7 +1305,7 @@ def grouped_shapes(shapes, caps, groups, peaks, phase: str):
             torch.cuda.synchronize()
             check(torch.equal(y, ref), f"grouped kernel != plain on {name} "
                   f"C={c}")
-            for i in (0, groups - 1):
+            for i in (range(groups) if shared else (0, groups - 1)):
                 check(torch.equal(y[i], K.cima_mvm_planes(
                     xs[i], ws[i], nu[i], fs, cfg)),
                     f"{name} C={c}: group {i} != its 2-D launch")
@@ -1239,6 +1332,7 @@ def grouped_shapes(shapes, caps, groups, peaks, phase: str):
                                    bound_ms=bms, bound_by=by)
             mt, tb, cs = K.launch_shape(c, n, m, cfg, K._sm_count(0), groups)
             emit(phase, name=name, groups=groups, rows_per_group=c, n=n, m=m,
+                 m_mod_16=m % 16, shared_input=shared,
                  n_banks=-(-n // cfg.bank_n), fused_act_per_row=act,
                  launches_per_forward=per_fwd, bitwise_unfused=True,
                  groups_bitwise_to_2d_launch=True, max_abs_err_fused=err,
@@ -1320,17 +1414,13 @@ def phase_serve_deepseek() -> int:
         prompt=DS_PROMPT, max_seq=DS_MAX_SEQ)
     row.update(kernel_vs_plain(cfg, engine, prompts, tokens, logits))
     _, cache = engine.prefill(prompts)
-    tok = torch.as_tensor(tokens[:, 0], device="cuda")
-    with routed_launches(K.cima_mvm_planes) as calls:
-        engine.decode(tok, cache)
-    torch.cuda.synchronize()
-    grouped = [args for args, _ in calls if args[0].ndim == 4]
-    check(len(calls) == DS_LAUNCHES, f"{len(calls)} launches in a decode "
-          f"step")
+    n_dec, grouped = read_launches(
+        engine.decode, torch.as_tensor(tokens[:, 0], device="cuda"), cache)
+    check(n_dec == DS_LAUNCHES, f"{n_dec} launches in a decode step")
     check(len(grouped) == 3 * DS_MOE_LAYERS
-          and all(a[0].shape[0] == DS_EXPERTS for a in grouped),
+          and all(g == DS_EXPERTS for g, _ in grouped),
           f"{len(grouped)} grouped expert launches in a decode step")
-    del calls, grouped, cache
+    del cache
     emit("serve_deepseek", **row, layers_of_published=base.n_layers,
          published_depth=published_depth_bytes(engine),
          pattern=list(cfg.pattern()),
@@ -1354,6 +1444,194 @@ def phase_serve_deepseek_batcher() -> int:
     emit("serve_deepseek_batcher", **row,
          moe_capacity_factor=cfg.moe_capacity_factor)
     return row["cima_mvm_launches"]
+
+
+def step_sum(parts) -> dict:
+    """Kernel, plain and bound ms of one forward's launches: ``parts`` are
+    (a shape line's row, launches) pairs."""
+    return {k: sum(r[k] * n for r, n in parts)
+            for k in ("ms", "plain_ms", "bound_ms")}
+
+
+def phase_frontend_shapes(peaks):
+    """This slice's shapes (``frontend_shape`` lines, then the phase's
+    summary): whisper-tiny's encoder at a prefill's 6,000 rows at one
+    short bank of 384, its decoder at a prefill's 128 and a decode step's
+    4 rows, the 51,865-column unembed and two small odd column counts,
+    and its cross k/v as one grouped launch over the 4 decoder layers at
+    6,000 rows a group; phi-3-vision's and llama4-scout's 2-D projections
+    at a decode step's 4 rows and the 4 x 608-row prefill, their lm_heads
+    at 4, and llama4's routed experts as one grouped launch of 16 at the
+    capacities serving gives them (1 at decode, 190 in the prefill).  The
+    per-forward sums (a decode step at B = 4, each model's prefill) are
+    the launches' times at one forward's shapes."""
+    enc_rows = WH_BATCH * WH_FRAMES
+    l4 = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                             n_layers=L4_LAYERS)
+    fr_rows = FR_BATCH * (l4.frontend_seq + FR_TEXT)
+    caps = (moe_capacity(FR_BATCH, l4), moe_capacity(fr_rows, l4))
+    check(caps == (1, 190), f"llama4 expert capacities {caps}")
+    runs = [(WH_ENC_SHAPES, (enc_rows,)),
+            (WH_DEC_SHAPES[:-1], (WH_BATCH, WH_BATCH * WH_PROMPT)),
+            (WH_DEC_SHAPES[-1:] + PHI_HEAD + L4_HEAD, (WH_BATCH,)),
+            (ODD_M_SHAPES, (WH_BATCH, 128)),
+            (PHI_SHAPES + L4_SHAPES, (FR_BATCH, fr_rows))]
+    rows, worst = {}, 0.0
+    for shapes, batch_rows in runs:
+        r, err = kernel_shapes(shapes, batch_rows, peaks, "frontend_shape")
+        rows.update(r)
+        worst = max(worst, err)
+    cross, c_err = grouped_shapes(WH_CROSS_SHAPES, (enc_rows,), WH_LAYERS,
+                                  peaks, "frontend_shape", shared=True)
+    experts, e_err = grouped_shapes(L4_EXPERT_SHAPES, caps, L4_EXPERTS,
+                                    peaks, "frontend_shape")
+    worst = max(worst, c_err, e_err)
+    steps = {
+        "whisper-tiny": step_sum(
+            [(rows[(s[0], WH_BATCH)], s[4]) for s in WH_DEC_SHAPES]),
+        "phi-3-vision-4.2b": step_sum(
+            [(rows[(s[0], FR_BATCH)], s[4]) for s in PHI_SHAPES + PHI_HEAD]),
+        "llama4-scout-17b-a16e": step_sum(
+            [(rows[(s[0], FR_BATCH)], s[4]) for s in L4_SHAPES + L4_HEAD]
+            + [(experts[(s[0], caps[0])], s[4]) for s in L4_EXPERT_SHAPES]),
+    }
+    l4_experts = step_sum([(experts[(s[0], caps[0])], s[4])
+                           for s in L4_EXPERT_SHAPES])
+    prefills = {
+        "whisper-tiny": step_sum(
+            [(rows[(s[0], enc_rows)], s[4]) for s in WH_ENC_SHAPES]
+            + [(cross[(s[0], enc_rows)], s[4]) for s in WH_CROSS_SHAPES]
+            + [(rows[(s[0], WH_BATCH * WH_PROMPT)], s[4])
+               for s in WH_DEC_SHAPES[:-1]]
+            + [(rows[(WH_DEC_SHAPES[-1][0], WH_BATCH)], 1)]),
+        "phi-3-vision-4.2b": step_sum(
+            [(rows[(s[0], fr_rows)], s[4]) for s in PHI_SHAPES]
+            + [(rows[(s[0], FR_BATCH)], s[4]) for s in PHI_HEAD]),
+        "llama4-scout-17b-a16e": step_sum(
+            [(rows[(s[0], fr_rows)], s[4]) for s in L4_SHAPES]
+            + [(rows[(s[0], FR_BATCH)], s[4]) for s in L4_HEAD]
+            + [(experts[(s[0], caps[1])], s[4]) for s in L4_EXPERT_SHAPES]),
+    }
+    emit("frontend_shapes", shapes=len(rows) + len(cross) + len(experts),
+         bitwise_unfused=True, max_abs_err_fused=worst,
+         fused_tolerance=FUSED_TOL, llama4_expert_capacity_decode=caps[0],
+         llama4_expert_capacity_prefill=caps[1],
+         launches_per_decode_step={"whisper-tiny": WH_DECODE_LAUNCHES,
+                                   "phi-3-vision-4.2b": PHI_LAUNCHES,
+                                   "llama4-scout-17b-a16e": L4_LAUNCHES},
+         whisper_launches_per_prefill=WH_PREFILL_LAUNCHES,
+         decode_step_at_b4=steps, llama4_experts_decode_step=l4_experts,
+         prefill_forward=prefills)
+    return worst, steps
+
+
+def phase_serve_whisper() -> int:
+    """whisper-tiny whole at published widths on the kernel
+    (``serve_on_kernel`` with synthetic frame embeddings from seed 1:
+    WH_PREFILL_LAUNCHES a prefill, two of them grouped, WH_DECODE_LAUNCHES
+    a decode step; tokens and prefill logits equal to the plain route's),
+    one prefill and one decode step read launch by launch, then
+    ``ContinuousBatcher`` (each admitted slot encodes zeros and splices
+    its cross keys and values with its slot; streams equal to solo
+    ``generate``)."""
+    cfg = get_config("whisper-tiny").with_accel("kernel", ba=4, bx=4)
+    check((cfg.n_layers, cfg.enc_layers, cfg.frontend_seq)
+          == (WH_LAYERS, WH_LAYERS, WH_FRAMES), "whisper-tiny's shape")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    frames = 0.1 * torch.randn(WH_BATCH, WH_FRAMES, cfg.d_model, generator=g,
+                               device="cuda")
+    # images: the encoder's and decoder's q, k, v, o, up, down; the cross
+    # q, k, v, o stacked over the decoder layers; the unembed
+    engine, prompts, tokens, logits, row, profile = serve_on_kernel(
+        cfg, WH_DECODE_LAUNCHES, images=6 + 6 + 4 + 1, batch=WH_BATCH,
+        prompt=WH_PROMPT, frontend=frames, per_prefill=WH_PREFILL_LAUNCHES)
+    row.update(kernel_vs_plain(cfg, engine, prompts, tokens, logits, frames))
+    n_pre, g_pre = read_launches(engine.prefill, prompts, frames)
+    _, cache = engine.prefill(prompts, frames)
+    n_dec, g_dec = read_launches(engine.decode,
+                                 torch.as_tensor(tokens[:, 0], device="cuda"),
+                                 cache)
+    check(n_pre == WH_PREFILL_LAUNCHES and n_dec == WH_DECODE_LAUNCHES,
+          f"whisper: {n_pre} launches in a prefill, {n_dec} in a decode step")
+    check(g_pre == [(WH_LAYERS, WH_BATCH * WH_FRAMES)] * 2 and not g_dec,
+          f"whisper grouped launches: prefill {g_pre}, decode {g_dec}")
+    cross_bytes = sum(t.numel() * t.element_size() for t in cache.cross_kv)
+    del cache
+    emit("serve_whisper", **row, encoder_layers=cfg.enc_layers,
+         frames=WH_FRAMES, frame_embeddings_seed=1,
+         launches_read_in_one_prefill=n_pre,
+         grouped_launches_in_one_prefill=g_pre,
+         launches_read_in_one_decode_step=n_dec, cross_kv_bytes=cross_bytes,
+         decode_profile=profile)
+    del engine
+    torch.cuda.empty_cache()
+    row_b = run_batcher(cfg, WH_DECODE_LAUNCHES, WH_PREFILL_LAUNCHES)
+    emit("serve_whisper_batcher", **row_b)
+    return (row["kernel_launches_generate"] + n_pre + n_dec
+            + row_b["cima_mvm_launches"])
+
+
+def phase_serve_frontend() -> int:
+    """The early-fusion configs at published widths on the kernel, prompts
+    of 576 patch positions (synthetic embeddings from seed 1) and FR_TEXT
+    tokens: phi-3-vision-4.2b whole and llama4-scout-17b-a16e at
+    L4_LAYERS of 48 (``serve_on_kernel``; tokens and prefill logits equal
+    to the plain route's; one decode step read launch by launch; a prompt
+    shorter than the patches refused), then llama4 through
+    ``ContinuousBatcher``, dropless, on text prompts (the admission path
+    passes no embeddings)."""
+    launches = 0
+    for name, depth, per_fwd, images in (
+            ("phi-3-vision-4.2b", 32, PHI_LAUNCHES, 7 + 1),
+            ("llama4-scout-17b-a16e", L4_LAYERS, L4_LAUNCHES, 4 + 3 + 3 + 1)):
+        base = get_config(name)
+        cfg = dataclasses.replace(base, n_layers=depth).with_accel(
+            "kernel", ba=4, bx=4)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        patches = 0.1 * torch.randn(FR_BATCH, cfg.frontend_seq, cfg.d_model,
+                                    generator=g, device="cuda")
+        engine, prompts, tokens, logits, row, profile = serve_on_kernel(
+            cfg, per_fwd, images=images, batch=FR_BATCH,
+            prompt=cfg.frontend_seq + FR_TEXT, max_seq=FR_MAX_SEQ,
+            frontend=patches)
+        row.update(kernel_vs_plain(cfg, engine, prompts, tokens, logits,
+                                   patches))
+        _, cache = engine.prefill(prompts, patches)
+        n_dec, g_dec = read_launches(
+            engine.decode, torch.as_tensor(tokens[:, 0], device="cuda"),
+            cache)
+        want = ([(L4_EXPERTS, moe_capacity(FR_BATCH, cfg))] * 3 * depth
+                if cfg.moe else [])
+        check(n_dec == per_fwd and g_dec == want,
+              f"{name}: {n_dec} launches in a decode step, grouped {g_dec}")
+        del cache
+        try:
+            engine.prefill(prompts[:, :cfg.frontend_seq - 1], patches)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, f"{name}: a prompt shorter than its patches ran")
+        emit("serve_frontend", **row, layers_of_published=base.n_layers,
+             frontend_positions=cfg.frontend_seq, text_tokens=FR_TEXT,
+             patch_embeddings_seed=1,
+             launches_read_in_one_decode_step=n_dec,
+             grouped_launches_in_one_decode_step=len(g_dec),
+             short_prompt_refused=refused,
+             published_depth=(published_depth_bytes(engine)
+                              if depth < base.n_layers else None),
+             param_count_published=counting.param_count(base),
+             param_count_active_published=counting.param_count(base, True),
+             decode_profile=profile)
+        launches += row["kernel_launches_generate"] + n_dec
+        del engine
+        torch.cuda.empty_cache()
+        if cfg.moe:
+            row_b = run_batcher(dataclasses.replace(
+                cfg, moe_capacity_factor=L4_DROPLESS), per_fwd)
+            emit("serve_frontend_batcher", **row_b,
+                 moe_capacity_factor=L4_DROPLESS)
+            launches += row_b["cima_mvm_launches"]
+    return launches
 
 
 def fa_errors(o, ref):
@@ -1557,6 +1835,16 @@ def routed_launches(fn, keep=True):
     finally:
         K.cima_mvm_planes = launch
         launch.launches = record.launches
+
+
+def read_launches(fn, *args):
+    """``fn(*args)`` with every kernel launch recorded: (number of
+    launches, (groups, rows a group) of each grouped one)."""
+    with routed_launches(K.cima_mvm_planes) as calls:
+        fn(*args)
+    torch.cuda.synchronize()
+    grouped = [tuple(a[0].shape[:2]) for a, _ in calls if a[0].ndim == 4]
+    return len(calls), grouped
 
 
 def cifar_layer_kernel(args, out, peaks):
@@ -2370,6 +2658,9 @@ def main():
     moe_err, ds_step = phase_moe_shapes(peaks)
     ds_launches = phase_serve_deepseek()
     ds_batcher_launches = phase_serve_deepseek_batcher()
+    fr_err, fr_step = phase_frontend_shapes(peaks)
+    wh_launches = phase_serve_whisper()
+    fr_launches = phase_serve_frontend()
     fa_err = phase_flash_cases()
     fa_rows, fa_launches = phase_flash_main_shapes(peaks)
     cifar_rows, cifar_launches, cifar_err = phase_cifar(peaks)
@@ -2400,8 +2691,9 @@ def main():
         "launches": (launches + cifar_launches + qat_launches + lm_launches
                      + trainer_launches + mamba2_launches + rg_launches
                      + rec_batcher_launches + dense_launches + ds_launches
-                     + ds_batcher_launches),
-        "max_abs_err": max(err_cases, err_main, cifar_err, rec_err, moe_err),
+                     + ds_batcher_launches + wh_launches + fr_launches),
+        "max_abs_err": max(err_cases, err_main, cifar_err, rec_err, moe_err,
+                           fr_err),
         "ms": step["ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step_bound_by,
         "library_ms": None,
@@ -2414,8 +2706,14 @@ def main():
                "2: 15, starcoder2-3b at 30: 181), deepseek-v2-lite-16b's "
                "at 8 layers (86 a forward: the routed experts' 3 grouped "
                "launches a MoE layer among them) with one decode step "
-               "read launch by launch, and its dropless batcher, one "
-               "CIFAR Network A "
+               "read launch by launch, and its dropless batcher, "
+               "whisper-tiny's (59 a prefill, 2 of them grouped over the "
+               "decoder layers; 33 a decode step) with one prefill and one "
+               "decode step read launch by launch, and its batcher, "
+               "phi-3-vision-4.2b's (225 a forward) and llama4-scout's at "
+               "2 layers (21: 6 grouped) on 608-token early-fusion "
+               "prompts, one decode step of each read launch by launch, "
+               "llama4's dropless batcher, one CIFAR Network A "
                "and B forward (9 each), 8 QAT steps of each (9 each), 3 "
                "olmo-1b train steps (225 each) and the reduced trainer's "
                "6 steps (29 each); "
@@ -2431,6 +2729,11 @@ def main():
         "deepseek_decode_step_bound_ms": ds_step["bound_ms"],
         "deepseek_experts_decode_step_ms": ds_step["experts_ms"],
         "deepseek_experts_decode_step_bound_ms": ds_step["experts_bound_ms"],
+        "frontend_decode_step_ms": {m: v["ms"] for m, v in fr_step.items()},
+        "frontend_decode_step_plain_ms": {m: v["plain_ms"]
+                                          for m, v in fr_step.items()},
+        "frontend_decode_step_bound_ms": {m: v["bound_ms"]
+                                          for m, v in fr_step.items()},
         "train_step_ms": train["ms"], "train_step_plain_ms": train["plain_ms"],
         "train_step_bound_ms": train["bound_ms"],
         "qat_launches_per_step": {r["net"]: r["launches_per_step"]

@@ -7,9 +7,14 @@ construction.  When ``ctx.image`` carries a compiled
 :class:`~repro_torch.accel.program.CimaImage`, the weight side comes from
 the stored planes/grid and no per-call weight quantization runs.
 
-Grouped calls (``w`` [G, N, M]: the MoE experts) reach the ``kernel``
-backend whole, one grouped launch; :func:`~repro_torch.accel.dispatch.
-matmul` runs the others group by group.
+Grouped calls (``w`` [G, N, M]: the MoE experts, whisper's per-layer
+cross keys and values) reach the ``kernel`` backend whole, one grouped
+launch; :func:`~repro_torch.accel.dispatch.matmul` runs the others group
+by group.  A grouped ``x`` may be one input expanded over the groups (a
+stride-0 group axis: whisper's encoder output under every decoder
+layer's cross k/v): the input quantization materialises it, G equal
+int8 copies with the same scale (a per-tensor scale is the amax, the
+same for every group), so each group is its own 2-D call's bits.
 """
 from __future__ import annotations
 

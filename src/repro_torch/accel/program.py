@@ -19,7 +19,8 @@ The **bank allocator** places images onto ``capacity_chips`` physical
 CIMAs (2304 rows x 256 columns = 590kb each).  An [N, M] image at B_A
 bits occupies ``ceil(N/2304) * ceil(M*B_A/256)`` array tiles per copy
 (stacked layers are separate copies; residency is decided per stacked
-leaf, all copies together; a MoE layer's experts are copies too).
+leaf, all copies together; a MoE layer's experts and whisper's per-layer
+cross-attention stack are copies too).
 Images are placed first-fit in model order;
 what exceeds capacity is *streamed*: reloaded on every forward pass,
 double-buffered behind compute unless ``double_buffer=False``, and
@@ -194,7 +195,11 @@ def _classify(names: tuple) -> Optional[tuple]:
     if leaf == "lm_head":
         return "unembed", "unembed"
     if "attn" in names:
-        return (f"attn.{_ATTN[leaf]}", "attn") if leaf in _ATTN else None
+        if leaf in _ATTN:
+            # whisper's per-layer cross-attention takes the cross.* paths
+            prefix = "cross" if "cross" in names else "attn"
+            return f"{prefix}.{_ATTN[leaf]}", "attn"
+        return None
     if "rec" in names:
         return (f"rec.{leaf}", "rec") if leaf in ("in_x", "in_gate", "out") \
             else None

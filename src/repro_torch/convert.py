@@ -4,7 +4,9 @@
 converted leaf by leaf to numpy (``jax.tree.map(np.asarray, params)``),
 onto the port's tree key for key: nested dicts stay dicts, lists stay
 lists, the stacked ``"scanned"`` layer leaves keep their leading layer
-axis.  Compiled images are not converted: the port's
+axis, and so do whisper's ``cross`` leaves (stacked over the decoder
+layers by the reference's ``jax.vmap``) beside its ``encoder`` tree and
+``dec_pos``.  Compiled images are not converted: the port's
 :func:`~repro_torch.accel.program.build_program` rebuilds them from the
 weights, so strip a program before converting.
 """

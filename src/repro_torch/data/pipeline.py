@@ -25,6 +25,8 @@ class DataConfig:
     global_batch: int = 8
     vocab: int = 50304
     seed: int = 0
+    frontend_seq: int = 0            # frontend stub: embedding positions
+    d_model: int = 0
     image_hw: int = 32
     n_classes: int = 10
 
@@ -36,7 +38,9 @@ def _rng_for_step(cfg: DataConfig, step: int) -> np.random.Generator:
 
 def lm_batch(cfg: DataConfig, step: int, device="cuda") -> dict:
     """Synthetic LM batch with learnable structure: ``next = (3 * cur +
-    17) % vocab`` with 10% random jumps.  ``tokens`` [B, S] int32."""
+    17) % vocab`` with 10% random jumps.  ``tokens`` [B, S] int32; with
+    ``frontend_seq``, ``frontend_embeds`` [B, frontend_seq, d_model]
+    float32 (the frontend stub's patch or frame embeddings)."""
     rng = _rng_for_step(cfg, step)
     b, s = cfg.global_batch, cfg.seq_len
     start = rng.integers(0, cfg.vocab, (b, 1))
@@ -47,7 +51,12 @@ def lm_batch(cfg: DataConfig, step: int, device="cuda") -> dict:
     for t in range(1, s):
         nxt = (3 * toks[:, t - 1] + 17) % cfg.vocab
         toks[:, t] = np.where(jumps[:, t], noise[:, t], nxt)
-    return {"tokens": torch.from_numpy(toks.astype(np.int32)).to(device)}
+    batch = {"tokens": torch.from_numpy(toks.astype(np.int32)).to(device)}
+    if cfg.frontend_seq:
+        emb = rng.standard_normal((b, cfg.frontend_seq, cfg.d_model),
+                                  dtype=np.float32) * 0.1
+        batch["frontend_embeds"] = torch.from_numpy(emb).to(device)
+    return batch
 
 
 def cifar_batch(cfg: DataConfig, step: int, device="cuda") -> dict:

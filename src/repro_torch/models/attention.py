@@ -1,10 +1,11 @@
 """Attention: GQA/MHA with a dense path, a chunked online-softmax path
 for long caches, and KV-cache prefill/decode; and deepseek-v2's
-Multi-head Latent Attention (MLA).  Port of ``repro.models.attention``
-(cross-attention comes with the encoder-decoder slice).
+Multi-head Latent Attention (MLA); and whisper's decoder-to-encoder
+cross-attention.  Port of ``repro.models.attention``.
 
 Only the static-weight projections (q/k/v/o, MLA's dkv/krope/ukv, policy
-paths ``attn.*``, kind ``attn``) resolve an ``ExecSpec``; the score/value
+paths ``attn.*``; cross-attention's ``cross.*``; kind ``attn``) resolve an
+``ExecSpec``; the score/value
 products have two dynamic operands and stay digital by design, as on the
 chip.
 
@@ -350,3 +351,37 @@ def mla_attention(params, x, cfg, positions, cache: Optional[MLACache] = None,
              scan_remat=cfg.attn_scan_remat, bf16_probs=cfg.attn_bf16_probs)
     out = linear(params["wo"], o.reshape(b, s, h * dv), sp("attn.o"), dtype)
     return out, cache
+
+
+# -------------------------------------------------------- cross-attention
+
+def init_cross_attention(gen, cfg, device, lead: tuple = ()) -> dict:
+    return init_attention(gen, cfg, device, lead)
+
+
+def cross_attention(params, x, enc_kv, cfg, dtype=torch.bfloat16):
+    """Decoder-to-encoder attention (whisper): queries from ``x`` [B, S,
+    d] over the precomputed encoder keys and values ``enc_kv`` = (k, v),
+    each [B, S_enc, KV, D], unmasked.  Past ``2 * DEFAULT_CHUNK`` keys
+    (whisper's 1,500 frames) this is the chunked path, whose padded last
+    chunk is hidden by its negative key positions alone."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    sp = cfg.policy.resolver("attn")
+    q = linear(params["wq"], x, sp("cross.q"), dtype).reshape(b, s, h, hd)
+    k, v = enc_kv
+    o = sdpa(q, k, v, causal=False, dtype=dtype)
+    return linear(params["wo"], o.reshape(b, s, h * hd), sp("cross.o"), dtype)
+
+
+def encode_cross_kv(params, enc_out, cfg, dtype=torch.bfloat16):
+    """One layer's cross-attention keys and values of the encoder output
+    ``enc_out`` [B, S_enc, d]: (k, v), each [B, S_enc, KV, D]."""
+    b, s, _ = enc_out.shape
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    sp = cfg.policy.resolver("attn")
+    k = linear(params["wk"], enc_out, sp("cross.k"), dtype).reshape(
+        b, s, kv, hd)
+    v = linear(params["wv"], enc_out, sp("cross.v"), dtype).reshape(
+        b, s, kv, hd)
+    return k, v

@@ -114,16 +114,24 @@ class Engine:
                 stack.enter_context(override(x_per_row=True))
             yield
 
-    def prefill(self, prompts: torch.Tensor):
+    def prefill(self, prompts: torch.Tensor, frontend_embeds=None):
         """Prefill a dense [B, S] batch into a ``max_seq`` cache; returns
-        (logits [B, V], cache)."""
+        (logits [B, V], cache).  ``frontend_embeds`` [B, F, d]: the
+        frontend stub's patch or frame embeddings (an early-fusion
+        decoder's first F positions, whisper's encoder input)."""
+        if frontend_embeds is not None:
+            frontend_embeds = torch.as_tensor(frontend_embeds,
+                                              device=self.device)
         with self._scope():
-            return prefill(self.params, prompts, self.cfg, self.scfg.max_seq)
+            return prefill(self.params, prompts, self.cfg, self.scfg.max_seq,
+                           frontend_embeds=frontend_embeds)
 
     def prefill_single(self, prompt):
         """Pad-masked batch-1 prefill of ``prompt`` (1-D ints), left-padded
         to a power-of-two bucket length; returns (logits [1, V], batch-1
-        cache).  The admission path of the batcher."""
+        cache).  The admission path of the batcher: it passes no frontend
+        embeddings, so whisper encodes zeros for every admitted slot, as
+        in the reference."""
         n = len(prompt)
         sb = min(max(_bucket(n), n), self.scfg.max_seq)
         toks = torch.zeros((1, sb), dtype=torch.int64)
@@ -160,10 +168,12 @@ class Engine:
             out.append(torch.multinomial(probs, 1, generator=gen))
         return torch.cat(out)
 
-    def generate(self, prompts, request_ids=None) -> np.ndarray:
+    def generate(self, prompts, frontend_embeds=None,
+                 request_ids=None) -> np.ndarray:
         """prompts: [B, S] int -> generated tokens [B, max_new_tokens].
 
         Prompts must be real equal-length sequences (no pad mask here).
+        ``frontend_embeds`` go to the prefill (:meth:`prefill`).
         ``request_ids`` (default ``arange(B)``) seed the per-row sampling
         generators."""
         prompts = torch.as_tensor(prompts, device=self.device)
@@ -172,7 +182,7 @@ class Engine:
         b = prompts.shape[0]
         eos = self.scfg.eos_id
         rids = np.arange(b) if request_ids is None else np.asarray(request_ids)
-        logits, cache = self.prefill(prompts)
+        logits, cache = self.prefill(prompts, frontend_embeds)
         tok = self.sample(logits, rids, np.zeros(b, np.int64))
         out = [tok]
         done = torch.zeros_like(tok, dtype=torch.bool)
@@ -229,7 +239,7 @@ class ContinuousBatcher:
     are retired between steps and refilled from the pending queue by
     prefilling ONLY that request (left-padded to a power-of-two bucket,
     pad-masked) and splicing its batch-1 cache into the live batch cache
-    in place.
+    in place (whisper's cross keys and values with the rest of it).
 
     ``stats`` after a run: ``decode_steps`` (batched model steps),
     ``slot_steps`` (sum of active slots over those steps; utilisation is

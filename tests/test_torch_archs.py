@@ -2,8 +2,13 @@
 the recurrent ones (mamba2-130m: SSM; recurrentgemma-9b: RG-LRU + local
 attention, at its reduced 3 layers and at 5, so the stack's suffix runs),
 the three dense configs that ride along (llama3.2-1b, granite-8b,
-starcoder2-3b) and the MoE + MLA deepseek-v2-lite-16b (a dense first
-layer, then MoE layers: 8 experts top-2 and 2 shared when reduced).
+starcoder2-3b), the MoE + MLA deepseek-v2-lite-16b (a dense first
+layer, then MoE layers: 8 experts top-2 and 2 shared when reduced), the
+encoder-decoder whisper-tiny (2 encoder and 4 decoder layers, 8 frames
+when reduced) and the early-fusion phi-3-vision-4.2b and
+llama4-scout-17b-a16e (8 frontend positions when reduced; llama4's MoE:
+8 experts top-1 and 1 shared).  The frontend configs get the same
+seeded frame or patch embeddings in both packages.
 
 Reduced configs (``reduced()``: d_model 128, float32) with the
 reference's ``init_params`` converted key for key.  Logits are float32
@@ -15,8 +20,6 @@ on these CPU tensors; the reference runs ``pallas`` in interpret mode).
 import dataclasses
 import functools
 
-from test_torch_moe import port_config
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,12 +27,14 @@ import pytest
 import torch
 
 from repro import accel as jaccel
+from repro.configs import ALL_ARCHS as J_ALL_ARCHS
 from repro.configs import get_config as jget
 from repro.models import decode_step as jdecode
 from repro.models import forward as jforward
 from repro.models import init_params as jinit
 from repro.models import loss_fn as jloss
 from repro.models import prefill as jprefill
+from repro.models import prefill_resume as jresume
 from repro.models.model import init_cache as jinit_cache
 from repro.serve import Engine as JEngine
 from repro.serve import ServeConfig as JServe
@@ -42,6 +47,7 @@ from repro_torch.models import init_cache as tinit_cache
 from repro_torch.models import init_params as tinit
 from repro_torch.models import loss_fn as tloss
 from repro_torch.models import prefill as tprefill
+from repro_torch.models import prefill_resume as tresume
 from repro_torch.serve import Engine as TEngine
 from repro_torch.serve import ServeConfig as TServe
 from repro_torch.tree import leaves, leaves_with_path, unflatten
@@ -53,7 +59,9 @@ RECURRENT = [("mamba2-130m", None), ("recurrentgemma-9b", None),
 DENSE = [("llama3.2-1b", None), ("granite-8b", None),
          ("starcoder2-3b", None)]
 MOE = [("deepseek-v2-lite-16b", None)]
-ARCHS = RECURRENT + DENSE + MOE
+FRONTEND = [("whisper-tiny", None), ("phi-3-vision-4.2b", None),
+            ("llama4-scout-17b-a16e", None)]
+ARCHS = RECURRENT + DENSE + MOE + FRONTEND
 
 
 def _id(arch):
@@ -90,10 +98,30 @@ def _tokens(vocab, shape, seed=0):
         np.int32)
 
 
+def _frontend(cfg, batch, seed=1):
+    """Seeded frame or patch embeddings [B, frontend_seq, d] for a
+    frontend config (None for the others), as the reference's tests make
+    theirs: 0.1 x a standard normal."""
+    if cfg.frontend == "none":
+        return None
+    return (0.1 * np.random.default_rng(seed).standard_normal(
+        (batch, cfg.frontend_seq, cfg.d_model))).astype(np.float32)
+
+
+def _pair(fe):
+    """The same embeddings for the reference (jnp) and the port (torch)."""
+    if fe is None:
+        return None, None
+    return jnp.asarray(fe), torch.from_numpy(fe)
+
+
 def test_all_archs_registered():
     assert set(ALL_ARCHS) == {"olmo-1b", "llama3.2-1b", "granite-8b",
                               "starcoder2-3b", "mamba2-130m",
-                              "recurrentgemma-9b", "deepseek-v2-lite-16b"}
+                              "recurrentgemma-9b", "deepseek-v2-lite-16b",
+                              "whisper-tiny", "phi-3-vision-4.2b",
+                              "llama4-scout-17b-a16e"}
+    assert set(ALL_ARCHS) == set(J_ALL_ARCHS)
     for name in ALL_ARCHS:
         jc, tc = jget(name), tget(name)
         fields = [f.name for f in dataclasses.fields(tc) if f.name != "policy"]
@@ -108,7 +136,7 @@ def test_port_init_matches_reference_tree(arch):
     jc, tc, pj, pt = _ref(*arch)
     ref = {k: np.asarray(v) for k, v in leaves_with_path(
         jax.tree.map(np.asarray, pj))}
-    own = dict(leaves_with_path(tinit(tc, 0, device="cpu")))
+    own = dict(leaves_with_path(tinit(tc, 0, device="cpu", max_seq=256)))
     conv = dict(leaves_with_path(pt))
     assert sorted(own) == sorted(ref) == sorted(conv)
     for k, v in ref.items():
@@ -120,9 +148,11 @@ def test_port_init_matches_reference_tree(arch):
 def test_forward_logits_match_reference(arch):
     jc, tc, pj, pt = _ref(*arch)
     toks = _tokens(jc.vocab, (2, 16))
-    lj, aj = jforward(pj, jnp.asarray(toks), jc)
+    fj, ft = _pair(_frontend(jc, 2))
+    lj, aj = jforward(pj, jnp.asarray(toks), jc, frontend_embeds=fj)
     with torch.inference_mode():
-        lt, aux = tforward(pt, torch.from_numpy(toks).long(), tc)
+        lt, aux = tforward(pt, torch.from_numpy(toks).long(), tc,
+                           frontend_embeds=ft)
     assert tuple(lt.shape) == (2, 16, tc.vocab)
     assert bool(torch.isfinite(lt).all())
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
@@ -135,18 +165,24 @@ def test_forward_logits_match_reference(arch):
 def test_prefill_decode_matches_forward(arch):
     """Cache correctness (the port of ``test_prefill_decode_matches_
     forward``): prefill(8) + 4 decode steps equal the full teacher-forced
-    forward at those positions, and the reference's prefill/decode.  MoE
-    runs dropless (capacity factor 64), as the reference's test does: a
-    decode step's capacity is not the forward's."""
+    forward at those positions, and the reference's prefill/decode (the
+    frontend configs with their embeddings: whisper's encoder input, the
+    early-fusion decoders' first 8 positions).  MoE runs dropless
+    (capacity factor 64), as the reference's test does: a decode step's
+    capacity is not the forward's."""
     jc, tc, pj, pt = _ref(*arch)
     if tc.moe:
         jc = dataclasses.replace(jc, moe_capacity_factor=64.0)
         tc = dataclasses.replace(tc, moe_capacity_factor=64.0)
     toks = _tokens(jc.vocab, (2, 16))
+    fj, ft = _pair(_frontend(jc, 2))
     with torch.inference_mode():
-        full, _ = tforward(pt, torch.from_numpy(toks).long(), tc)
-        lt, ct = tprefill(pt, torch.from_numpy(toks[:, :8]).long(), tc, 32)
-    lj, cj = jprefill(pj, jnp.asarray(toks[:, :8]), jc, s_max=32)
+        full, _ = tforward(pt, torch.from_numpy(toks).long(), tc,
+                           frontend_embeds=ft)
+        lt, ct = tprefill(pt, torch.from_numpy(toks[:, :8]).long(), tc, 32,
+                          frontend_embeds=ft)
+    lj, cj = jprefill(pj, jnp.asarray(toks[:, :8]), jc, s_max=32,
+                      frontend_embeds=fj)
     torch.testing.assert_close(lt, full[:, 7], **TOL)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
     for t in range(8, 12):
@@ -156,16 +192,19 @@ def test_prefill_decode_matches_forward(arch):
         torch.testing.assert_close(lt, full[:, t], **TOL)
         np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
     assert ct.pos.tolist() == [12, 12]
-    # the caches agree leaf for leaf (KV tensors, SSM and LRU states)
-    jl = [np.asarray(x) for x in jax.tree_util.tree_leaves(cj.layers)]
-    tl = leaves(ct.layers)
+    # the caches agree leaf for leaf (KV tensors, SSM and LRU states,
+    # whisper's cross keys and values)
+    jl = [np.asarray(x) for x in jax.tree_util.tree_leaves(
+        (cj.layers, cj.cross_kv))]
+    tl = leaves((ct.layers, ct.cross_kv))
+    assert (ct.cross_kv is not None) == tc.is_encdec
     assert [tuple(t.shape) for t in tl] == [x.shape for x in jl]
     for a, b in zip(tl, jl):
         np.testing.assert_allclose(a.numpy(), b, **TOL)
 
 
 def _stream_cases():
-    cases = [(a, b) for a in RECURRENT + MOE
+    cases = [(a, b) for a in RECURRENT + MOE + FRONTEND
              for b in ("digital", "bpbs", "kernel")]
     return cases + [(a, b) for a in DENSE for b in ("digital", "bpbs")]
 
@@ -173,14 +212,18 @@ def _stream_cases():
 @pytest.mark.parametrize("arch,backend", _stream_cases(),
                          ids=lambda v: v if isinstance(v, str) else _id(v))
 def test_greedy_streams_equal_reference(arch, backend):
+    """``Engine.generate`` in both packages; the frontend configs with
+    their embeddings (an early-fusion prompt of 12: 8 embedded positions,
+    then 4 tokens)."""
     jc, tc, pj, pt = _ref(*arch)
     jc, tc = _cfgs(jc, tc, backend)
-    toks = _tokens(jc.vocab, (2, 8))
+    toks = _tokens(jc.vocab, (2, 12 if jc.frontend != "none" else 8))
+    fj, ft = _pair(_frontend(jc, 2))
     je = JEngine(pj, jc, JServe(max_seq=32, max_new_tokens=6))
     te = TEngine(pt, tc, TServe(max_seq=32, max_new_tokens=6), device="cpu")
     assert (te.program is not None) == (backend != "digital")
-    gj = np.asarray(je.generate(jnp.asarray(toks)))
-    gt = te.generate(torch.from_numpy(toks))
+    gj = np.asarray(je.generate(jnp.asarray(toks), fj))
+    gt = te.generate(torch.from_numpy(toks), frontend_embeds=ft)
     np.testing.assert_array_equal(gt, gj)
 
 
@@ -323,19 +366,13 @@ def test_loss_and_gradient_step_mamba2():
     assert np.isfinite(float(l2))
 
 
-@pytest.mark.parametrize("name,slice_", [
-    ("llama4-scout-17b-a16e", "frontend slice"),
-    ("phi-3-vision-4.2b", "frontend slice"),
-    ("whisper-tiny", "encoder-decoder slice")])
-def test_frontend_and_encdec_configs_raise_not_implemented(name, slice_):
-    """The reference's configs the port does not run yet (a vision
-    frontend, an encoder-decoder) are refused with a message naming their
-    slice, never run as a decoder without their frontend or encoder."""
-    cfg = port_config(jget(name).reduced())
-    base = tget("llama3.2-1b").reduced()
-    for fn in (lambda: tinit(cfg, 0, device="cpu"),
-               lambda: tinit_cache(cfg, 1, 16, device="cpu"),
-               lambda: tforward(tinit(base, 0, device="cpu"),
-                                torch.zeros(1, 4, dtype=torch.long), cfg)):
-        with pytest.raises(NotImplementedError, match=slice_):
-            fn()
+def test_prefill_resume_refuses_encdec():
+    """A chunked prefill of an encoder-decoder model is refused, as the
+    reference refuses it (its encoder runs whole in ``prefill``)."""
+    jc, tc, pj, pt = _ref("whisper-tiny")
+    with torch.inference_mode():
+        _, cache = tprefill(pt, torch.zeros(1, 4, dtype=torch.long), tc, 16)
+        with pytest.raises(NotImplementedError, match="encoder-decoder"):
+            tresume(pt, torch.zeros(1, 2, dtype=torch.long), tc, cache)
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        jresume(pj, jnp.zeros((1, 2), jnp.int32), jc, None)

@@ -644,3 +644,110 @@ def test_reduced_deepseek_kernel_equals_plain_version(cuda, monkeypatch):
     assert K.cima_mvm_planes.launches - before == (8 + 3 * 11 + 1) * 6
     monkeypatch.setattr(K, "cima_mvm_planes", K.cima_mvm_planes_reference)
     np.testing.assert_array_equal(got, engine.generate(toks))
+
+
+# ------------------------------------------- whisper and early fusion
+
+# whisper-tiny's one short bank (N = 384 of bank_n 2,304) with column
+# counts off the 16-wide tile by an odd number (its 51,865-word unembed
+# and two small ones: the byte-copy weight path, per-element stores), and
+# the early-fusion configs' two-bank (3,072) and three-bank (5,120) rows
+FRONTEND_SHAPES = [
+    ("M17", 384, 17, None), ("M33", 384, 33, "gelu"),
+    ("whisper.unembed", 384, 51865, None), ("whisper.up", 384, 1536, "gelu"),
+    ("whisper.down", 1536, 384, None), ("phi3v.gate", 3072, 8192, "silu"),
+    ("llama4.kv", 5120, 1024, None), ("llama4.down", 8192, 5120, None),
+]
+
+
+@pytest.mark.parametrize("rows", [4, 131])
+@pytest.mark.parametrize("case", FRONTEND_SHAPES, ids=lambda c: c[0])
+def test_kernel_at_frontend_shapes(cuda, case, rows):
+    """Odd column counts and one short bank: bitwise to the plain
+    version, and with the fused per-row scale and activation within
+    rtol/atol 1e-6 (the recurrent shapes' test at these shapes)."""
+    test_kernel_at_recurrent_shapes(cuda, case, rows)
+
+
+def test_grouped_cross_kv_launch_equals_2d_launches(cuda):
+    """whisper's cross k/v as one grouped launch over its 4 decoder
+    layers, the encoder output (4 x 1,500 rows) shared by every group:
+    bitwise to the grouped plain version and to each layer's own 2-D
+    launch."""
+    from repro_torch.core.quant import quantize
+
+    cfg = BpbsConfig(ba=4, bx=4)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(6000, 384, generator=g, device=cuda).expand(4, 6000, 384)
+    w = torch.randn(4, 384, 384, generator=g, device=cuda) * 384 ** -0.5
+    qx = quantize(x, cfg.bx, cfg.coding, per_row=True)
+    qw = torch.stack([quantize(wi, cfg.ba, cfg.coding, axis=1).q for wi in w])
+    xs, nu, _ = K.prepare_inputs(qx.q.to(torch.int8), cfg, grouped=True)
+    ws, fs = K.prepare_weights(qw, cfg)
+    y = K.cima_mvm_planes(xs, ws, nu, fs, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(y, K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg))
+    for i in range(4):
+        assert torch.equal(y[i], K.cima_mvm_planes(xs[i], ws[i], nu[i], fs,
+                                                   cfg))
+
+
+def test_reduced_whisper_cross_kv_is_one_grouped_launch(cuda):
+    """Through the model: ``_cross_kv_all_layers`` on reduced whisper is
+    two grouped launches (k and v over the 4 layers), bitwise to
+    ``encode_cross_kv`` of each layer on its own (8 launches)."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.transformer import layer_slice
+
+    cfg = get_config("whisper-tiny").reduced().with_accel(
+        "kernel", ba=4, bx=4, x_per_row=True)
+    params = init_params(cfg, 0, device=cuda)
+    params = accel.install_program(params, accel.build_program(params, cfg),
+                                   cfg)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    enc = torch.randn(2, cfg.frontend_seq, cfg.d_model, generator=g,
+                      device=cuda)
+    with torch.inference_mode():
+        before = K.cima_mvm_planes.launches
+        k, v = model_mod._cross_kv_all_layers(params, enc, cfg,
+                                              torch.float32)
+        assert K.cima_mvm_planes.launches - before == 2
+        for i in range(cfg.n_layers):
+            ki, vi = attn_mod.encode_cross_kv(
+                layer_slice(params["cross"], i)["attn"], enc, cfg,
+                torch.float32)
+            assert torch.equal(k[i], ki) and torch.equal(v[i], vi)
+
+
+@pytest.mark.parametrize("name", ["whisper-tiny", "phi-3-vision-4.2b",
+                                  "llama4-scout-17b-a16e"])
+def test_frontend_model_kernel_equals_plain_version(cuda, monkeypatch, name):
+    """whisper-tiny at published widths (4 + 4 layers, 1,500 frames: 59
+    launches a prefill, 33 a decode step) and reduced phi-3-vision (4
+    layers: 7 a layer and the lm_head) and llama4-scout (4 MoE layers:
+    10 a layer, 3 of them grouped, and the lm_head) with seeded frontend
+    embeddings, served on the kernel: launches as counted, and greedy
+    tokens equal to the same engine with the kernel routed to its plain
+    version on the card."""
+    cfg = get_config(name)
+    if name != "whisper-tiny":
+        cfg = cfg.reduced()
+    cfg = cfg.with_accel("kernel", ba=4, bx=4)
+    prefill_n, decode_n = {"whisper-tiny": (59, 33),
+                           "phi-3-vision-4.2b": (29, 29),
+                           "llama4-scout-17b-a16e": (41, 41)}[name]
+    engine = Engine(init_params(cfg, 0, device=cuda, max_seq=64), cfg,
+                    ServeConfig(max_seq=32, max_new_tokens=4), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, cfg.frontend_seq + 4)
+                         if cfg.frontend != "audio" else (2, 8),
+                         generator=g, device=cuda)
+    fe = 0.1 * torch.randn(2, cfg.frontend_seq, cfg.d_model, generator=g,
+                           device=cuda)
+    before = K.cima_mvm_planes.launches
+    got = engine.generate(toks, frontend_embeds=fe)
+    assert K.cima_mvm_planes.launches - before == prefill_n + 3 * decode_n
+    monkeypatch.setattr(K, "cima_mvm_planes", K.cima_mvm_planes_reference)
+    np.testing.assert_array_equal(got, engine.generate(toks,
+                                                       frontend_embeds=fe))

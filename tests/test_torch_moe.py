@@ -31,7 +31,7 @@ from repro.models.moe import init_moe as jinit_moe
 from repro.models.moe import moe_ffn as jmoe_ffn
 from repro_torch import accel as taccel
 from repro_torch.accel import program as tprogram
-from repro_torch.configs.base import ArchConfig as TArchConfig
+from repro_torch.configs import get_config as tget
 from repro_torch.convert import params_from_jax
 from repro_torch.core.bpbs import BpbsConfig
 from repro_torch.core.datapath import Postreduce
@@ -52,22 +52,13 @@ def _few_threads():
     torch.set_num_threads(2)
 
 
-def port_config(jc, **kw):
-    """The port's ArchConfig with the reference config's fields (for the
-    configs the port does not register yet), then ``kw``."""
-    fields = {f.name: getattr(jc, f.name)
-              for f in dataclasses.fields(TArchConfig) if f.name != "policy"}
-    return dataclasses.replace(TArchConfig(**fields), **kw)
-
-
 def _cfgs(arch, backend, capacity=None):
-    jc = jget(arch).reduced()
-    kw = {"frontend": "none", "frontend_seq": 0} if jc.frontend != "none" \
-        else {}
+    kw = {"frontend": "none", "frontend_seq": 0} \
+        if jget(arch).frontend != "none" else {}
     if capacity is not None:
         kw["moe_capacity_factor"] = capacity
-    jc = dataclasses.replace(jc, **kw)
-    tc = port_config(jc)
+    jc = dataclasses.replace(jget(arch).reduced(), **kw)
+    tc = dataclasses.replace(tget(arch).reduced(), **kw)
     return (jc.with_accel(JAX_NAME[backend], ba=4, bx=4),
             tc.with_accel(backend, ba=4, bx=4))
 
