@@ -53,6 +53,14 @@ into ``build/`` (one ``nvcc`` per source, started together), then
   layers on prompts of 576 patch embeddings and 32 tokens, each with
   tokens and prefill logits equal to the kernel's plain route's and the
   launches of a step read one by one;
+* serves full-width olmo-1b through the paged ``PagedScheduler`` beside
+  ``ContinuousBatcher``: the batcher's ragged trace (streams equal, 113
+  launches a forward, one host sync a decode block), the reference's
+  Poisson traffic through both (tokens/s, host syncs per token), decode
+  with every slot live (idle share), an oversubscribed pool with
+  priorities (a deferral and a preemption) and chunked prefill; then
+  mamba2-130m whole, recurrentgemma-9b at 3 of 38 layers and
+  deepseek-v2-lite-16b at 2 of 27 through both servers, streams equal;
 * holds the flash-attention kernel to its plain version on the
   ``FA_CASES`` shapes, then drives ``kernels.ops.flash_attention`` at the
   full widths of olmo-1b (32k-token prefill), recurrentgemma-9b (local
@@ -90,8 +98,10 @@ as ``nvidia-smi`` prints them, then the kernels line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero; so
 does a machine without a CUDA device, or a directory without the repo.
 """
+import collections
 import contextlib
 import dataclasses
+import heapq
 import json
 import math
 import os
@@ -128,7 +138,8 @@ from repro_torch.kernels import cima_mvm as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
 from repro_torch.models import (counting, init_cache, init_params,  # noqa: E402
-                                loss_fn, prefill, prefill_resume)
+                                loss_fn, prefill, prefill_resume,
+                                splice_slot)
 from repro_torch.models.cnn import (cnn_forward, cnn_loss, init_cnn,  # noqa: E402
                                     update_bn_stats)
 from repro_torch.models.moe import capacity as moe_capacity  # noqa: E402
@@ -136,7 +147,8 @@ from repro_torch.models.ssm import SSMState  # noqa: E402
 from repro_torch.models.transformer import stack_layout  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
 from repro_torch.optim.qat import calibrate_bn_stats, noise_aware  # noqa: E402
-from repro_torch.serve import ContinuousBatcher, Engine, ServeConfig  # noqa: E402
+from repro_torch.serve import (ContinuousBatcher, Engine, PagedScheduler,  # noqa: E402
+                               ServeConfig, host_sync)
 from repro_torch.train import build_train_step, init_train_state  # noqa: E402
 from repro_torch.train import cifar_qat, step as train_step  # noqa: E402
 from repro_torch.train.cifar_qat import fig11_accuracy, qat_update  # noqa: E402
@@ -337,6 +349,29 @@ BATCH_SLOTS = 4
 # a stream that leaves solo generate at a step whose top-2 logit gap is
 # below this share of the logit scale is a near-tie, not a fault
 NEAR_TIE_REL = 1e-3
+# paged serving (serve/kv.py, serve/scheduler.py) on BATCH_SLOTS slots:
+# 256-position caches in 16-position blocks, 8-step decode blocks; (c)'s
+# oversubscribed pool holds 4 blocks against full residency's 4 x 16, later
+# requests more urgent (on the batcher trace one admission defers and one
+# row is preempted: lengths and budgets alone fix the schedule, so a CPU
+# replay at reduced width shows it); (d) prefills in 16-token chunks
+PAGED = dict(max_seq=256, kv_block_size=16, decode_block=8)
+PAGED_POOL_BLOCKS = 4
+PAGED_PRIORITIES = tuple(range(len(BATCH_PROMPTS)))[::-1]
+PAGED_CHUNK = 16
+# the reference's traffic benchmark (benchmarks/accel_bench.py::
+# run_poisson_traffic): 16 requests, prompt lengths and budgets drawn from
+# the sizes with default_rng(0), exponential gaps of mean 0.05 s
+POISSON_SIZES = (8, 32, 128)
+POISSON_REQUESTS, POISSON_GAP_S = 16, 0.05
+# serve_paged_archs: the other cache layouts, (depth cut or None for
+# whole, launches a forward, paged leaves): mamba2 has none, 3 layers of
+# recurrentgemma (rec, rec, attn) page one KV pair beside the LRU states
+# (its 2,048 window covers max_seq 256), 2 of deepseek's (the dense layer
+# and one MoE layer) page MLA's latents and rope keys in each
+PAGED_ARCHS = {"mamba2-130m": (None, MAMBA2_LAUNCHES, 0),
+               "recurrentgemma-9b": (3, 20, 2),
+               "deepseek-v2-lite-16b": (2, 20, 4)}
 # the CIFAR networks: 64 synthetic 32x32x3 images a batch, BN running
 # statistics from one train=True forward of another 64; the paper's
 # Fig. 11 figures (uJ/image, fps) and the network_cost arguments that
@@ -1634,6 +1669,354 @@ def phase_serve_frontend() -> int:
     return launches
 
 
+def batcher_requests(cfg) -> list:
+    """The batcher trace as ``run_batcher`` makes it: BATCH_PROMPTS random
+    prompts (seed 2) with BATCH_BUDGETS, as (prompt, budget) pairs."""
+    r = np.random.default_rng(2)
+    return [(r.integers(0, cfg.vocab, (n,)), m)
+            for n, m in zip(BATCH_PROMPTS, BATCH_BUDGETS)]
+
+
+def drive(server, reqs, priorities=None, arrivals=None):
+    """``reqs`` through ``server`` (a ``ContinuousBatcher`` or a
+    ``PagedScheduler``), submitted at once or at wall-clock ``arrivals``
+    (seconds) through ``run``'s ``feed``, the kernel's count at 0 just
+    before the run and read just after.  Returns the streams in request
+    order and the run's figures: seconds, launches, the stats it added,
+    the host syncs torch's sync debug mode saw in it (``sync_log``) and,
+    for a PagedScheduler, those of each decode block."""
+    paged = isinstance(server, PagedScheduler)
+    before = dict(server.stats)
+    rids: list = []
+
+    def submit(k):
+        p, m = reqs[k]
+        kw = dict(priority=priorities[k]) if priorities else {}
+        rids.append(server.submit(p, max_new_tokens=m, **kw))
+
+    feed = None
+    if arrivals is None:
+        for k in range(len(reqs)):
+            submit(k)
+    else:
+        def feed():
+            now = time.perf_counter() - t0
+            while len(rids) < len(reqs) and arrivals[len(rids)] <= now:
+                submit(len(rids))
+            return len(rids) < len(reqs)
+    torch.cuda.synchronize()
+    block_syncs: list = []
+    K.cima_mvm_planes.launches = 0
+    with sync_log() as caught:
+        if paged:
+            block = server._decode_block
+
+            def counted():
+                n0, b0 = len(caught), server.stats["decode_blocks"]
+                block()
+                if server.stats["decode_blocks"] > b0:
+                    block_syncs.append(len(sync_sites(caught[n0:])))
+
+            server._decode_block = counted
+        t0 = time.perf_counter()
+        try:
+            results = server.run(feed=feed)
+        finally:
+            if paged:
+                del server._decode_block
+        seconds = time.perf_counter() - t0
+    launches = K.cima_mvm_planes.launches
+    sites = sync_sites(caught)
+    stats = {k: v - before[k] for k, v in server.stats.items()}
+    streams = [results[r] for r in rids]
+    check(stats["generated_tokens"] == sum(m for _, m in reqs),
+          f"{type(server).__name__}: {stats['generated_tokens']} tokens "
+          f"for budgets summing to {sum(m for _, m in reqs)}")
+    check(all(len(s) == m for s, (_, m) in zip(streams, reqs)),
+          "a stream's length differs from its budget")
+    fig = dict(seconds=seconds, tokens_per_s=stats["generated_tokens"]
+               / seconds, cima_mvm_launches=launches, **stats,
+               host_syncs=len(sites),
+               host_syncs_per_token=len(sites) / stats["generated_tokens"],
+               host_sync_sites=dict(collections.Counter(sites)))
+    if paged:
+        fig["host_syncs_per_decode_block"] = dict(
+            collections.Counter(block_syncs))
+    return streams, fig, block_syncs
+
+
+def same_streams(engine, reqs, want, got, what: str,
+                 near_ties: bool) -> dict:
+    """``got`` against ``want`` stream by stream.  With ``near_ties`` a
+    stream may leave ``want`` only where a solo run of its request on
+    ``engine`` (teacher-forced on ``want``) has a top-2 logit gap below
+    NEAR_TIE_REL of its logit scale; without, every token must be equal."""
+    equal = total = 0
+    ties = []
+    for k, ((p, _), w, g) in enumerate(zip(reqs, want, got)):
+        equal += sum(a == b for a, b in zip(w, g))
+        total += len(w)
+        if g == w:
+            continue
+        step = next(t for t, (a, b) in enumerate(zip(g, w)) if a != b)
+        check(near_ties, f"{what}: request {k} leaves the batcher's stream "
+              f"at step {step}: {g} != {w}")
+        gap, scale = top2_gap(engine, p, w, step)
+        tie = dict(request=k, step=step, paged=g[step], batcher=w[step],
+                   top2_gap=gap, logit_scale=scale)
+        print(f"chip_smoke: near-tie check {tie}", flush=True)
+        check(gap < NEAR_TIE_REL * scale, f"{what}: request {k} leaves the "
+              f"batcher's stream at step {step} with a top-2 gap of {gap} "
+              f"(logit scale {scale})")
+        ties.append(tie)
+    return dict(tokens_equal_to_batcher=equal, tokens_total=total,
+                near_ties=ties)
+
+
+def check_launches(fig: dict, per_fwd: int, what: str) -> None:
+    """A serving run's launches: ``per_fwd`` a forward, each decode step
+    and each admission prefill piece (a PagedScheduler's chunks, a
+    batcher's whole prefills) one forward."""
+    n = fig["decode_steps"] + fig.get("prefill_chunks", fig["prefills"])
+    check(fig["cima_mvm_launches"] == per_fwd * n,
+          f"{what}: {fig['cima_mvm_launches']} cima_mvm launches for {n} "
+          f"forwards of {per_fwd}")
+
+
+def poisson_traffic(cb, ps, cfg) -> dict:
+    """The reference's Poisson mix through both servers on the same trace,
+    each warmed first on one request per prompt size; streams equal."""
+    rng = np.random.default_rng(0)
+    lengths = rng.choice(POISSON_SIZES, size=POISSON_REQUESTS)
+    budgets = [int(b) for b in rng.choice(POISSON_SIZES,
+                                          size=POISSON_REQUESTS)]
+    prompts = [rng.integers(1, cfg.vocab, (int(n),)) for n in lengths]
+    arrivals = np.cumsum(rng.exponential(POISSON_GAP_S, POISSON_REQUESTS))
+    warm = [(rng.integers(1, cfg.vocab, (n,)), 2) for n in POISSON_SIZES]
+    reqs = list(zip(prompts, budgets))
+    out, streams = {}, {}
+    for name, server in (("slot", cb), ("paged", ps)):
+        drive(server, warm)
+        streams[name], out[name], _ = drive(server, reqs, arrivals=arrivals)
+        check_launches(out[name], LAUNCHES_PER_FORWARD, f"poisson {name}")
+    out["streams"] = same_streams(cb.engine, reqs, streams["slot"],
+                                  streams["paged"], "poisson", False)
+    out.update(requests=POISSON_REQUESTS, sizes=list(POISSON_SIZES),
+               mean_interarrival_s=POISSON_GAP_S,
+               prompt_lengths=[int(n) for n in lengths], budgets=budgets,
+               last_arrival_s=float(arrivals[-1]),
+               paged_over_slot_tokens_per_s=out["paged"]["tokens_per_s"]
+               / out["slot"]["tokens_per_s"])
+    return out
+
+
+def steady_decode(cb, ps, cfg) -> dict:
+    """Decode with every slot live (4 prompts of 32 tokens), each server's
+    own step: the batcher's (the current tokens to the card, one decode,
+    the sampled tokens' host sync, as its run loop makes it) and a paged
+    decode block (the scheduler's ``_decode_block``: K steps, one sync).
+    Timed unprofiled in turns (K batcher steps, a block, a block, K
+    batcher steps), then ``device_profile`` of 3 batcher steps and one
+    block: device busy time and idle share per decode step."""
+    r = np.random.default_rng(7)
+    prompts = [r.integers(0, cfg.vocab, (32,)) for _ in range(BATCH_SLOTS)]
+    K_ = ps.scfg.decode_block
+    # the batcher's step on a full-width cache
+    eng = cb.engine
+    with eng._scope():
+        cache = eng.init_cache(BATCH_SLOTS)
+    cur = np.zeros(BATCH_SLOTS, np.int64)
+    for i, p in enumerate(prompts):
+        logits, one = eng.prefill_single(p)
+        cur[i] = int(torch.argmax(logits, -1)[0])
+        with eng._scope():
+            cache = splice_slot(cache, one, i)
+    rids, state = np.arange(BATCH_SLOTS), [cur, cache, 1]
+    del cache
+
+    def slot_step():
+        logits, state[1] = eng.decode(torch.as_tensor(state[0],
+                                                      device="cuda"),
+                                      state[1])
+        state[0] = host_sync(eng.sample(logits, rids,
+                                        np.full(BATCH_SLOTS, state[2])),
+                             reason="the batcher's per-step token sync")
+        state[2] += 1
+
+    # the paged rows: the scheduler's own prefill and admission; budgets
+    # for a warm block, two timed and one profiled
+    for p in prompts:
+        ps.submit(p, max_new_tokens=4 * K_ + 1)
+    while ps._pending:
+        ps._prefilling = heapq.heappop(ps._pending)
+        ps._advance_prefill()
+        check(ps._admit(ps._ready, ps.slots.index(None)),
+              "steady decode: an admission deferred")
+        ps._ready = None
+    slot_step()
+    ps._decode_block()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    slot_s = [timed(slot_step) for _ in range(K_)]
+    block_s = [timed(ps._decode_block) for _ in range(2)]
+    slot_s += [timed(slot_step) for _ in range(K_)]
+    slot_ms = statistics.median(slot_s) * 1e3
+    block_ms = statistics.median(block_s) * 1e3
+    slot_prof = device_profile(slot_step, slot_ms, steps=3)
+    block_prof = device_profile(ps._decode_block, block_ms, steps=1)
+    check(all(s is None for s in ps.slots), "steady decode: rows left")
+    state.clear()
+    per_step = {k: block_prof[k] / K_ for k in
+                ("device_kernels_per_step", "device_busy_ms_per_step",
+                 "cima_mvm_ms_per_step")}
+    return dict(
+        rows=BATCH_SLOTS, prompt=32, order="slot, paged, paged, slot",
+        slot=dict(ms_per_step=slot_ms, ms_per_step_each=[t * 1e3
+                                                        for t in slot_s],
+                  tokens_per_s=BATCH_SLOTS / slot_ms * 1e3,
+                  profile=slot_prof),
+        paged=dict(ms_per_block=block_ms, ms_per_block_each=[
+            t * 1e3 for t in block_s], steps_per_block=K_,
+            ms_per_step=block_ms / K_,
+            tokens_per_s=BATCH_SLOTS * K_ / block_ms * 1e3,
+            profile_per_block=block_prof, **per_step,
+            device_idle_share=block_prof["device_idle_share"]))
+
+
+def phase_serve_paged() -> int:
+    """Full-width olmo-1b on the kernel through ``PagedScheduler`` beside
+    ``ContinuousBatcher``: (a) the batcher trace (streams equal up to
+    near-ties, 113 launches a forward, one host sync a decode block), (b)
+    the reference's Poisson traffic through both (streams equal; tokens/s,
+    host syncs per token), steady decode with every slot live (idle
+    share), (c) an oversubscribed pool with priorities (a deferral and a
+    preemption, streams equal), (d) 16-token prefill chunks (streams equal
+    up to near-ties)."""
+    cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
+    params = init_params(cfg, 0, device="cuda")
+    scfg = ServeConfig(max_new_tokens=16, **PAGED)
+    reqs = batcher_requests(cfg)
+    cb = ContinuousBatcher(params, cfg, scfg, BATCH_SLOTS, device="cuda")
+    ps = PagedScheduler(params, cfg, scfg, BATCH_SLOTS, device="cuda")
+    lay = ps.layout
+    check(lay.table_width == PAGED["max_seq"] // PAGED["kv_block_size"]
+          and lay.num_blocks == BATCH_SLOTS * lay.table_width,
+          f"layout {lay.table_width} wide, {lay.num_blocks} blocks")
+    launches = 0
+
+    # (a) the batcher trace
+    want, slot_a, _ = drive(cb, reqs)
+    got, paged_a, block_syncs = drive(ps, reqs)
+    check_launches(slot_a, LAUNCHES_PER_FORWARD, "batcher trace, slot")
+    check_launches(paged_a, LAUNCHES_PER_FORWARD, "batcher trace, paged")
+    check(paged_a["decode_steps"] == PAGED["decode_block"]
+          * paged_a["decode_blocks"], f"decode steps {paged_a}")
+    check(block_syncs == [1] * paged_a["decode_blocks"],
+          f"host syncs per decode block {block_syncs}")
+    a = dict(slot=slot_a, paged=paged_a,
+             **same_streams(cb.engine, reqs, want, got, "batcher trace",
+                            True))
+    launches += slot_a["cima_mvm_launches"] + paged_a["cima_mvm_launches"]
+
+    # (b) Poisson traffic, then steady decode
+    b = poisson_traffic(cb, ps, cfg)
+    launches += (b["slot"]["cima_mvm_launches"]
+                 + b["paged"]["cima_mvm_launches"])
+    steady = steady_decode(cb, ps, cfg)
+    pool_bytes = tensor_bytes(ps.paged.pools)
+    del ps
+    torch.cuda.empty_cache()
+
+    # (c) an oversubscribed pool with priorities
+    ps = PagedScheduler(params, cfg, scfg, BATCH_SLOTS,
+                        num_blocks=PAGED_POOL_BLOCKS, device="cuda")
+    got, paged_c, _ = drive(ps, reqs, priorities=PAGED_PRIORITIES)
+    check_launches(paged_c, LAUNCHES_PER_FORWARD, "oversubscribed pool")
+    check(paged_c["deferred_admissions"] > 0 and paged_c["preemptions"] > 0,
+          f"oversubscribed pool: {paged_c}")
+    c = dict(num_blocks=PAGED_POOL_BLOCKS, priorities=PAGED_PRIORITIES,
+             pool_bytes=tensor_bytes(ps.paged.pools), paged=paged_c,
+             **same_streams(cb.engine, reqs, want, got,
+                            "oversubscribed pool", False))
+    launches += paged_c["cima_mvm_launches"]
+    del ps
+    torch.cuda.empty_cache()
+
+    # (d) chunked prefill
+    ps = PagedScheduler(params, cfg, dataclasses.replace(
+        scfg, prefill_chunk=PAGED_CHUNK), BATCH_SLOTS, device="cuda")
+    got, paged_d, _ = drive(ps, reqs)
+    check_launches(paged_d, LAUNCHES_PER_FORWARD, "chunked prefill")
+    check(paged_d["prefill_chunks"] > paged_d["prefills"],
+          f"chunked prefill: {paged_d}")
+    d = dict(prefill_chunk=PAGED_CHUNK, paged=paged_d,
+             **same_streams(cb.engine, reqs, want, got, "chunked prefill",
+                            True))
+    launches += paged_d["cima_mvm_launches"]
+    del ps, cb, params
+    torch.cuda.empty_cache()
+    emit("serve_paged", config=cfg.name, layers=cfg.n_layers,
+         slots=BATCH_SLOTS, **PAGED, table_width=lay.table_width,
+         num_blocks=lay.num_blocks,
+         pool_bytes_full_residency=pool_bytes,
+         slot_cache_bytes=cache_bytes(cfg, PAGED["max_seq"]),
+         prompt_lengths=list(BATCH_PROMPTS), budgets=list(BATCH_BUDGETS),
+         batcher_trace=a, poisson=b, steady_decode=steady,
+         oversubscribed=c, chunked_prefill=d, cima_mvm_launches=launches)
+    return launches
+
+
+def phase_serve_paged_archs() -> int:
+    """The other cache layouts on the batcher trace through
+    ``PagedScheduler`` and ``ContinuousBatcher``, streams equal: mamba2-130m
+    whole (no paged leaf), recurrentgemma-9b at 3 of 38 layers (a paged KV
+    pair beside the LRU states), deepseek-v2-lite-16b at 2 of 27 (MLA
+    latents paged; dropless, capacity factor 64)."""
+    launches = 0
+    for name, (depth, per_fwd, n_paged) in PAGED_ARCHS.items():
+        base = get_config(name)
+        cfg = base if depth is None else dataclasses.replace(base,
+                                                             n_layers=depth)
+        if cfg.moe:
+            cfg = dataclasses.replace(cfg, moe_capacity_factor=64.0)
+        cfg = cfg.with_accel("kernel", ba=4, bx=4)
+        params = init_params(cfg, 0, device="cuda")
+        scfg = ServeConfig(max_new_tokens=16, **PAGED)
+        reqs = batcher_requests(cfg)
+        cb = ContinuousBatcher(params, cfg, scfg, BATCH_SLOTS, device="cuda")
+        want, slot, _ = drive(cb, reqs)
+        published = (published_depth_bytes(cb.engine) if depth else None)
+        del cb
+        ps = PagedScheduler(params, cfg, scfg, BATCH_SLOTS, device="cuda")
+        got, paged, block_syncs = drive(ps, reqs)
+        lay = ps.layout
+        paged_leaves = sum(q is not None for q in lay.seq_axes)
+        check(paged_leaves == n_paged, f"{name}: {paged_leaves} paged "
+              f"leaves, expected {n_paged}")
+        check_launches(slot, per_fwd, f"{name} slot")
+        check_launches(paged, per_fwd, f"{name} paged")
+        streams = same_streams(None, reqs, want, got, name, False)
+        emit("serve_paged_archs", config=name, layers=cfg.n_layers,
+             layers_of_published=base.n_layers, published_depth=published,
+             pattern=list(cfg.pattern()),
+             moe_capacity_factor=cfg.moe_capacity_factor if cfg.moe else None,
+             paged_leaves=paged_leaves,
+             state_leaves=len(lay.seq_axes) - paged_leaves,
+             table_width=lay.table_width, num_blocks=lay.num_blocks,
+             pool_bytes=tensor_bytes(ps.paged.pools),
+             slot_cache_bytes=cache_bytes(cfg, PAGED["max_seq"]),
+             launches_per_forward=per_fwd, slot=slot, paged=paged,
+             host_syncs_per_decode_block=block_syncs, **streams)
+        launches += slot["cima_mvm_launches"] + paged["cima_mvm_launches"]
+        del ps, params
+        torch.cuda.empty_cache()
+    return launches
+
+
 def fa_errors(o, ref):
     """(max |o - ref|, max of |o - ref| / (FA_BF16_RTOL |ref| +
     FA_BF16_ATOL)): a bf16 output passes when the first is within
@@ -1992,19 +2375,32 @@ def phase_cifar(peaks, nets=(NETWORK_A, NETWORK_B), batch=CIFAR_BATCH):
     return rows, launches, worst
 
 
-def host_syncs(fn) -> list:
-    """Where ``fn`` synchronises with the device, as torch's sync debug
-    mode reports it: one ``file:line`` per synchronising call (the mode's
-    one-time note that it is a prototype is not one)."""
+@contextlib.contextmanager
+def sync_log():
+    """Torch's sync debug mode on, its warnings recorded in the list this
+    yields (``sync_sites`` reads them)."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            fn()
+            yield caught
         finally:
             torch.cuda.set_sync_debug_mode("default")
+
+
+def sync_sites(caught) -> list:
+    """One ``file:line`` per synchronising call among recorded warnings
+    (the mode's one-time note that it is a prototype is not one)."""
     return [f"{Path(w.filename).name}:{w.lineno}" for w in caught
             if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def host_syncs(fn) -> list:
+    """Where ``fn`` synchronises with the device, as torch's sync debug
+    mode reports it (``sync_sites``)."""
+    with sync_log() as caught:
+        fn()
+    return sync_sites(caught)
 
 
 def phase_serve_energy(arch="olmo-1b", chips=SERVE_CHIPS, cfg=None):
@@ -2661,6 +3057,8 @@ def main():
     fr_err, fr_step = phase_frontend_shapes(peaks)
     wh_launches = phase_serve_whisper()
     fr_launches = phase_serve_frontend()
+    paged_launches = phase_serve_paged()
+    paged_archs_launches = phase_serve_paged_archs()
     fa_err = phase_flash_cases()
     fa_rows, fa_launches = phase_flash_main_shapes(peaks)
     cifar_rows, cifar_launches, cifar_err = phase_cifar(peaks)
@@ -2691,7 +3089,8 @@ def main():
         "launches": (launches + cifar_launches + qat_launches + lm_launches
                      + trainer_launches + mamba2_launches + rg_launches
                      + rec_batcher_launches + dense_launches + ds_launches
-                     + ds_batcher_launches + wh_launches + fr_launches),
+                     + ds_batcher_launches + wh_launches + fr_launches
+                     + paged_launches + paged_archs_launches),
         "max_abs_err": max(err_cases, err_main, cifar_err, rec_err, moe_err,
                            fr_err),
         "ms": step["ms"], "plain_ms": step["plain_ms"],
@@ -2713,7 +3112,12 @@ def main():
                "phi-3-vision-4.2b's (225 a forward) and llama4-scout's at "
                "2 layers (21: 6 grouped) on 608-token early-fusion "
                "prompts, one decode step of each read launch by launch, "
-               "llama4's dropless batcher, one CIFAR Network A "
+               "llama4's dropless batcher, olmo-1b's paged serving beside "
+               "its slot batcher (serve_paged: the batcher trace, the "
+               "Poisson traffic, an oversubscribed pool, chunked prefill), "
+               "mamba2-130m, recurrentgemma-9b at 3 layers (20 a forward) "
+               "and deepseek-v2-lite-16b at 2 (20) through both servers "
+               "(serve_paged_archs), one CIFAR Network A "
                "and B forward (9 each), 8 QAT steps of each (9 each), 3 "
                "olmo-1b train steps (225 each) and the reduced trainer's "
                "6 steps (29 each); "

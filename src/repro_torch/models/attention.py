@@ -294,6 +294,22 @@ def init_mla(gen, cfg, device, lead: tuple = ()) -> dict:
     }
 
 
+def _write_rows(buf, offs, vals):
+    """``buf[b, offs[b]] = vals[b]`` in place, dropping positions at or past
+    the end of ``buf`` as the reference's ``.at[].set`` drops them (a
+    retired slot's position runs on while its neighbours decode).  A
+    dropped write repeats its row's last kept write, or the old value
+    where the row keeps none, so duplicate indices carry equal values."""
+    length, s = buf.shape[1], offs.shape[1]
+    rows = torch.arange(offs.shape[0], device=offs.device)[:, None]
+    last = torch.clamp_min(length - 1 - offs[:, :1], -1)      # [B, 1]
+    j = torch.minimum(torch.arange(s, device=offs.device)[None, :], last)
+    at = torch.clamp_max(offs, length - 1)
+    keep = (j >= 0)[..., None]
+    buf[rows, at] = torch.where(keep, vals[rows, torch.clamp_min(j, 0)],
+                                buf[rows, at])
+
+
 def mla_attention(params, x, cfg, positions, cache: Optional[MLACache] = None,
                   cache_pos=None, dtype=torch.bfloat16, pad_mask=None):
     """Multi-head Latent Attention (deepseek-v2): the cache stores only
@@ -335,9 +351,9 @@ def mla_attention(params, x, cfg, positions, cache: Optional[MLACache] = None,
         # hidden by the causal mask on q_pos (exactly zero probability)
         cp = _row_positions(cache_pos, b, x.device)
         offs = cp[:, None] + torch.arange(s, device=x.device)[None, :]
-        rows = torch.arange(b, device=x.device)[:, None]
-        cache.c_kv[rows, offs] = c_kv.to(cache.c_kv.dtype)
-        cache.k_rope[rows, offs] = k_rope[:, :, 0, :].to(cache.k_rope.dtype)
+        _write_rows(cache.c_kv, offs, c_kv.to(cache.c_kv.dtype))
+        _write_rows(cache.k_rope, offs,
+                    k_rope[:, :, 0, :].to(cache.k_rope.dtype))
         full_c, full_rope = cache.c_kv, cache.k_rope[:, :, None, :]
         q_pos = offs
 

@@ -1,6 +1,15 @@
-"""Serving: the batched engine and the slot-level continuous batcher
-(the paged scheduler comes in a later slice)."""
+"""Serving: the batched engine, the slot-level continuous batcher
+(the reference baseline) and the block-table paged scheduler."""
 from .engine import ContinuousBatcher, Engine, ServeConfig
 from .host import host_sync
+from .kv import (BlockAllocator, PagedCache, PagedLayout, build_layout,
+                 gather_cache, init_paged_cache, scatter_decode,
+                 splice_request)
+from .scheduler import PagedScheduler
 
-__all__ = ["ContinuousBatcher", "Engine", "ServeConfig", "host_sync"]
+__all__ = [
+    "ContinuousBatcher", "Engine", "ServeConfig", "host_sync",
+    "BlockAllocator", "PagedCache", "PagedLayout", "build_layout",
+    "gather_cache", "init_paged_cache", "scatter_decode", "splice_request",
+    "PagedScheduler",
+]

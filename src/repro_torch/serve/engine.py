@@ -55,17 +55,32 @@ class ServeConfig:
     stream_double_buffer: bool = True
     # one input quantization scale per row (ExecSpec.x_per_row)
     x_per_row: bool = True
+    # paged serving (serve.kv, serve.scheduler): positions per block of
+    # the shared cache pool; decode steps a PagedScheduler block runs
+    # between its host syncs; admission prefill chunk width (None = the
+    # whole prompt at once, exact for every arch)
+    kv_block_size: int = 16
+    decode_block: int = 8
+    prefill_chunk: Optional[int] = None
     # admission prefills per ContinuousBatcher decode step, so an arrival
     # burst cannot stall the live slots behind a run of prefills
     # (None = admit greedily)
     max_admit_per_step: Optional[int] = 1
 
     def __post_init__(self):
-        for name in ("max_seq", "max_new_tokens", "eos_check_every"):
+        for name in ("max_seq", "max_new_tokens", "eos_check_every",
+                     "kv_block_size", "decode_block"):
             v = getattr(self, name)
             if v <= 0:
                 raise ValueError(f"ServeConfig.{name} must be positive, "
                                  f"got {v}")
+        if self.max_seq % self.kv_block_size:
+            raise ValueError(
+                f"ServeConfig.kv_block_size={self.kv_block_size} must "
+                f"divide the cache capacity max_seq={self.max_seq}")
+        if self.prefill_chunk is not None and self.prefill_chunk <= 0:
+            raise ValueError(f"ServeConfig.prefill_chunk must be positive "
+                             f"or None, got {self.prefill_chunk}")
         cap = self.max_admit_per_step
         if cap is not None and cap <= 0:
             raise ValueError(f"ServeConfig.max_admit_per_step must be "

@@ -30,7 +30,9 @@ from repro_torch.kernels import cima_mvm as K
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.models import init_params
 from repro_torch.models.cnn import cnn_forward, init_cnn
-from repro_torch.serve import ContinuousBatcher, Engine, ServeConfig
+from repro_torch import tree
+from repro_torch.serve import (ContinuousBatcher, Engine, PagedScheduler,
+                               ServeConfig)
 
 pytestmark = pytest.mark.cuda
 
@@ -537,6 +539,84 @@ def test_reduced_batcher_on_the_card_equals_solo_generate(cuda):
         solo = cb.engine.generate(torch.as_tensor(p[None], device=cuda),
                                   request_ids=[rid])[0].tolist()
         assert got[rid] == solo
+
+
+# ---------------------------------------------------------- paged serving
+
+def _paged_olmo(cuda, **kw):
+    """Reduced olmo-1b on the kernel, seed-0 weights, six ragged requests
+    with ragged budgets: the slot batcher's streams and a PagedScheduler
+    built with ``kw`` (run left to the caller)."""
+    cfg = get_config("olmo-1b").reduced().with_accel("kernel", ba=4, bx=4)
+    scfg = ServeConfig(max_seq=48, max_new_tokens=12, kv_block_size=8)
+    params = init_params(cfg, 0, device=cuda)
+    r = np.random.default_rng(3)
+    reqs = [(r.integers(1, cfg.vocab, (n,)), m)
+            for n, m in zip((3, 9, 5, 13, 7, 4), (12, 2, 9, 5, 12, 3))]
+    cb = ContinuousBatcher(params, cfg, scfg, 3, device=cuda)
+    for p, m in reqs:
+        cb.submit(p, max_new_tokens=m)
+    want = cb.run()
+    ps = PagedScheduler(params, cfg, scfg, 3, device=cuda, **kw)
+    for k, (p, m) in enumerate(reqs):
+        ps.submit(p, max_new_tokens=m, priority=k)
+    return ps, want
+
+
+@pytest.mark.parametrize("num_blocks", [None, 3])
+def test_reduced_paged_scheduler_on_the_card_equals_the_batcher(cuda,
+                                                                num_blocks):
+    """Streams equal the slot batcher's on the kernel, at full residency
+    and in an oversubscribed pool (deferral and preemption); 29 launches
+    a forward, every prefill chunk and decode step one forward."""
+    ps, want = _paged_olmo(cuda, num_blocks=num_blocks)
+    before = K.cima_mvm_planes.launches
+    got = ps.run()
+    st = ps.stats
+    assert got == want
+    assert K.cima_mvm_planes.launches - before == 29 * (
+        st["decode_steps"] + st["prefill_chunks"])
+    assert st["decode_steps"] == 8 * st["decode_blocks"]
+    if num_blocks:
+        assert st["deferred_admissions"] > 0 and st["preemptions"] > 0
+
+
+def test_paged_decode_block_makes_no_host_sync(cuda):
+    """Nothing in a block's gather, K decode steps and scatter
+    synchronises with the host: under sync debug mode "error" any
+    synchronising call would raise."""
+    ps, want = _paged_olmo(cuda)
+    block, blocks = ps._run_block, []
+
+    def strict(*args):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = block(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        blocks.append(out.shape)
+        return out
+
+    ps._run_block = strict
+    assert ps.run() == want
+    assert len(blocks) == ps.stats["decode_blocks"] > 0
+
+
+def test_paged_zero_block_stays_zero_after_retirements(cuda):
+    """Retired rows keep decoding to the end of their block with sentinel
+    tables: their writes go to the discard block, and the zero-read block
+    the sentinel gathers from is still all zero after the run."""
+    ps, want = _paged_olmo(cuda)
+    assert ps.run() == want
+    lay = ps.layout
+    pools = tree.leaves(ps.paged.pools)
+    paged = [(p, b) for p, b, q in zip(pools, lay.batch_axes, lay.seq_axes)
+             if q is not None]
+    assert paged
+    for pool, b_ax in paged:
+        assert not pool.narrow(b_ax, lay.sentinel, 1).any()
+        assert pool.narrow(b_ax, lay.sentinel + 1, 1).any()
 
 
 # --------------------------------------------------------- grouped launch

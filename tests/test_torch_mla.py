@@ -156,3 +156,30 @@ def test_mla_resumed_prefill_matches_reference(backend):
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), **TOL)
     if backend == "digital":
         torch.testing.assert_close(ot, full[:, 5:9], **TOL)
+
+
+@pytest.mark.parametrize("backend", ["digital", "bpbs"])
+def test_mla_writes_past_the_cache_are_dropped(backend):
+    """Positions at or past the end of the latent cache are dropped, as the
+    reference's ``.at[].set`` drops them: a decode step with one row past
+    the end (a retired batcher slot's position runs on) and a resumed
+    chunk straddling the end; outputs and caches equal the reference's."""
+    jc, tc, pj, pt, x = _setup(backend)
+    cj, ct = _caches(jc, tc)
+    head = np.arange(8)
+    cj, ct = _run(
+        lambda: jattn.mla_attention(pj, jnp.asarray(x[:, :8]), jc,
+                                    jnp.asarray(head), cj, dtype=jnp.float32),
+        lambda: tattn.mla_attention(pt, torch.from_numpy(x[:, :8]), tc,
+                                    torch.from_numpy(head), ct,
+                                    dtype=torch.float32))
+    for cp, s in ((np.array([15, 17]), 1), (np.array([14, 20]), 4)):
+        pos = cp[:, None] + np.arange(s)[None]
+        cj, _ = _run(
+            lambda: jattn.mla_attention(
+                pj, jnp.asarray(x[:, 8:8 + s]), jc, jnp.asarray(pos), cj,
+                jnp.asarray(cp), dtype=jnp.float32),
+            lambda: tattn.mla_attention(
+                pt, torch.from_numpy(x[:, 8:8 + s]), tc,
+                torch.from_numpy(pos), ct, torch.from_numpy(cp),
+                dtype=torch.float32))
