@@ -82,6 +82,19 @@ into ``build/`` (one ``nvcc`` per source, started together), then
   plain version, with Fig. 11's accuracies on held-out synthetic batches;
   and ``train.trainer.train`` on reduced olmo-1b crashes at step 4,
   resumes, and must land on the uninterrupted run's loss;
+* trains the configs whose forward makes grouped calls (``train_moe``):
+  one AdamW step of deepseek-v2-lite-16b at the deepest depth whose
+  reckoned bytes fit and of whisper-tiny whole (8 x 256 tokens, remat
+  off), the experts and cross k/v as grouped launches of the kernel
+  under autograd and none in the backward, every forward launch held
+  bitwise to the plain version and the loss to the plain route's
+  (llama4-scout's reckoning says why it does not fit);
+* runs the design-space tuner (``tune``): ``repro_torch.tune.tune`` on
+  reduced olmo-1b with ``benchmarks/accel_bench.py::run_tune``'s
+  arguments (961 points from one traced decode step, its pick beside
+  ``BENCH_tune.json``'s), on full-width olmo-1b around 4,096 chips, and
+  on a 1 x 1 space whose pick is served through ``Engine`` with tokens
+  equal to the plain route's;
 * draws ADC noise at the 0.85 V corner (sigma 0.3 LSB) through ``bpbs``
   on the card: the code-shift and output-error statistics against the
   analytic ones, determinism in the seed and independence across
@@ -154,6 +167,7 @@ from repro_torch.train import cifar_qat, step as train_step  # noqa: E402
 from repro_torch.train.cifar_qat import fig11_accuracy, qat_update  # noqa: E402
 from repro_torch.train.trainer import CrashInjected, TrainerConfig, train  # noqa: E402
 from repro_torch.tree import leaves, tree_map  # noqa: E402
+from repro_torch import tune  # noqa: E402
 
 SOURCE = "src/repro_torch/kernels/csrc/cima_mvm.cu"
 REPLACES = "src/repro/kernels/cima_mvm.py:41"
@@ -397,6 +411,23 @@ LM_LAUNCHES_PER_STEP = LAUNCHES_PER_FORWARD + 16 * 7              # 225
 # kernel route against plain route, per step's loss and gradient norm:
 # bitwise (the forward outputs are bitwise and the backward ops the same,
 # run under torch.use_deterministic_algorithms)
+# MoE and cross-k/v training (the grouped straight-through backward):
+# one AdamW step of 8 x 256 tokens, remat off so the backward launches
+# nothing (the forward's launches are the whole count).  A model trains at
+# the deepest depth whose reckoned bytes fit TRAIN_MEM_FRACTION of the
+# card: TRAIN_TREES float32 trees of its parameters at the optimizer's
+# peak (parameters, gradients, clipped gradients, both moments, and the
+# new parameters and moments apply_updates builds beside them)
+TRAIN_MOE = {"deepseek-v2-lite-16b": (4, 3, 2), "whisper-tiny": (None,),
+             "llama4-scout-17b-a16e": (1,)}
+TRAIN_TREES = 8
+TRAIN_MEM_FRACTION = 0.8
+TRAIN_MOE_RTOL = 1e-5
+# the tuner as benchmarks/accel_bench.py::run_tune drives it (reduced
+# olmo-1b, 4-b/4-b, batch 4, 4 chips a device, 16 in all, SQNR within
+# 1 dB), and at full width around the streaming engine's 4,096 chips
+TUNE_BATCH, TUNE_CHIPS, TUNE_BUDGET, TUNE_QTOL = 4, 4, 16, 1.0
+TUNE_PRICED = 961
 # 590kb arrays of the streaming engine: full-width olmo-1b needs 8,978 at
 # B_A = 4 (512 a layer, 786 for the unembed), so the tail streams
 SERVE_CHIPS = 4096
@@ -2819,6 +2850,387 @@ def phase_trainer_resume():
     return launches
 
 
+# output columns the kernel's plain version computes at a time where it
+# stands in for a launch with a wide output (deepseek's 102,400-column
+# unembed at 2,048 rows would hold ~50 GB of temporaries at once)
+PLAIN_COLUMNS = 16384
+
+
+def plain_in_column_blocks(xs, ws, nu, fs, cfg, escale=None, pbias=None,
+                           act=None, by_bits=None):
+    """``K.cima_mvm_planes_reference`` PLAIN_COLUMNS output columns at a
+    time (every column's products, ADC epilogue and datapath are its
+    own, and the plane products are integers, so the bits are the whole
+    call's)."""
+    m = ws.shape[-1]
+    if m <= PLAIN_COLUMNS:
+        return K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg, escale,
+                                           pbias, act, by_bits)
+
+    def cols(t, c):
+        return (t[..., c:c + PLAIN_COLUMNS]
+                if torch.is_tensor(t) and t.shape[-1] == m else t)
+
+    return torch.cat([K.cima_mvm_planes_reference(
+        xs, ws[..., c:c + PLAIN_COLUMNS], nu, fs, cfg, cols(escale, c),
+        cols(pbias, c), act, by_bits) for c in range(0, m, PLAIN_COLUMNS)],
+        dim=-1)
+
+
+@contextlib.contextmanager
+def launch_kinds(compare: bool = False):
+    """Count the kernel's launches by kind while they run: yields a dict
+    of grouped and 2-D launches (and, with ``compare``, the launches
+    whose output differs from the plain version's on the same arguments,
+    compared as they happen and not kept).  The wrapper passes the
+    kernel's own counter through, as ``routed_launches`` does."""
+    launch = K.cima_mvm_planes
+    seen = {"grouped": 0, "2d": 0, "differ": 0, "max_abs_err": 0.0}
+
+    def wrapped(*args):
+        out = launch(*args)
+        seen["grouped" if args[0].ndim == 4 else "2d"] += 1
+        if compare:
+            ref = plain_in_column_blocks(*args)
+            err = float((out - ref).abs().max())
+            seen["max_abs_err"] = max(seen["max_abs_err"], err)
+            seen["differ"] += int(not torch.equal(out, ref))
+        return out
+
+    wrapped.launches = launch.launches
+    K.cima_mvm_planes = wrapped
+    try:
+        yield seen
+    finally:
+        K.cima_mvm_planes = launch
+        launch.launches = wrapped.launches
+
+
+def train_bytes(cfg) -> int:
+    """The reckoned bytes of one AdamW step of ``cfg``: TRAIN_TREES
+    float32 trees of its parameters (activations ride in the margin)."""
+    return TRAIN_TREES * 4 * counting.param_count(cfg)
+
+
+def moe_train_forward_launches(cfg) -> tuple:
+    """(2-D, grouped) kernel launches of one training forward of ``cfg``:
+    a dense layer's attention (5 with MLA: q, dkv, krope, ukv, o; else
+    q, k, v, o) and FFN (3), a MoE layer's attention, shared-expert FFN
+    (3) and routed experts (3 grouped), the unembed; whisper's prefill
+    (the cross k and v grouped over the decoder layers)."""
+    if cfg.is_encdec:
+        return WH_PREFILL_LAUNCHES - len(WH_CROSS_SHAPES), len(WH_CROSS_SHAPES)
+    attn = 5 if cfg.mla else 4
+    moe = sum(k == "moe" for k in cfg.pattern())
+    dense = cfg.n_layers - moe
+    shared = 3 if cfg.n_shared_experts else 0
+    return (attn + 3) * dense + (attn + shared) * moe + 1, 3 * moe
+
+
+def train_moe_one(name: str, depth) -> dict:
+    """One model of ``phase_train_moe``: the depth it trains at (or the
+    reckoning that says it does not fit), one kernel-route AdamW step
+    (the main path, counts at 0 just before and read just after), timed
+    forward and backward passes, a forward with every launch compared to
+    the plain version, and the same step with the kernel routed to it."""
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    base = dataclasses.replace(
+        get_config(name).with_accel("kernel", ba=4, bx=4), remat=False)
+    published = base.n_layers
+    reckoned = {}
+    cfg = None
+    for layers in depth:
+        c = base if layers is None else dataclasses.replace(base,
+                                                            n_layers=layers)
+        reckoned[c.n_layers] = train_bytes(c)
+        if reckoned[c.n_layers] <= TRAIN_MEM_FRACTION * total_mem:
+            cfg = c
+            break
+    row = dict(config=name, published_depth=published,
+               reckoned_step_bytes=reckoned,
+               budget_bytes=TRAIN_MEM_FRACTION * total_mem,
+               device_memory_bytes=total_mem, seq=LM_SEQ, batch=LM_BATCH,
+               remat=False)
+    if cfg is None:
+        fewest = min(reckoned)
+        row["trained"] = False
+        row["why"] = (f"{TRAIN_TREES} float32 parameter trees at {fewest} "
+                      f"layer(s) need {reckoned[fewest]} bytes, over the "
+                      f"budget: not run")
+        return row
+    data_cfg = DataConfig(seq_len=LM_SEQ, global_batch=LM_BATCH,
+                          vocab=cfg.vocab, seed=0,
+                          frontend_seq=cfg.frontend_seq,
+                          d_model=cfg.d_model if cfg.frontend_seq else 0)
+    batch = make_batch(data_cfg, 0, "cuda")
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=200)
+    want_2d, want_grouped = moe_train_forward_launches(cfg)
+
+    def one_step(route=None):
+        state = init_train_state(init_params(cfg, 0, device="cuda",
+                                             max_seq=LM_SEQ))
+        step_fn = build_train_step(cfg, opt_cfg)
+        scope = (routed_launches(route, keep=False) if route is not None
+                 else launch_kinds())
+        torch.cuda.synchronize()
+        with scope as kinds, backward_marks(train_step, "loss_fn") as marks:
+            n0 = K.cima_mvm_planes.launches
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            n1 = K.cima_mvm_planes.launches
+        check(len(marks) == 1, f"{name}: {len(marks)} backward passes")
+        out = dict(ms=ms, launches=n1 - n0,
+                   launches_forward=marks[0] - n0,
+                   launches_backward=n1 - marks[0],
+                   loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   loss_finite=bool(torch.isfinite(m["loss"])),
+                   grad_norm_finite=bool(torch.isfinite(m["grad_norm"])))
+        if route is None:
+            out.update(grouped=kinds["grouped"], two_d=kinds["2d"])
+        return state, out
+
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts at 0 just before, read just after
+    K.cima_mvm_planes.launches = 0
+    state, step = one_step()
+    launches = K.cima_mvm_planes.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(step["loss_finite"] and step["grad_norm_finite"],
+          f"{name}: loss {step['loss']}, grad norm {step['grad_norm']}")
+    check((step["launches_forward"], step["launches_backward"])
+          == (want_2d + want_grouped, 0),
+          f"{name}: launches (forward, backward) "
+          f"{(step['launches_forward'], step['launches_backward'])}")
+    check((step["two_d"], step["grouped"]) == (want_2d, want_grouped),
+          f"{name}: (2-D, grouped) launches "
+          f"{(step['two_d'], step['grouped'])}")
+    params = state.params
+    del state
+    torch.cuda.empty_cache()
+    t_fwd, t_bwd = timed_fwd_bwd(lambda p: loss_fn(p, batch, cfg)[0],
+                                 params, reps=2)
+    # every launch of a forward under autograd against the plain version
+    p = tree_map(lambda t: t.detach().requires_grad_(), params)
+    with launch_kinds(compare=True) as seen:
+        loss_fn(p, batch, cfg)
+    torch.cuda.synchronize()
+    check(seen["differ"] == 0 and seen["grouped"] == want_grouped,
+          f"{name}: {seen['differ']} forward launches differ from the "
+          f"plain version (max abs err {seen['max_abs_err']})")
+    del p, params
+    torch.cuda.empty_cache()
+    before = K.cima_mvm_planes.launches
+    _, plain = one_step(route=plain_in_column_blocks)
+    check(K.cima_mvm_planes.launches == before,
+          "the plain route launched the kernel")
+    for k in ("loss", "grad_norm"):
+        check(math.isclose(step[k], plain[k], rel_tol=TRAIN_MOE_RTOL),
+              f"{name}: {k} on the kernel {step[k]} vs plain {plain[k]}")
+    torch.cuda.empty_cache()
+    row.update(trained=True, layers=cfg.n_layers, d_model=cfg.d_model,
+               parameters=counting.param_count(cfg),
+               cima_mvm_launches=launches, step=step, plain_route=plain,
+               forward_launches_equal_to_plain_version_bitwise=(
+                   seen["grouped"] + seen["2d"]),
+               loss_rtol_to_plain_route=TRAIN_MOE_RTOL,
+               forward_ms=t_fwd, backward_ms=t_bwd,
+               max_memory_allocated_bytes=peak)
+    return row
+
+
+def phase_train_moe():
+    """The grouped straight-through backward on the card: one AdamW step
+    of deepseek-v2-lite-16b (the deepest of 4, 3 or 2 of its 27 layers
+    whose reckoned bytes fit), whisper-tiny whole and llama4-scout at one
+    layer if it fits, each at published widths, 8 x 256 tokens, remat
+    off, every managed projection on the kernel: the MoE experts and
+    whisper's cross k/v as grouped launches under autograd, none in the
+    backward.  Each forward launch is held bitwise to the plain version
+    and the step's loss and gradient norm to the plain route's."""
+    launches = 0
+    for name, depth in TRAIN_MOE.items():
+        row = train_moe_one(name, depth)
+        launches += row.get("cima_mvm_launches", 0)
+        emit("train_moe", **row)
+    check(launches > 0, "no MoE or cross-k/v model trained")
+    return launches
+
+
+@contextlib.contextmanager
+def tune_clock():
+    """Wall seconds of a ``tune`` call split into its traced decode step,
+    its repricing and its quality probes (the rest is the baseline's
+    program build), read by wrapping ``accel.trace``,
+    ``TraceCostModel.reprice`` and ``SqnrQuality.score`` while it runs."""
+    spent = collections.Counter()
+    real_trace, real_reprice = accel.trace, tune.TraceCostModel.reprice
+    real_score = tune.SqnrQuality.score
+
+    @contextlib.contextmanager
+    def timed_trace(vdd=None):
+        t0 = time.perf_counter()
+        with real_trace(vdd=vdd) as records:
+            yield records
+            torch.cuda.synchronize()
+        spent["trace_s"] += time.perf_counter() - t0
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            spent[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    accel.trace = timed_trace
+    tune.TraceCostModel.reprice = timed("reprice_s", real_reprice)
+    tune.SqnrQuality.score = timed("quality_s", real_score)
+    t0 = time.perf_counter()
+    try:
+        yield spent
+    finally:
+        spent["wall_s"] = time.perf_counter() - t0
+        accel.trace = real_trace
+        tune.TraceCostModel.reprice = real_reprice
+        tune.SqnrQuality.score = real_score
+
+
+def run_tune(params, cfg, default, per_fwd: int, beat: bool = True, **kw):
+    """``tune.tune`` on the kernel (counts at 0 just before, read just
+    after): the result, its launches split into the traced decode step's
+    and the SQNR probes' (one launch a probe), and its wall seconds.
+    With ``beat`` the pick must strictly beat the default on tokens per
+    Mcycle, as ``run_tune`` asserts."""
+    quality = tune.SqnrQuality(device="cuda")
+    K.cima_mvm_planes.launches = 0
+    with tune_clock() as spent:
+        res = tune.tune(params, cfg, default, quality=quality,
+                        quality_tol=TUNE_QTOL, **kw)
+        torch.cuda.synchronize()
+    launches = K.cima_mvm_planes.launches
+    probes = sum(1 for sig in quality._cache if sig[0] != "digital")
+    check(not beat or res.best_point["tokens_per_mcycle"]
+          > res.default_point["tokens_per_mcycle"],
+          f"the tuned point {res.best.label} does not beat the default")
+    check(res.network_executions == 1,
+          f"{res.network_executions} network executions")
+    check(launches - probes == per_fwd,
+          f"traced step launched {launches - probes}, not {per_fwd}")
+    clock = dict(spent)
+    clock["program_s"] = clock["wall_s"] - sum(
+        clock.get(k, 0.0) for k in ("trace_s", "reprice_s", "quality_s"))
+    return res, dict(launches=launches, traced_step_launches=launches - probes,
+                     sqnr_probe_launches=probes, seconds=clock,
+                     candidates_priced=res.candidates_priced,
+                     network_executions=res.network_executions,
+                     chosen=res.best.label, speedup=res.speedup(),
+                     default_tokens_per_mcycle=res.default_point[
+                         "tokens_per_mcycle"],
+                     chosen_tokens_per_mcycle=res.best_point[
+                         "tokens_per_mcycle"],
+                     chosen_quality_db=res.best_point["quality"],
+                     default_quality_db=res.default_point["quality"],
+                     chosen_total_chips=res.best_point["total_chips"])
+
+
+def phase_tune():
+    """The design-space tuner on the card: (a) reduced olmo-1b with
+    ``benchmarks/accel_bench.py::run_tune``'s arguments on the kernel
+    (961 points priced, one network execution), its pick beside
+    ``BENCH_tune.json``'s; (b) full-width olmo-1b around the streaming
+    engine's 4,096 chips (one traced decode step of 113 launches, the
+    repriced default equal to ``energy_summary`` of that trace, checked
+    inside ``tune``); (c) the space restricted to a 1 x 1 mesh and its
+    pick served through ``Engine`` (``apply_model``, ``ServeConfig.
+    from_tuned``), tokens equal to the plain route's."""
+    bench = json.loads((Path(__file__).resolve().parent
+                        / "BENCH_tune.json").read_text())
+    launches = 0
+    cfg = get_config("olmo-1b").reduced().with_accel("kernel", ba=4, bx=4)
+    params = init_params(cfg, 0, device="cuda", max_seq=64)
+    res, row = run_tune(params, cfg,
+                        tune.Candidate(policy=cfg.policy,
+                                       capacity_chips=TUNE_CHIPS),
+                        cfg.n_layers * 7 + 1, batch=TUNE_BATCH,
+                        chip_budget=TUNE_BUDGET)
+    check(res.candidates_priced == TUNE_PRICED,
+          f"{res.candidates_priced} candidates priced")
+    check(res.best_point["total_chips"] <= TUNE_BUDGET, "over the budget")
+    launches += row["launches"]
+    emit("tune", part="a", config="olmo-1b reduced", backend="kernel",
+         batch=TUNE_BATCH, capacity_chips=TUNE_CHIPS,
+         chip_budget=TUNE_BUDGET, quality_tol_db=TUNE_QTOL,
+         bench_tune_json={"chosen": bench["chosen"]["label"],
+                          "speedup": bench["speedup"],
+                          "what": "the JAX package's run on bpbs; the port "
+                                  "draws its own weights and tokens"},
+         same_pick_as_bench_tune_json=(
+             res.best.label == bench["chosen"]["label"]), **row)
+    del params
+
+    cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
+    params = init_params(cfg, 0, device="cuda")
+    default = tune.Candidate(policy=cfg.policy, capacity_chips=SERVE_CHIPS)
+    caps = (SERVE_CHIPS // 2, SERVE_CHIPS, 2 * SERVE_CHIPS)
+    space = tune.lm_space(default, capacities=caps,
+                          max_total_chips=4 * SERVE_CHIPS)
+    res, row = run_tune(params, cfg, default, LAUNCHES_PER_FORWARD,
+                        space=space, batch=TUNE_BATCH,
+                        chip_budget=4 * SERVE_CHIPS)
+    check(res.candidates_priced == TUNE_PRICED,
+          f"{res.candidates_priced} candidates priced at full width")
+    launches += row["launches"]
+    emit("tune", part="b", config="olmo-1b", backend="kernel",
+         batch=TUNE_BATCH, capacity_chips=SERVE_CHIPS, capacities=caps,
+         chip_budget=4 * SERVE_CHIPS, quality_tol_db=TUNE_QTOL,
+         repriced_default_equals_energy_summary=True,
+         chip_model={"what": "65 nm chip cost model (core.energy), not the "
+                             "card",
+                     "default_uj_per_token": res.default_point[
+                         "uj_per_token"],
+                     "chosen_uj_per_token": res.best_point["uj_per_token"]},
+         **row)
+
+    flat = tune.lm_space(default, capacities=caps, meshes=((1, 1),),
+                         max_total_chips=4 * SERVE_CHIPS)
+    res, row = run_tune(params, cfg, default, LAUNCHES_PER_FORWARD,
+                        beat=False, space=flat, batch=TUNE_BATCH,
+                        chip_budget=4 * SERVE_CHIPS)
+    launches += row["launches"]
+    tuned = res.best
+    check((tuned.data_shards, tuned.model_shards) == (1, 1), "not 1 x 1")
+    cfg2 = tuned.apply_model(cfg)
+    scfg = tuned.serve_config(max_seq=256, max_new_tokens=8)
+    check(scfg.cima_chips == tuned.capacity_chips
+          and scfg.stream_double_buffer == tuned.double_buffer,
+          "ServeConfig.from_tuned dropped a tuned knob")
+    engine = Engine(params, cfg2, scfg, device="cuda")
+    del params
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (4, 32), generator=g,
+                            device="cuda")
+    K.cima_mvm_planes.launches = 0
+    tokens = engine.generate(prompts)
+    served = K.cima_mvm_planes.launches
+    check(served == LAUNCHES_PER_FORWARD * 8,
+          f"tuned engine launched {served} in 8 forwards")
+    launches += served
+    logits, _ = engine.prefill(prompts)
+    agree = kernel_vs_plain(cfg2, engine, prompts, tokens, logits)
+    emit("tune", part="c", config="olmo-1b", backend="kernel",
+         space_points=len(flat) + 1, served_generate_launches=served,
+         tuned={"label": tuned.label, "capacity_chips": tuned.capacity_chips,
+                "double_buffer": tuned.double_buffer,
+                "fuse_datapath": tuned.fuse_datapath,
+                "vdd": tuned.vdd},
+         prompts=4, new_tokens=8, **agree, **row)
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_noise():
     """ADC noise of ``bpbs`` on the card at ``NOISE_SIGMA``: one bank of
     255 rows (fs = 255, the clean ADC exact).  The code shift at the ADC
@@ -3066,6 +3478,8 @@ def main():
     qat_rows, qat_launches = phase_train_cifar()
     lm_launches = phase_train_lm()
     trainer_launches = phase_trainer_resume()
+    moe_train_launches = phase_train_moe()
+    tune_launches = phase_tune()
     phase_noise()
     phase_noise_qat()
     phase_noise_corner()
@@ -3090,7 +3504,8 @@ def main():
                      + trainer_launches + mamba2_launches + rg_launches
                      + rec_batcher_launches + dense_launches + ds_launches
                      + ds_batcher_launches + wh_launches + fr_launches
-                     + paged_launches + paged_archs_launches),
+                     + paged_launches + paged_archs_launches
+                     + moe_train_launches + tune_launches),
         "max_abs_err": max(err_cases, err_main, cifar_err, rec_err, moe_err,
                            fr_err),
         "ms": step["ms"], "plain_ms": step["plain_ms"],
@@ -3120,7 +3535,12 @@ def main():
                "(serve_paged_archs), one CIFAR Network A "
                "and B forward (9 each), 8 QAT steps of each (9 each), 3 "
                "olmo-1b train steps (225 each) and the reduced trainer's "
-               "6 steps (29 each); "
+               "6 steps (29 each); train_moe's AdamW steps of "
+               "deepseek-v2-lite-16b and whisper-tiny (their forwards' "
+               "2-D and grouped launches, none in the backward); tune's "
+               "traced decode steps of reduced and full-width olmo-1b "
+               "(29 and 113) with their SQNR probes (one launch each) "
+               "and the tuned 1 x 1 point served for 8 forwards; "
                "the noisy paths (noise, noise_qat, noise_corner) run bpbs "
                "and launch it 0 times",
         "recurrent_decode_step_ms": {m: v["ms"] for m, v in rec_step.items()},

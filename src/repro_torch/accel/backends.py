@@ -35,9 +35,12 @@ from .spec import ExecSpec
 
 def quantize_input(x: torch.Tensor, spec: ExecSpec) -> QTensor:
     """Quantize the dynamic input onto the spec's grid (int8 values);
-    ``spec.x_per_row`` keeps one scale per input row."""
+    ``spec.x_per_row`` keeps one scale per input row.  The 8-bit XNOR
+    grid reaches +128, which the int8 cast saturates to 127 as XLA's
+    float-to-int conversion does (a torch cast would wrap it to -128)."""
     qx = quantize(x, spec.bx, spec.coding, per_row=spec.x_per_row)
-    return dataclasses.replace(qx, q=qx.q.to(torch.int8))
+    return dataclasses.replace(
+        qx, q=torch.clamp(qx.q, -128, 127).to(torch.int8))
 
 
 def _quantize_weight(w: torch.Tensor, spec: ExecSpec) -> QTensor:

@@ -108,8 +108,9 @@ class MvmRecord:
     load_segments: int = 0  # 768-b row segments per reload (per device)
     stream_overlap: bool = False
     load_prologue: int = 0
-    # mesh mapping of the image (model-axis shards, "col"/"row"/"", and
-    # data-axis replicas); one device until the port has a mesh
+    # mesh mapping of the image as compiled (model-axis shards,
+    # "col"/"row"/"", and data-axis replicas): the chip system the
+    # program describes, whether or not the run executes a partition
     devices: int = 1
     partition: str = ""
     data_shards: int = 1

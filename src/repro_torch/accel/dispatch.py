@@ -27,7 +27,11 @@ computes by ``jax.vmap`` over the MoE experts.  Each group keeps its own
 input and weight scales, its own image slice and the shared epilogue, so
 the result equals a loop of 2-D dispatches over the groups bit for bit.
 A backend marked ``grouped`` (the kernel: one grouped launch) takes the
-whole call; any other runs group by group.
+whole call; any other runs group by group.  Under autograd the forward
+stays that one dispatch and the backward is the float GEMM per group
+(``dx_g = g_g w_gᵀ``, ``dw_g = x_gᵀ g_g``); a grouped input that is an
+``expand``ed view (whisper's encoder output over its decoder layers)
+gets its ``dx`` summed by the view's own backward.
 """
 from __future__ import annotations
 
@@ -120,26 +124,6 @@ def _record_mvm(spec: ExecSpec, x: torch.Tensor, w: torch.Tensor,
         planes_total=total))
 
 
-class _StraightThrough(torch.autograd.Function):
-    """The backend's forward on the float32 operands; the backward of the
-    plain float GEMM (the reference's ``custom_vjp`` ``_bwd``)."""
-
-    @staticmethod
-    def forward(ctx, x, w, fn, spec, ectx):
-        ctx.save_for_backward(x, w)
-        return fn(x, w, spec, ectx)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = torch.einsum("...m,nm->...n", g, w)
-        if ctx.needs_input_grad[1]:
-            dw = torch.einsum("...n,...m->nm", x, g)
-        return dx, dw, None, None, None
-
-
 def _run(fn, x, w, spec: ExecSpec, ctx: ExecContext) -> torch.Tensor:
     """The backend on a 2-D call, or on a grouped one: whole where the
     backend takes groups, else group by group with each group's image
@@ -151,6 +135,31 @@ def _run(fn, x, w, spec: ExecSpec, ctx: ExecContext) -> torch.Tensor:
         fn(x[g], w[g], spec, dataclasses.replace(
             ctx, image=img.layer(g) if img is not None else None))
         for g in range(w.shape[0])])
+
+
+class _StraightThrough(torch.autograd.Function):
+    """The backend's forward on the float32 operands (one grouped launch
+    on the kernel for a grouped call); the backward of the plain float
+    GEMM, per group for a grouped call (the reference's ``custom_vjp``
+    ``_bwd``, under ``jax.vmap`` for the grouped one)."""
+
+    @staticmethod
+    def forward(ctx, x, w, fn, spec, ectx):
+        ctx.save_for_backward(x, w)
+        return _run(fn, x, w, spec, ectx)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        grouped = w.ndim == 3
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.einsum("g...m,gnm->g...n" if grouped
+                              else "...m,nm->...n", g, w)
+        if ctx.needs_input_grad[1]:
+            dw = torch.einsum("g...n,g...m->gnm" if grouped
+                              else "...n,...m->nm", x, g)
+        return dx, dw, None, None, None
 
 
 def _records_grad(*ts) -> bool:
@@ -184,8 +193,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
     * Grouped: ``w`` [G, N, M] and ``x`` [G, ..., N] (``image`` stacked
       [G, ...], ``post`` shared by the groups) -> [G, ..., M], equal to a
       loop of 2-D calls over the groups.  A digital spec differentiates
-      natively; a quantizing one under autograd raises (the grouped
-      straight-through backward is the MoE training slice's).
+      natively; a quantizing one takes the straight-through backward
+      per group, and a shared ``post``'s register cotangents sum over
+      the groups (the reference's ``vmap`` of its ``custom_vjp``).
     """
     if spec is None:
         dt = dtype or x.dtype
@@ -213,19 +223,10 @@ def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
         return _run(fn, x.to(dt), w.to(dt), spec, ctx)
     xf, wf = x.to(torch.float32), w.to(torch.float32)
     regs = (post.scale, post.bias) if post is not None else ()
-    if w.ndim == 3:
-        if _records_grad(xf, wf, *regs):
-            raise NotImplementedError(
-                f"accel.matmul: a grouped {spec.backend!r} call under "
-                "autograd; the grouped straight-through backward comes "
-                "with the MoE training slice of the port")
-        if post is not None:
-            ctx = dataclasses.replace(ctx, post=post)
-        return _run(fn, xf, wf, spec, ctx)
     if _records_grad(xf, wf, *regs):
         y = _StraightThrough.apply(xf, wf, fn, spec,
                                    dataclasses.replace(ctx, post=None))
         return post.apply(y, spec.bx, spec.ba) if post is not None else y
     if post is not None:
         ctx = dataclasses.replace(ctx, post=post)
-    return fn(xf, wf, spec, ctx)
+    return _run(fn, xf, wf, spec, ctx)

@@ -102,3 +102,9 @@ class PrecisionPolicy:
         then ``sp("attn.q")`` — the pattern every model module uses."""
         return lambda path, layer=None: self.resolve(path, kind=kind,
                                                      layer=layer)
+
+    def with_rule(self, pattern: str, spec: ExecSpec) -> "PrecisionPolicy":
+        """A copy with ``(pattern, spec)`` prepended (highest priority in
+        its specificity class)."""
+        return dataclasses.replace(
+            self, rules=((pattern, spec),) + tuple(self.rules))

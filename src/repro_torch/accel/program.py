@@ -1,7 +1,6 @@
 """Weight-stationary CIMA programs: compile-once bit-plane images plus a
 capacity-aware bank allocator (paper Fig. 8).  Port of
-``repro.accel.program`` for one device (the mesh arguments wait for the
-port's multi-device slice).
+``repro.accel.program``.
 
 The chip is weight-stationary: matrix elements are written into the CIMA
 once and every MVM reuses them.  :func:`build_program` walks a model's
@@ -28,6 +27,15 @@ charged in :func:`~repro_torch.accel.context.trace` records and
 :func:`~repro_torch.accel.context.energy_summary`.  Streaming is
 accounting only: the arithmetic is the resident program's.
 :class:`ProgramManager` rebuilds a program lazily after the weights move.
+
+``model_shards``/``data_shards`` give the allocator the reference's
+``data x model`` mesh arithmetic (:func:`partition_for`): a partitioned
+image's tiles and segments are per-device shard sizes and residency is
+decided against the per-device budget, while its stored planes stay the
+full logical arrays.  Only the accounting and the image's metadata
+change: dispatch runs the whole image on one device, as the reference
+does without a mesh (executing a partition is the port's multi-device
+slice).
 """
 from __future__ import annotations
 
@@ -75,7 +83,8 @@ class CimaImage:
     # into the spare bank set while the other set computes (accounting
     # only; dispatch stamps it on MvmRecord.stream_overlap)
     overlap: bool = False
-    # mesh mapping, one device until the port's multi-device slice
+    # mesh mapping (accounting): "col"/"row" split over ``devices``
+    # model-axis shards, and the data-axis replicas
     partition: Optional[str] = None
     devices: int = 1
     data_shards: int = 1
@@ -112,6 +121,47 @@ def segment_dma_words() -> int:
     return E.A_ROW_SEGMENT // E.DMA_WORD
 
 
+# tag leaves whose projection is the second GEMM of a Megatron pair (the
+# input is already split over the model axis): split along N, partial
+# sums all-reduced after the ADC epilogue.  Derived from the parameter
+# names the reference's sharding rules mark row-parallel (a copy of
+# ``repro.distributed.sharding._ROW_PARALLEL_PARENTS``) through the
+# name -> policy-tag-leaf map.
+_ROW_PARALLEL_PARENTS = ("down", "wo", "out", "out_proj", "w_ukv")
+_PARENT_TO_TAG_LEAF = {"down": "down", "wo": "o", "out": "out",
+                       "out_proj": "out_proj", "w_ukv": "ukv"}
+_ROW_PARALLEL_LEAVES = tuple(_PARENT_TO_TAG_LEAF[p]
+                             for p in _ROW_PARALLEL_PARENTS)
+
+
+def sharding_excluded(tag: str) -> bool:
+    """Is this projection a grouped call (MoE expert stacks, whisper's
+    per-layer cross-attention), whose group axis is the natural shard and
+    which is therefore never partitioned over the "model" axis?"""
+    return tag in _MOE_EXPERT.values() or tag.startswith("cross.")
+
+
+def partition_for(tag: str, n: int, m: int, shards: int) -> Optional[str]:
+    """How one projection splits across ``shards`` model-axis devices:
+    ``"col"`` (planes split along M, no collective) by default, ``"row"``
+    (split along N, all-reduce after the ADC epilogue) for the second
+    GEMM of each Megatron pair; the other axis when the preferred one
+    does not divide, ``None`` (replicated) when neither does or the
+    projection is :func:`sharding_excluded`."""
+    if shards <= 1:
+        return None
+    if sharding_excluded(tag):
+        return None
+    leaf = tag.rsplit(".", 1)[-1]
+    if leaf in _ROW_PARALLEL_LEAVES:
+        if n % shards == 0:
+            return "row"
+        return "col" if m % shards == 0 else None
+    if m % shards == 0:
+        return "col"
+    return "row" if n % shards == 0 else None
+
+
 # output columns decomposed into planes at a time: the float32 planes of
 # a whole 4,096 x 256,000 unembed would take 17 GB at once
 PLANE_COLUMNS = 8192
@@ -128,12 +178,15 @@ def _int8_planes(q: torch.Tensor, cfg) -> torch.Tensor:
     return out
 
 
-def _compile_image(w: torch.Tensor, spec, path: str) -> CimaImage:
+def _compile_image(w: torch.Tensor, spec, path: str, shards: int = 1,
+                   partition: Optional[str] = None) -> CimaImage:
     """Quantize + decompose one (possibly stacked) projection exactly as
     the on-the-fly backends do per call, one copy at a time, each written
     into its slot of the preallocated stacked image (a MoE stack of
     7 x 64 experts would hold its planes twice over if they were stacked
-    from a list)."""
+    from a list).  ``partition``/``shards`` change only the accounting
+    (tiles and segments of one device's shard) and the metadata: the
+    planes are the full logical arrays."""
     lead = tuple(w.shape[:-2])
     n, m = int(w.shape[-2]), int(w.shape[-1])
     cfg = spec.bpbs()
@@ -153,12 +206,17 @@ def _compile_image(w: torch.Tensor, spec, path: str) -> CimaImage:
     ws = ws.reshape(lead + ws.shape[1:])
     wq = wq.reshape(lead + wq.shape[1:])
     scale = scale.reshape(lead + scale.shape[1:])
+    devices = shards if partition in ("col", "row") else 1
+    n_loc = n // devices if partition == "row" else n
+    m_loc = m // devices if partition == "col" else m
     return CimaImage(ws=ws, wq=wq, scale=scale, path=path,
                      tag=spec.tag, ba=spec.ba, coding=Coding(spec.coding),
                      per_channel=spec.per_channel, n=n, m=m,
                      copies=int(math.prod(lead)) if lead else 1,
-                     tiles=image_tiles(n, m, spec.ba),
-                     segments=image_segments(n, m, spec.ba))
+                     tiles=image_tiles(n_loc, m_loc, spec.ba),
+                     segments=image_segments(n_loc, m_loc, spec.ba),
+                     partition=partition if devices > 1 else None,
+                     devices=devices)
 
 
 def image_matches(img: Optional[CimaImage], spec, w: torch.Tensor) -> bool:
@@ -300,38 +358,42 @@ def model_footprint(params, cfg) -> list:
     return out
 
 
-def _one_device(model_shards: int, data_shards: int) -> None:
-    if model_shards != 1 or data_shards != 1:
-        raise NotImplementedError(
-            "the port places programs on one device; model_shards and "
-            "data_shards above 1 wait for its multi-device slice")
-
-
 def plan_allocation(footprints, policy, capacity_chips: Optional[int] = None,
                     model_shards: int = 1, data_shards: int = 1,
                     double_buffer: bool = True) -> dict:
     """First-fit bank allocation of ``footprints`` under ``policy``:
     ``{path: Placement}`` for every projection the policy routes to a
-    program backend.  A footprint whose copies together exceed what is
-    left of ``capacity_chips`` streams (``overlap`` per
-    ``double_buffer``); later, smaller ones may still fit."""
-    _one_device(model_shards, data_shards)
+    program backend.  Each projection is partitioned over
+    ``model_shards`` devices per :func:`partition_for` and placed against
+    the PER-DEVICE ``capacity_chips`` budget; a footprint whose copies
+    together exceed what is left of it streams (``overlap`` per
+    ``double_buffer``); later, smaller ones may still fit.  The data axis
+    never cuts an image: it is stamped on every placement.  This is the
+    one allocator: :func:`build_program` compiles to this plan and the
+    tuner re-runs it per design point."""
     plan: dict = {}
     used = 0
     for fp in footprints:
         spec = policy.resolve(fp.tag, kind=fp.kind)
         if spec.backend not in PROGRAM_BACKENDS:
             continue
-        tiles = image_tiles(fp.n, fp.m, spec.ba)
-        segments = image_segments(fp.n, fp.m, spec.ba)
+        part = partition_for(fp.tag, fp.n, fp.m, model_shards)
+        devices = model_shards if part in ("col", "row") else 1
+        n_loc = fp.n // devices if part == "row" else fp.n
+        m_loc = fp.m // devices if part == "col" else fp.m
+        tiles = image_tiles(n_loc, m_loc, spec.ba)
+        segments = image_segments(n_loc, m_loc, spec.ba)
         need = tiles * fp.copies
         resident = not (capacity_chips is not None
                         and used + need > capacity_chips)
         if resident:
             used += need
         plan[fp.path] = Placement(
-            footprint=fp, spec=spec, tiles=tiles, segments=segments,
-            resident=resident, overlap=(not resident) and bool(double_buffer))
+            footprint=fp, spec=spec,
+            partition=part if devices > 1 else None, devices=devices,
+            tiles=tiles, segments=segments, resident=resident,
+            overlap=(not resident) and bool(double_buffer),
+            data_shards=max(int(data_shards), 1))
     return plan
 
 
@@ -344,9 +406,14 @@ class CimaProgram:
     images were built from (see :class:`ProgramManager`)."""
 
     images: dict
-    capacity_tiles: Optional[int] = None    # None = unbounded array
+    capacity_tiles: Optional[int] = None    # None = unbounded (per device)
     version: int = 0
+    model_shards: int = 1                   # "model"-axis size at build
+    data_shards: int = 1                    # "data"-axis size at build
     double_buffer: bool = True
+    # grouped-call tags never partitioned over the model axis
+    # (sharding_excluded): their tiles do not shrink with model_shards
+    excluded: tuple = ()
 
     def __bool__(self) -> bool:
         return bool(self.images)
@@ -394,17 +461,16 @@ class CimaProgram:
         return sorted(rows, key=lambda r: (r["tag"], r["path"]))
 
     def summary(self) -> dict:
-        """The reference's summary; on one device nothing is partitioned
-        or excluded from partitioning."""
         return {
             "images": len(self.images),
             "copies": sum(i.copies for i in self.images.values()),
-            "model_shards": 1,
-            "data_shards": 1,
+            "model_shards": self.model_shards,
+            "data_shards": self.data_shards,
             "double_buffer": self.double_buffer,
-            "partitioned": 0,
-            "excluded_from_sharding": [],
-            "excluded_count": 0,
+            "partitioned": sum(1 for i in self.images.values()
+                               if i.partition is not None),
+            "excluded_from_sharding": sorted(self.excluded),
+            "excluded_count": len(self.excluded),
             "capacity_tiles": self.capacity_tiles,
             "capacity_bits": (None if self.capacity_tiles is None else
                               self.capacity_tiles * E.CIMA_ROWS * E.CIMA_COLS),
@@ -420,29 +486,42 @@ class CimaProgram:
 
 
 def build_program(params, cfg, capacity_chips: Optional[int] = None,
-                  version: int = 0, double_buffer: bool = True
+                  version: int = 0, model_shards: int = 1,
+                  data_shards: int = 1, double_buffer: bool = True
                   ) -> CimaProgram:
     """Compile every policy-managed projection routed to a program backend
     into a :class:`CimaImage` (digital projections are never compiled),
     placed by :func:`plan_allocation` on ``capacity_chips`` 590kb arrays
-    (None = all resident).  Streamed images are reloaded every pass,
-    double-buffered unless ``double_buffer=False``: accounting only, the
-    numerics are the resident program's."""
+    per device (None = all resident), partitioned over ``model_shards``
+    devices and replicated over ``data_shards`` (accounting and
+    metadata).  Streamed images are reloaded every pass, double-buffered
+    unless ``double_buffer=False``: accounting only, the numerics are
+    the resident program's."""
+    shards, data = int(model_shards), int(data_shards)
     plan = plan_allocation(model_footprint(params, cfg), cfg.policy,
                            capacity_chips=capacity_chips,
+                           model_shards=shards, data_shards=data,
                            double_buffer=double_buffer)
     images: dict = {}
-    for path, key, _tag, _kind, w in _walk(params, cfg):
+    excluded: list = []
+    for path, key, tag, _kind, w in _walk(params, cfg):
         pl = plan.get(_path_str(path, key))
         if pl is None:
             continue
-        img = _compile_image(w, pl.spec, _path_str(path, key))
+        if shards > 1 and sharding_excluded(tag):
+            excluded.append(tag)
+        img = _compile_image(w, pl.spec, _path_str(path, key),
+                             shards=shards, partition=pl.partition)
+        if data > 1:
+            img = dataclasses.replace(img, data_shards=data)
         if not pl.resident:
             img = dataclasses.replace(img, resident=False,
                                       overlap=pl.overlap)
         images[img.path] = img
     return CimaProgram(images=images, capacity_tiles=capacity_chips,
-                       version=version, double_buffer=bool(double_buffer))
+                       version=version, model_shards=shards,
+                       data_shards=data, double_buffer=bool(double_buffer),
+                       excluded=tuple(sorted(set(excluded))))
 
 
 def _set_in(tree, path: tuple, key, value):

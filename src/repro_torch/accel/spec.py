@@ -62,3 +62,6 @@ class ExecSpec:
             adc_bits=self.adc_bits, adc_sigma_lsb=self.adc_sigma_lsb,
             adaptive_range=self.adaptive_range, ideal_adc=self.ideal_adc,
             skip_zero_planes=self.skip_zero_planes)
+
+    def with_(self, **kw) -> "ExecSpec":
+        return dataclasses.replace(self, **kw)

@@ -8,7 +8,7 @@ from . import (deepseek_v2_lite_16b, granite_8b, llama3_2_1b,
                llama4_scout_17b_a16e, mamba2_130m, olmo_1b,
                phi_3_vision_4_2b, recurrentgemma_9b, starcoder2_3b,
                whisper_tiny)
-from .base import ArchConfig, get_config, register
+from .base import ArchConfig, get_config, list_archs, register
 from .cifar_nets import NETWORK_A, NETWORK_B, CnnConfig, CnnLayer
 
 ALL_ARCHS = ("phi-3-vision-4.2b", "deepseek-v2-lite-16b",
@@ -16,5 +16,5 @@ ALL_ARCHS = ("phi-3-vision-4.2b", "deepseek-v2-lite-16b",
              "granite-8b", "llama3.2-1b", "olmo-1b", "mamba2-130m",
              "whisper-tiny")
 
-__all__ = ["ArchConfig", "get_config", "register", "ALL_ARCHS",
-           "CnnConfig", "CnnLayer", "NETWORK_A", "NETWORK_B"]
+__all__ = ["ArchConfig", "get_config", "list_archs", "register",
+           "ALL_ARCHS", "CnnConfig", "CnnLayer", "NETWORK_A", "NETWORK_B"]

@@ -134,6 +134,9 @@ class ArchConfig:
                                  default=ExecSpec(backend=backend, **spec_kw))
         return dataclasses.replace(self, policy=policy)
 
+    def with_policy(self, policy: PrecisionPolicy) -> "ArchConfig":
+        return dataclasses.replace(self, policy=policy)
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""
         scale = dict(
@@ -182,3 +185,8 @@ def get_config(name: str) -> ArchConfig:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
+
+def list_archs() -> list[str]:
+    from . import ALL_ARCHS  # ensure registration side effects ran
+
+    return sorted(_REGISTRY)

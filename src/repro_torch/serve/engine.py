@@ -89,6 +89,31 @@ class ServeConfig:
             raise ValueError(f"ServeConfig.temperature must be >= 0, "
                              f"got {self.temperature}")
 
+    @classmethod
+    def from_tuned(cls, tuned, mesh=None, **kw) -> "ServeConfig":
+        """A ``ServeConfig`` from an auto-tuner choice (:class:`repro_torch.
+        tune.TunedConfig`): bank capacity and double-buffered streaming
+        land here, the model-side knobs (policy, plane skip, datapath
+        fusion) through ``tuned.apply_model(cfg)``.  Extra keywords pass
+        through to the constructor and override the tuned values.
+
+        A tuned mesh wider than 1x1 needs a ``mesh`` of that shape, as in
+        the reference; serving on one is the port's multi-device slice,
+        so with a mesh it raises ``NotImplementedError``."""
+        want = (getattr(tuned, "data_shards", 1),
+                getattr(tuned, "model_shards", 1))
+        if want != (1, 1):
+            if mesh is None:
+                raise ValueError(
+                    f"tuned config {getattr(tuned, 'label', '')!r} wants a "
+                    f"{want[0]}x{want[1]} data x model mesh; pass mesh=")
+            raise NotImplementedError(
+                f"serving the tuned {want[0]}x{want[1]} data x model mesh "
+                "waits for the port's multi-device slice")
+        kw.setdefault("cima_chips", tuned.capacity_chips)
+        kw.setdefault("stream_double_buffer", tuned.double_buffer)
+        return cls(**kw)
+
 
 def _to_device(tree, device):
     if isinstance(tree, dict):

@@ -7,6 +7,8 @@ the same integer grids and the same multiplications, so the outputs are
 bitwise equal.  With one, XLA on the CPU may contract the bias add into a
 fused multiply-add and ``silu`` rounds ``exp`` differently: rtol 1e-6.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -161,6 +163,66 @@ def test_policy_resolution_matches_reference(query):
     ts = policy(taccel, "kernel").resolve(path, kind, layer)
     assert (ts.ba, ts.bx, ts.tag) == (js.ba, js.bx, js.tag)
     assert ts.backend == {"pallas": "kernel"}.get(js.backend, js.backend)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("backend", ["digital_int", "bpbs", "bpbs_ref",
+                                     "kernel"])
+def test_eight_bit_inputs_saturate_as_the_reference(backend, per_row):
+    """At B_X = 8 the XNOR grid puts each scale's largest input on +128,
+    one past int8: the reference's cast saturates it to 127, and so must
+    the port's (a wrapping cast makes it -128 and moves the SQNR of an
+    8-bit point from 33.4 to 17.2 dB), also in a grouped call."""
+    r = np.random.default_rng(5)
+    x = r.normal(size=(2, 4, 128)).astype(np.float32)
+    x[:, :, 3] = np.abs(x).max() + 1.0          # every row's amax positive
+    w = (r.normal(size=(2, 128, 16)) * 128 ** -0.5).astype(np.float32)
+    kw = dict(ba=4, bx=8, x_per_row=per_row)
+    js = jaccel.ExecSpec(backend=JAX_NAME.get(backend, backend), **kw)
+    ts = taccel.ExecSpec(backend=backend, **kw)
+    for g in range(2):
+        yj = jaccel.matmul(jnp.asarray(x[g]), jnp.asarray(w[g]), js)
+        yt = taccel.matmul(torch.from_numpy(x[g]), torch.from_numpy(w[g]),
+                           ts)
+        np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
+    yg = taccel.matmul(torch.from_numpy(x), torch.from_numpy(w), ts)
+    yl = torch.stack([taccel.matmul(torch.from_numpy(x[g]),
+                                    torch.from_numpy(w[g]), ts)
+                      for g in range(2)])
+    assert torch.equal(yg, yl)
+
+
+def test_spec_with_and_policy_with_rule_match_reference():
+    """``ExecSpec.with_`` and ``PrecisionPolicy.with_rule`` (prepended:
+    first in its specificity class) resolve as the reference's."""
+    def policy(acc, name):
+        base = acc.PrecisionPolicy(
+            rules=(("kind:mlp", acc.ExecSpec(backend=name, ba=2, bx=2)),),
+            default=acc.ExecSpec(backend=name, ba=4, bx=4))
+        spec = base.default.with_(ba=1, bx=1, skip_zero_planes=False)
+        return base.with_rule("kind:mlp", spec).with_rule(
+            "path:attn.*", spec.with_(ba=8))
+
+    jp, tp = policy(jaccel, "pallas"), policy(taccel, "kernel")
+    assert [p for p, _ in tp.rules] == [p for p, _ in jp.rules]
+    for path, kind in (("mlp.up", "mlp"), ("attn.q", "attn"),
+                       ("unembed", "unembed")):
+        js, ts = jp.resolve(path, kind), tp.resolve(path, kind)
+        assert (ts.ba, ts.bx, ts.skip_zero_planes, ts.tag) == \
+            (js.ba, js.bx, js.skip_zero_planes, js.tag)
+
+
+def test_config_registry_and_with_policy_match_reference():
+    from repro.configs import list_archs as jlist
+    from repro_torch.configs import get_config as tget
+    from repro_torch.configs import list_archs as tlist
+
+    assert tlist() == jlist()
+    policy = taccel.PrecisionPolicy.uniform(
+        taccel.ExecSpec(backend="bpbs", ba=2, bx=2))
+    cfg = tget("olmo-1b").with_policy(policy)
+    assert cfg.policy is policy
+    assert cfg == dataclasses.replace(tget("olmo-1b"), policy=policy)
 
 
 def test_digital_backend_computes_at_the_caller_dtype():

@@ -366,6 +366,39 @@ def test_loss_and_gradient_step_mamba2():
     assert np.isfinite(float(l2))
 
 
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b",
+                                  "llama4-scout-17b-a16e", "whisper-tiny"])
+def test_grouped_training_on_bpbs_matches_reference(name):
+    """The port of the slow sweep of ``test_smoke_train_step`` for the
+    configs whose forward makes grouped quantizing calls (MoE experts,
+    whisper's cross k/v over its decoder layers), on ``bpbs``: the loss
+    and every gradient allclose to ``jax.value_and_grad(loss_fn)``
+    through the reference's ``vmap`` of its straight-through matmul, and
+    a finite loss after one SGD step."""
+    jc, tc = _cfgs(*_ref(name)[:2], "bpbs")
+    pj, pt = _ref(name)[2:]
+    toks = _tokens(jc.vocab, (2, 16))
+    fj, ft = _pair(_frontend(jc, 2))
+    bj = {"tokens": jnp.asarray(toks)}
+    bt = {"tokens": torch.from_numpy(toks).long()}
+    if fj is not None:
+        bj["frontend_embeds"], bt["frontend_embeds"] = fj, ft
+    (lj, _), gj = jax.value_and_grad(jloss, has_aux=True)(pj, bj, jc)
+    ps = [t.clone().requires_grad_() for t in leaves(pt)]
+    lt, _ = tloss(unflatten(pt, ps), bt, tc)
+    grads = torch.autograd.grad(lt, ps)
+    np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=1e-5)
+    for (path, _), g, h in zip(leaves_with_path(pt), grads,
+                               jax.tree_util.tree_leaves(gj)):
+        assert bool(torch.isfinite(g).all()), path
+        np.testing.assert_allclose(g.numpy(), np.asarray(h), rtol=1e-3,
+                                   atol=1e-5, err_msg=path)
+    with torch.no_grad():
+        stepped = unflatten(pt, [t - 1e-3 * g for t, g in zip(ps, grads)])
+        l2, _ = tloss(stepped, bt, tc)
+    assert np.isfinite(float(l2))
+
+
 def test_prefill_resume_refuses_encdec():
     """A chunked prefill of an encoder-decoder model is refused, as the
     reference refuses it (its encoder runs whole in ``prefill``)."""

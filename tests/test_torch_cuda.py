@@ -726,6 +726,77 @@ def test_reduced_deepseek_kernel_equals_plain_version(cuda, monkeypatch):
     np.testing.assert_array_equal(got, engine.generate(toks))
 
 
+@pytest.mark.parametrize("post", [None, "silu"])
+@pytest.mark.parametrize("rows", [1, 15])
+@pytest.mark.parametrize("shape", [(2048, 1408), (1408, 2048)],
+                         ids=["gate", "down"])
+def test_grouped_forward_under_autograd_equals_plain_version(
+        cuda, monkeypatch, shape, rows, post):
+    """The grouped straight-through ``accel.matmul`` at deepseek's 64
+    routed experts: one grouped launch in the forward, none in the
+    backward; output and gradients of x, w (and the shared epilogue's
+    scale and bias) bitwise equal to the same call with the kernel routed
+    to its plain version on the card."""
+    n, m = shape
+    spec = accel.ExecSpec(backend="kernel", ba=4, bx=4)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x0 = torch.randn(64, rows, n, generator=g, device=cuda)
+    w0 = torch.randn(64, n, m, generator=g, device=cuda) * n ** -0.5
+    s0 = torch.rand(m, generator=g, device=cuda) + 0.5
+    b0 = torch.randn(m, generator=g, device=cuda)
+    up = torch.randn(64, rows, m, generator=g, device=cuda)
+
+    def run():
+        ts = [t.clone().requires_grad_() for t in (x0, w0, s0, b0)]
+        epi = (accel.Postreduce(scale=ts[2], bias=ts[3], act=post)
+               if post else None)
+        launches = lambda: getattr(K.cima_mvm_planes, "launches", 0)  # noqa
+        before = launches()
+        y = accel.matmul(ts[0], ts[1], spec, post=epi)
+        torch.cuda.synchronize()
+        fwd = launches() - before
+        (y * up).sum().backward()
+        torch.cuda.synchronize()
+        bwd = launches() - before - fwd
+        return y.detach(), [t.grad for t in ts[:4 if post else 2]], fwd, bwd
+
+    y, grads, fwd, bwd = run()
+    assert (fwd, bwd) == (1, 0)
+    monkeypatch.setattr(K, "cima_mvm_planes", K.cima_mvm_planes_reference)
+    y_plain, grads_plain, _, _ = run()
+    assert torch.equal(y, y_plain)
+    for a, b in zip(grads, grads_plain):
+        assert torch.equal(a, b)
+
+
+def test_sqnr_quality_on_the_kernel_equals_the_plain_route(cuda, monkeypatch):
+    """The tuner's SQNR probes (32 rows x N <= 2,304 x M = 64) on the
+    kernel backend: the same scores as with the kernel routed to its
+    plain version on the card, one launch a probe."""
+    from repro_torch import tune
+
+    policy = accel.PrecisionPolicy.uniform(
+        accel.ExecSpec(backend="kernel", ba=4, bx=4))
+    fps = [accel.ImageFootprint(path=f"p{n}", tag=f"t{n}", kind="mlp", n=n,
+                                m=64) for n in (128, 2048, 2304, 8192)]
+    holder = type("CostModel", (), {"footprints": fps})
+    scores = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(K, "cima_mvm_planes",
+                                K.cima_mvm_planes_reference)
+        for ba in (1, 4, 8):
+            cand = tune.Candidate(policy=tune.space._rescale_policy(
+                policy, ba, ba))
+            before = getattr(K.cima_mvm_planes, "launches", 0)
+            scores[route, ba] = tune.SqnrQuality().score(cand, holder)
+            if route == "kernel":
+                assert K.cima_mvm_planes.launches - before == 3
+    for ba in (1, 4, 8):
+        assert np.isfinite(scores["kernel", ba])
+        assert scores["kernel", ba] == scores["plain", ba]
+
+
 # ------------------------------------------- whisper and early fusion
 
 # whisper-tiny's one short bank (N = 384 of bank_n 2,304) with column

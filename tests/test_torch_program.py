@@ -153,12 +153,39 @@ def test_allocator_first_fit_residency_on_model(ref):
 
 
 def test_mesh_arguments_wait_for_the_multi_device_slice(ref):
-    _, tc = _cfgs(ref, "bpbs")
+    """The allocator's mesh arithmetic is the reference's (placements and
+    summary at 2 x 2 and 1 x 4), while executing a partition waits for
+    the multi-device slice: a program built for a mesh runs whole on one
+    device, its logits bitwise the unpartitioned program's, its records
+    carrying the compiled partition."""
+    jc, tc = _cfgs(ref, "bpbs")
     fps = taccel.model_footprint(ref[3], tc)
-    with pytest.raises(NotImplementedError):
-        taccel.plan_allocation(fps, tc.policy, model_shards=2)
-    with pytest.raises(NotImplementedError):
-        taccel.plan_allocation(fps, tc.policy, data_shards=2)
+    jfps = jaccel.model_footprint(ref[2], jc)
+    for data, model in ((2, 2), (1, 4)):
+        tplan = taccel.plan_allocation(fps, tc.policy, 48,
+                                       model_shards=model, data_shards=data)
+        jplan = jaccel.plan_allocation(jfps, jc.policy, 48,
+                                       model_shards=model, data_shards=data)
+        assert [_placement(p) for p in tplan.values()] == \
+            [_placement(p) for p in jplan.values()]
+        assert {p.partition for p in tplan.values()} == {"col", "row"}
+        assert taccel.build_program(
+            ref[3], tc, capacity_chips=48, model_shards=model,
+            data_shards=data).summary() == jaccel.build_program(
+            ref[2], jc, capacity_chips=48, model_shards=model,
+            data_shards=data).summary()
+    toks = torch.from_numpy(ref[4]).long()
+    flat = taccel.install_program(ref[3], taccel.build_program(ref[3], tc),
+                                  tc)
+    meshed = taccel.install_program(
+        ref[3], taccel.build_program(ref[3], tc, model_shards=4), tc)
+    with torch.inference_mode():
+        want = tforward(flat, toks, tc)[0]
+        with taccel.trace() as records:
+            got = tforward(meshed, toks, tc)[0]
+    assert torch.equal(got, want)
+    assert {(r.devices, r.partition) for r in records} == \
+        {(4, "col"), (4, "row")}
 
 
 def _nudge(params, step: int):
