@@ -104,7 +104,19 @@ into ``build/`` (one ``nvcc`` per source, started together), then
   (``noise_corner``, reported, not gated).  The kernel takes no noise,
   as the Pallas kernel takes none: these paths launch it zero times;
 * runs the paper's figure checks (Figs. 7, 8, 10, 11) on the card
-  (``repro_torch.figures.run``), their CSV rows on earlier lines.
+  (``repro_torch.figures.run``), their CSV rows on earlier lines;
+* serves on a ``data x model`` mesh: holds the kernel to its plain
+  version, bitwise, on olmo-1b's five shapes cut into 2 and 4 column and
+  row tiles at 4 and 128 rows, and the row tiles' partials at whole
+  banks to the whole launch, each tile timed beside its bound
+  (``mesh_shapes``); serves full-width olmo-1b on 1 x 2 and 2 x 2 meshes
+  of gloo ranks sharing the card, each rank running the kernel on its
+  tiles, tokens equal on every rank and to the sharded plain route's,
+  and at whole-bank tiles to the unsharded run's, with ``PagedScheduler``
+  on the 2 x 2 mesh (``serve_mesh``); and serves the reduced tune pick
+  through ``ServeConfig.from_tuned`` on its 2 x 4 mesh, tokens equal to
+  the 1 x 1 route's (``serve_tuned_mesh``).  The ranks are this script
+  run as ``--mesh-worker``; they load the kernels the parent built.
 
 Each phase prints one JSON line.  The card's name and power limit follow
 as ``nvidia-smi`` prints them, then the kernels line, and last
@@ -168,6 +180,7 @@ from repro_torch.train.cifar_qat import fig11_accuracy, qat_update  # noqa: E402
 from repro_torch.train.trainer import CrashInjected, TrainerConfig, train  # noqa: E402
 from repro_torch.tree import leaves, tree_map  # noqa: E402
 from repro_torch import tune  # noqa: E402
+from repro_torch.launch import make_serve_mesh  # noqa: E402
 
 SOURCE = "src/repro_torch/kernels/csrc/cima_mvm.cu"
 REPLACES = "src/repro/kernels/cima_mvm.py:41"
@@ -431,6 +444,12 @@ TUNE_PRICED = 961
 # 590kb arrays of the streaming engine: full-width olmo-1b needs 8,978 at
 # B_A = 4 (512 a layer, 786 for the unembed), so the tail streams
 SERVE_CHIPS = 4096
+# the mesh phases: tile cuts of the main shapes, the serving meshes
+# (data, model) of gloo ranks sharing the card, a rank's time limit
+MESH_SHARDS = (2, 4)
+MESH_ROWS = (4, 128)
+MESH_SERVE = ((1, 2), (2, 2))
+MESH_TIMEOUT = 420
 # ADC noise at the 0.85 V corner.  At fs = 255 (one bank of 255 rows, no
 # adaptive range) the clean ADC is exact and a code moves by
 # e = round(sigma z): P(e = +-1) = erfc(0.5 / (sigma sqrt 2)) = 0.09558,
@@ -3135,6 +3154,22 @@ def run_tune(params, cfg, default, per_fwd: int, beat: bool = True, **kw):
                      chosen_total_chips=res.best_point["total_chips"])
 
 
+def tune_reduced():
+    """``tune.tune`` on reduced olmo-1b with ``benchmarks/accel_bench.py::
+    run_tune``'s arguments on the kernel: (result, figures)."""
+    cfg = get_config("olmo-1b").reduced().with_accel("kernel", ba=4, bx=4)
+    params = init_params(cfg, 0, device="cuda", max_seq=64)
+    res, row = run_tune(params, cfg,
+                        tune.Candidate(policy=cfg.policy,
+                                       capacity_chips=TUNE_CHIPS),
+                        cfg.n_layers * 7 + 1, batch=TUNE_BATCH,
+                        chip_budget=TUNE_BUDGET)
+    check(res.candidates_priced == TUNE_PRICED,
+          f"{res.candidates_priced} candidates priced")
+    check(res.best_point["total_chips"] <= TUNE_BUDGET, "over the budget")
+    return res, row
+
+
 def phase_tune():
     """The design-space tuner on the card: (a) reduced olmo-1b with
     ``benchmarks/accel_bench.py::run_tune``'s arguments on the kernel
@@ -3148,16 +3183,8 @@ def phase_tune():
     bench = json.loads((Path(__file__).resolve().parent
                         / "BENCH_tune.json").read_text())
     launches = 0
-    cfg = get_config("olmo-1b").reduced().with_accel("kernel", ba=4, bx=4)
-    params = init_params(cfg, 0, device="cuda", max_seq=64)
-    res, row = run_tune(params, cfg,
-                        tune.Candidate(policy=cfg.policy,
-                                       capacity_chips=TUNE_CHIPS),
-                        cfg.n_layers * 7 + 1, batch=TUNE_BATCH,
-                        chip_budget=TUNE_BUDGET)
-    check(res.candidates_priced == TUNE_PRICED,
-          f"{res.candidates_priced} candidates priced")
-    check(res.best_point["total_chips"] <= TUNE_BUDGET, "over the budget")
+    res, row = tune_reduced()
+    pick = res.best
     launches += row["launches"]
     emit("tune", part="a", config="olmo-1b reduced", backend="kernel",
          batch=TUNE_BATCH, capacity_chips=TUNE_CHIPS,
@@ -3168,7 +3195,6 @@ def phase_tune():
                                   "draws its own weights and tokens"},
          same_pick_as_bench_tune_json=(
              res.best.label == bench["chosen"]["label"]), **row)
-    del params
 
     cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
     params = init_params(cfg, 0, device="cuda")
@@ -3228,7 +3254,7 @@ def phase_tune():
          prompts=4, new_tokens=8, **agree, **row)
     del engine
     torch.cuda.empty_cache()
-    return launches
+    return launches, pick
 
 
 def phase_noise():
@@ -3448,6 +3474,362 @@ def phase_figures():
          seconds=time.perf_counter() - t0)
 
 
+# ------------------------------------------------------------------ mesh
+
+def tile_operands(qx, qw, part: str, shards: int, k: int):
+    """Rank ``k``'s operands of ``x @ w`` cut ``shards`` ways: the whole
+    input and its columns (``"col"``) or its N range of both (``"row"``)."""
+    n, m = qw.shape
+    if part == "col":
+        return qx, qw[:, k * m // shards:(k + 1) * m // shards]
+    lo, hi = k * n // shards, (k + 1) * n // shards
+    return qx[:, lo:hi], qw[lo:hi]
+
+
+def phase_mesh_shapes(peaks):
+    """The main path's projection shapes cut into per-device tiles
+    (``mesh_shape`` lines): ``"col"`` (M / shards columns) and ``"row"``
+    (N / shards rows) at MESH_SHARDS shards and MESH_ROWS rows.  Every
+    tile's launch bitwise equal to its plain version; at bank_n = 256
+    (whole banks per row tile) the row tiles' integer partials sum to the
+    whole launch; tile 0 timed back to back (``device_ms``, weight copies
+    rotated past the L2) beside its plain version and its bound."""
+    cfg, cfg256 = BpbsConfig(ba=4, bx=4), BpbsConfig(ba=4, bx=4, bank_n=256)
+    rows, tiles = {}, 0
+    for name, n, m, _act, per_fwd in MAIN_SHAPES:
+        for b in MESH_ROWS:
+            g = torch.Generator(device="cuda").manual_seed(n * 7 + m + b)
+            x = torch.randn(b, n, generator=g, device="cuda")
+            w = torch.randn(n, m, generator=g, device="cuda") * n ** -0.5
+            qx = quantize(x, cfg.bx, cfg.coding, per_row=True).q.to(torch.int8)
+            qw = quantize(w, cfg.ba, cfg.coding, axis=1).q
+            del x, w
+            whole256 = K.cima_mvm(qx, qw, cfg256)
+            for part in ("col", "row"):
+                for shards in MESH_SHARDS:
+                    partial = []
+                    for k in range(shards):
+                        xq, wq = tile_operands(qx, qw, part, shards, k)
+                        xs, nu, _ = K.prepare_inputs(xq, cfg)
+                        ws, fs = K.prepare_weights(wq, cfg)
+                        y = K.cima_mvm_planes(xs, ws, nu, fs, cfg)
+                        ref = K.cima_mvm_planes_reference(xs, ws, nu, fs, cfg)
+                        torch.cuda.synchronize()
+                        check(torch.equal(y, ref), f"tile {k} of {name} "
+                              f"{part}/{shards} B={b}: kernel != plain")
+                        tiles += 1
+                        if part == "row":
+                            partial.append(K.cima_mvm(xq, wq, cfg256))
+                        if k:
+                            continue
+                        copies = [ws] + [ws.clone() for _ in range(max(
+                            0, -(-(128 << 20) // ws.numel()) - 1))]
+                        t_kernel = device_ms(lambda i: K.cima_mvm_planes(
+                            xs, copies[i % len(copies)], nu, fs, cfg))
+                        t_plain = median_ms(
+                            lambda i: K.cima_mvm_planes_reference(
+                                xs, copies[i % len(copies)], nu, fs, cfg),
+                            reps=3, warmup=1)
+                        del copies
+                        nl, ml = wq.shape
+                        bms, by, _, _ = bound_ms(b, nl, ml, cfg, False, peaks)
+                    if part == "row":
+                        check(torch.equal(sum(partial), whole256),
+                              f"{name} row/{shards} B={b}: tile partials "
+                              f"at bank_n 256 do not sum to the whole launch")
+                    rows[(name, part, shards, b)] = dict(
+                        ms=t_kernel, plain_ms=t_plain, bound_ms=bms,
+                        bound_by=by)
+                    emit("mesh_shape", name=name, part=part, shards=shards,
+                         b=b, n_tile=nl, m_tile=ml,
+                         launches_per_forward_per_rank=per_fwd,
+                         tiles_bitwise_to_plain=shards,
+                         row_partials_sum_to_whole_at_bank_256=(
+                             part == "row"),
+                         kernel_ms=t_kernel, plain_ms=t_plain, bound_ms=bms,
+                         bound_by=by, times_bound=t_kernel / bms)
+            del qx, qw, whole256
+            torch.cuda.empty_cache()
+    return 0.0, rows
+
+
+def spawn_mesh(kind: str, data: int, model: int, args: dict) -> list:
+    """``kind``'s worker on ``data * model`` ranks, each a process of this
+    script (``--mesh-worker``) on the one card, joined by gloo through a
+    ``file://`` rendezvous; returns each rank's results.  A rank that
+    fails or outlives MESH_TIMEOUT fails the phase."""
+    world = data * model
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    torch.save(args, tmp / "args.pt")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+         kind, str(tmp), str(r), str(world), str(data), str(model)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        deadline = time.perf_counter() + MESH_TIMEOUT
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))[0])
+    except subprocess.TimeoutExpired:
+        fail(f"{kind} on {data}x{model}: a rank ran past {MESH_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            print(out[-4000:], file=sys.stderr, flush=True)
+            fail(f"{kind} on {data}x{model}: rank {r} exited {p.returncode}")
+    res = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+           for r in range(world)]
+    for f in tmp.iterdir():
+        f.unlink()
+    tmp.rmdir()
+    return res
+
+
+def serve_prompts(vocab: int, batch: int = 4, prompt: int = 32):
+    g = torch.Generator(device="cuda").manual_seed(1)
+    return torch.randint(0, vocab, (batch, prompt), generator=g,
+                         device="cuda")
+
+
+def phase_serve_mesh() -> tuple:
+    """Full-width olmo-1b through the kernel on a 1 x 2 and a 2 x 2 mesh
+    of gloo ranks sharing the card (``serve_mesh``): each rank's tiles,
+    ``Engine.generate`` of 4 prompts x 32 tokens with 16 new, every rank's
+    tokens equal, and equal to the sharded plain route's (the kernel
+    routed to its plain version); at bank_n = 256 (whole banks per row
+    tile) tokens equal to the unsharded kernel route's and prefill logits
+    within FUSED_TOL; ``digital_int`` prefill logits bitwise unsharded;
+    agreement with the unsharded default-bank run reported.  Per rank:
+    launches a forward, decode ms a step, collectives and bytes a step,
+    tile bytes, peak memory.  On 2 x 2, ``PagedScheduler`` on the batcher
+    trace at bank_n = 256: streams equal the unsharded batcher's.  Returns
+    (launches of the ranks' main paths, each mesh's median decode ms)."""
+    cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
+    scfg = ServeConfig(max_new_tokens=16, **PAGED)
+    cb = ContinuousBatcher(init_params(cfg, 0, device="cuda"), cfg, scfg,
+                           BATCH_SLOTS, device="cuda")
+    engine = cb.engine
+    prompts = serve_prompts(cfg.vocab)
+    want = {"tokens": engine.generate(prompts)}
+    with accel.override(bank_n=256):
+        want["tokens_256"] = engine.generate(prompts)
+        want["logits_256"] = engine.prefill(prompts)[0]
+    with accel.override(backend="digital_int"):
+        want["logits_digital_int"] = engine.prefill(prompts)[0]
+    want["logits"] = engine.prefill(prompts)[0]
+    reqs = batcher_requests(cfg)
+    with accel.override(bank_n=256):
+        want["streams"], _, _ = drive(cb, reqs)
+    whole_bytes = image_bytes(engine)
+    torch.cuda.empty_cache()
+    launches, step = 0, {}
+    for data, model in MESH_SERVE:
+        paged = (data, model) == (2, 2)
+        t0 = time.perf_counter()
+        res = spawn_mesh("serve", data, model, dict(
+            prompts=prompts.cpu(), reqs=reqs if paged else None))
+        seconds = time.perf_counter() - t0
+        ranks = []
+        for r, got in enumerate(res):
+            what = f"serve_mesh {data}x{model} rank {r}"
+            check(np.array_equal(got["tokens"], res[0]["tokens"]),
+                  f"{what}: tokens differ from rank 0's")
+            check(np.array_equal(got["tokens"], got["tokens_plain"]),
+                  f"{what}: tokens differ from the sharded plain route's")
+            check(np.array_equal(got["tokens_256"], want["tokens_256"]),
+                  f"{what}: bank_n 256 tokens differ from unsharded")
+            check(torch.allclose(got["logits_256"].cuda(),
+                                 want["logits_256"], **FUSED_TOL),
+                  f"{what}: bank_n 256 logits differ from unsharded")
+            check(torch.equal(got["logits_digital_int"].cuda(),
+                              want["logits_digital_int"]),
+                  f"{what}: digital_int logits differ from unsharded")
+            check(got["launches"] == LAUNCHES_PER_FORWARD * 16,
+                  f"{what}: {got['launches']} launches in 16 forwards")
+            launches += got["launches"]
+            if paged:
+                check(got["paged"]["cima_mvm_launches"] > 0,
+                      f"{what}: paged run launched nothing")
+                launches += got["paged"]["cima_mvm_launches"]
+                with accel.override(bank_n=256):
+                    same = same_streams(engine, reqs, want["streams"],
+                                        got["streams"], what, True)
+                got["paged"].update(same)
+            ranks.append(dict(
+                rank=r, coords=got["coords"],
+                launches_generate=got["launches"],
+                launches_per_forward=got["launches"] // 16,
+                decode_ms_per_step=got["decode_ms"],
+                decode_launches_per_step=got["decode_launches"],
+                collectives_per_step=got["decode_collectives"],
+                collective_bytes_per_step=got["decode_bytes"],
+                collectives_generate=got["collectives"],
+                tile_bytes=got["image_bytes"],
+                tile_bytes_over_whole=got["image_bytes"] / whole_bytes,
+                max_memory_allocated_bytes=got["peak_bytes"],
+                generate_s=got["generate_s"], paged=got.get("paged")))
+        agree = greedy_agreement(res[0]["tokens"], want["tokens"])
+        step[(data, model)] = statistics.median(
+            x["decode_ms_per_step"] for x in ranks)
+        emit("serve_mesh", config="olmo-1b", layers=cfg.n_layers,
+             mesh={"data": data, "model": model}, backend="gloo",
+             device="cuda:0 shared by every rank", prompts=4, prompt=32,
+             new_tokens=16, phase_s=seconds, whole_image_bytes=whole_bytes,
+             tokens_equal_plain_route=True, bank_256_tokens_equal=True,
+             bank_256_logits_max_abs_diff=max(
+                 float((g["logits_256"].cuda() - want["logits_256"])
+                       .abs().max()) for g in res),
+             digital_int_logits_bitwise=True,
+             default_bank_tokens_agree_with_unsharded=agree,
+             default_bank_logits_max_abs_diff=float(
+                 (res[0]["logits"].cuda() - want["logits"]).abs().max()),
+             logits_max_abs=float(want["logits"].abs().max()),
+             tokens_total=int(want["tokens"].size), ranks=ranks)
+    del cb, engine
+    torch.cuda.empty_cache()
+    return launches, step
+
+
+def phase_serve_tuned_mesh(tuned) -> int:
+    """``ServeConfig.from_tuned`` on the tune phase's pick for reduced
+    olmo-1b (``tune`` part a) on its data x model mesh of gloo ranks
+    sharing the card (``serve_tuned_mesh``): every rank's tokens equal
+    the 1 x 1 route's (the same tuned config served unsharded)."""
+    world = tuned.data_shards * tuned.model_shards
+    check(world > 1, f"the reduced pick {tuned.label} is 1 x 1")
+    cfg = tuned.apply_model(get_config("olmo-1b").reduced().with_accel(
+        "kernel", ba=4, bx=4))
+    params = init_params(cfg, 0, device="cuda", max_seq=64)
+    prompts = serve_prompts(cfg.vocab, prompt=16)
+    flat = ServeConfig(max_seq=64, max_new_tokens=8,
+                       cima_chips=tuned.capacity_chips,
+                       stream_double_buffer=tuned.double_buffer)
+    want = Engine(params, cfg, flat, device="cuda").generate(prompts)
+    t0 = time.perf_counter()
+    res = spawn_mesh("tuned", tuned.data_shards, tuned.model_shards, dict(
+        tuned=tuned, cfg=cfg, params=tree_map(lambda t: t.cpu(), params),
+        prompts=prompts.cpu()))
+    seconds = time.perf_counter() - t0
+    per_fwd = cfg.n_layers * 7 + 1
+    for r, got in enumerate(res):
+        check(np.array_equal(got["tokens"], want),
+              f"serve_tuned_mesh rank {r}: tokens differ from 1 x 1")
+        check(got["launches"] == per_fwd * 8,
+              f"serve_tuned_mesh rank {r}: {got['launches']} launches")
+    emit("serve_tuned_mesh", config="olmo-1b reduced", tuned=tuned.label,
+         mesh={"data": tuned.data_shards, "model": tuned.model_shards},
+         backend="gloo", ranks=world, prompts=4, prompt=16, new_tokens=8,
+         tokens_equal_1x1=True, launches_per_rank=res[0]["launches"],
+         collectives_per_rank=res[0]["collectives"],
+         partitions=res[0]["partitions"], phase_s=seconds)
+    return sum(got["launches"] for got in res)
+
+
+def worker_serve(mesh, args) -> dict:
+    """One rank of ``serve_mesh``."""
+    cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
+    scfg = ServeConfig(max_new_tokens=16, mesh=mesh, **PAGED)
+    params = init_params(cfg, 0, device="cuda")
+    if args["reqs"] is not None:
+        server = PagedScheduler(params, cfg, scfg, BATCH_SLOTS)
+        engine = server.engine
+    else:
+        engine = Engine(params, cfg, scfg)
+    del params
+    torch.cuda.empty_cache()
+    prompts = args["prompts"].to("cuda")
+    out = dict(coords=mesh.coords, image_bytes=image_bytes(engine))
+
+    # the main path: counts at 0 just before, read just after
+    K.cima_mvm_planes.launches = 0
+    c0 = mesh.stats["collectives"]
+    t0 = time.perf_counter()
+    out["tokens"] = engine.generate(prompts)
+    out["generate_s"] = time.perf_counter() - t0
+    out["launches"] = K.cima_mvm_planes.launches
+    out["collectives"] = mesh.stats["collectives"] - c0
+    out["logits"] = engine.prefill(prompts)[0].cpu()
+
+    with routed_launches(K.cima_mvm_planes_reference, keep=False):
+        out["tokens_plain"] = engine.generate(prompts)
+    with accel.override(bank_n=256):
+        out["tokens_256"] = engine.generate(prompts)
+        out["logits_256"] = engine.prefill(prompts)[0].cpu()
+    with accel.override(backend="digital_int"):
+        out["logits_digital_int"] = engine.prefill(prompts)[0].cpu()
+
+    # decode steps on this data shard's rows, timed and counted
+    rows = engine.data_rows(prompts.shape[0])
+    with engine.local_rows(rows):
+        logits, cache = engine.prefill(
+            prompts if rows is None else prompts[rows])
+        tok = torch.argmax(logits, -1)
+        times, counts = [], []
+        for _ in range(8):
+            K.cima_mvm_planes.launches = 0
+            s0 = dict(mesh.stats)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = engine.decode(tok, cache)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts.append((K.cima_mvm_planes.launches,
+                           mesh.stats["collectives"] - s0["collectives"],
+                           mesh.stats["bytes"] - s0["bytes"]))
+            tok = torch.argmax(logits, -1)
+    out["decode_ms"] = statistics.median(times) * 1e3
+    out["decode_launches"], out["decode_collectives"], out["decode_bytes"] = \
+        counts[-1]
+    if args["reqs"] is not None:
+        rids = [server.submit(p, max_new_tokens=m) for p, m in args["reqs"]]
+        K.cima_mvm_planes.launches = 0
+        t0 = time.perf_counter()
+        with accel.override(bank_n=256):       # whole banks per row tile
+            results = server.run()
+        out["paged"] = dict(seconds=time.perf_counter() - t0,
+                            cima_mvm_launches=K.cima_mvm_planes.launches,
+                            **server.stats)
+        out["streams"] = [results[r] for r in rids]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def worker_tuned(mesh, args) -> dict:
+    """One rank of ``serve_tuned_mesh``."""
+    scfg = ServeConfig.from_tuned(args["tuned"], mesh=mesh, max_seq=64,
+                                  max_new_tokens=8)
+    engine = Engine(args["params"], args["cfg"], scfg)
+    K.cima_mvm_planes.launches = 0
+    c0 = mesh.stats["collectives"]
+    tokens = engine.generate(args["prompts"].to("cuda"))
+    return dict(tokens=tokens, launches=K.cima_mvm_planes.launches,
+                collectives=mesh.stats["collectives"] - c0,
+                partitions=sorted({f"{i.tag}:{i.partition}"
+                                   for i in engine.program.images.values()}))
+
+
+def mesh_worker(argv) -> None:
+    """``--mesh-worker <kind> <dir> <rank> <world> <data> <model>``: one
+    rank of a mesh phase, on the card its parent uses."""
+    kind, tmp, rank, world, data, model = argv
+    tmp = Path(tmp)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_serve_mesh(int(data), int(model), backend="gloo",
+                           device="cuda:0",
+                           init_method=f"file://{tmp / 'store'}",
+                           rank=int(rank), world_size=int(world))
+    args = torch.load(tmp / "args.pt", weights_only=False)
+    out = {"serve": worker_serve, "tuned": worker_tuned}[kind](mesh, args)
+    torch.save(out, tmp / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3479,7 +3861,10 @@ def main():
     lm_launches = phase_train_lm()
     trainer_launches = phase_trainer_resume()
     moe_train_launches = phase_train_moe()
-    tune_launches = phase_tune()
+    tune_launches, tuned = phase_tune()
+    mesh_err, mesh_rows = phase_mesh_shapes(peaks)
+    mesh_launches, mesh_step = phase_serve_mesh()
+    tuned_mesh_launches = phase_serve_tuned_mesh(tuned)
     phase_noise()
     phase_noise_qat()
     phase_noise_corner()
@@ -3505,9 +3890,10 @@ def main():
                      + rec_batcher_launches + dense_launches + ds_launches
                      + ds_batcher_launches + wh_launches + fr_launches
                      + paged_launches + paged_archs_launches
-                     + moe_train_launches + tune_launches),
+                     + moe_train_launches + tune_launches
+                     + mesh_launches + tuned_mesh_launches),
         "max_abs_err": max(err_cases, err_main, cifar_err, rec_err, moe_err,
-                           fr_err),
+                           fr_err, mesh_err),
         "ms": step["ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step_bound_by,
         "library_ms": None,
@@ -3541,8 +3927,17 @@ def main():
                "traced decode steps of reduced and full-width olmo-1b "
                "(29 and 113) with their SQNR probes (one launch each) "
                "and the tuned 1 x 1 point served for 8 forwards; "
-               "the noisy paths (noise, noise_qat, noise_corner) run bpbs "
+               "serve_mesh's ranks (full-width olmo-1b on 1 x 2 and 2 x 2 "
+               "gloo meshes sharing the card: each rank's 16-forward "
+               "generate, 113 tile launches a forward, and the 2 x 2 "
+               "ranks' PagedScheduler runs) and serve_tuned_mesh's ranks "
+               "(reduced olmo-1b on the tuned pick's mesh, 29 a forward, "
+               "8 forwards); the noisy paths (noise, noise_qat, noise_corner) run bpbs "
                "and launch it 0 times",
+        "mesh_decode_step_ms": {f"{d}x{m}": v
+                                for (d, m), v in mesh_step.items()},
+        "mesh_tiles_b4": [dict(name=k[0], part=k[1], shards=k[2], **v)
+                          for k, v in mesh_rows.items() if k[3] == 4],
         "recurrent_decode_step_ms": {m: v["ms"] for m, v in rec_step.items()},
         "recurrent_decode_step_plain_ms": {m: v["plain_ms"]
                                            for m, v in rec_step.items()},
@@ -3582,4 +3977,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(sys.argv[2:])
+    else:
+        main()

@@ -10,6 +10,10 @@
   :func:`adc_noise`, :func:`pad_positions`, and :func:`energy_summary`,
   the chip cost model of a trace.
 * :mod:`.dispatch` — :func:`matmul`, the single entry point.
+* :mod:`.shard` — mesh execution: a partitioned image (column-parallel
+  along M, row-parallel along N with an all-reduce after the ADC
+  epilogue) runs as one tile per rank; dispatch engages it when the
+  ambient mesh matches the image's compiled partition.
 * :mod:`.program` — weight-stationary :class:`CimaImage` programs, the
   first-fit bank allocator (:func:`plan_allocation`) with streaming, and
   :class:`ProgramManager`.

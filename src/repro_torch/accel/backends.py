@@ -171,6 +171,25 @@ def kernel(x, w, spec: ExecSpec, ctx: ExecContext) -> torch.Tensor:
 kernel.grouped = True
 
 
+def kernel_from_planes(qx: QTensor, ws: torch.Tensor, w_scale: torch.Tensor,
+                       spec: ExecSpec, post=None) -> torch.Tensor:
+    """The kernel backend's 2-D call on compiled planes ``ws`` [N, B_A, M]
+    with the input already on its grid (the sharded column tiles call it
+    on their own tile).  A per-column ``post`` fuses into the kernel's
+    datapath epilogue, the quantization rescale folded into the scale
+    registers; any other runs after the rescale."""
+    if post is not None and _kernel_fusable(post, int(ws.shape[-1])):
+        escale = qx.scale * (w_scale.reshape(-1) if spec.per_channel
+                             else w_scale)
+        if post.scale is not None:
+            escale = escale * post.scale
+        return kernel_ops.cima_mvm_from_planes(
+            qx.q, ws, spec.bpbs(), escale=escale, pbias=post.bias,
+            act=post.act, by_bits=post.resolve_bits(spec.bx, spec.ba))
+    y_int = kernel_ops.cima_mvm_from_planes(qx.q, ws, spec.bpbs())
+    return apply_post(rescale(y_int, qx.scale, w_scale, spec), post, spec)
+
+
 def _kernel(x, w, spec: ExecSpec, ctx: ExecContext, groups: int):
     """The kernel backend on a 2-D call, or on ``groups`` groups (``x``
     [G, R, N]), each with its own input and weight scales: per-group
@@ -181,6 +200,8 @@ def _kernel(x, w, spec: ExecSpec, ctx: ExecContext, groups: int):
     else:
         qx = quantize_input(x, spec)
     img = ctx.image
+    if img is not None and not groups:
+        return kernel_from_planes(qx, img.ws, img.scale, spec, ctx.post)
     if img is not None:
         ws_planes, w_scale = img.ws, img.scale
     elif groups:

@@ -105,10 +105,16 @@ def _record_mvm(spec: ExecSpec, x: torch.Tensor, w: torch.Tensor,
     # checked against the innermost trace before this record lands
     prologue = 1 if (overlap and not streamed_load_seen()) else 0
     skipped, total = (None, None) if grouped else _measured_planes(spec, x)
+    calls = int(math.prod(x.shape[int(grouped):-1]))
+    from repro_torch.distributed.autoshard import in_manual, mesh_axis_size
+
+    if in_manual("data"):
+        # the data shards' rows together: the record stays logical
+        calls *= mesh_axis_size("data")
     record(MvmRecord(
         tag=spec.tag, backend=spec.backend,
         n=int(w.shape[-2]), m=int(w.shape[-1]), ba=spec.ba, bx=spec.bx,
-        calls=int(math.prod(x.shape[int(grouped):-1])),
+        calls=calls,
         program=image is not None,
         loads=1 if streamed else 0,
         load_segments=image.segments if streamed else 0,
@@ -122,6 +128,37 @@ def _record_mvm(spec: ExecSpec, x: torch.Tensor, w: torch.Tensor,
         sparsity=None if grouped else _measured_sparsity(spec, x),
         planes_skipped=skipped,
         planes_total=total))
+
+
+def _shard_mesh(image):
+    """The ambient mesh, iff it matches the image's compiled partition
+    and its model axis is not already manual.  An image that holds one
+    tile cannot run without its mesh."""
+    if image is None or image.partition is None or image.devices <= 1:
+        return None
+    from repro_torch.distributed.autoshard import get_mesh, in_manual
+
+    mesh = get_mesh()
+    if mesh is None or in_manual("model") \
+            or "model" not in mesh.axis_names \
+            or int(dict(mesh.shape)["model"]) != image.devices:
+        mesh = None
+    if mesh is None and image.tile is not None:
+        raise RuntimeError(
+            f"image {image.path!r} holds tile {image.tile} of "
+            f"{image.devices}: run it under its mesh (distributed.use_mesh, "
+            f"as the serving engine does)")
+    return mesh
+
+
+def _sharded(image, mesh):
+    """A backend-shaped call of the mesh-partitioned program path."""
+    from .shard import sharded_program_matmul
+
+    def fn(x, w, spec, ctx):
+        return sharded_program_matmul(x, spec, image, mesh,
+                                      generator=ctx.generator, post=ctx.post)
+    return fn
 
 
 def _run(fn, x, w, spec: ExecSpec, ctx: ExecContext) -> torch.Tensor:
@@ -190,6 +227,10 @@ def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
       autograd records the call, the backend runs without it and
       ``post.apply`` follows under autograd (STE through the matmul, the
       true gradient through the epilogue and its registers).
+    * A partitioned ``image`` under a matching ambient mesh
+      (:func:`~repro_torch.distributed.autoshard.use_mesh`) runs as this
+      rank's tile (:mod:`repro_torch.accel.shard`); the one record is
+      logical, written before the sharded body.
     * Grouped: ``w`` [G, N, M] and ``x`` [G, ..., N] (``image`` stacked
       [G, ...], ``post`` shared by the groups) -> [G, ..., M], equal to a
       loop of 2-D calls over the groups.  A digital spec differentiates
@@ -210,8 +251,11 @@ def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
 
     if image is not None and not image_matches(image, spec, w):
         image = None
+    mesh = _shard_mesh(image)
     _record_mvm(spec, x, w, image, post)
-    fn = get_backend(spec.backend)
+    # a partitioned image on its mesh runs as this rank's tile
+    fn = (_sharded(image, mesh) if mesh is not None
+          else get_backend(spec.backend))
     if ctx is None:
         ctx = ExecContext(generator=next_noise_generator(x.device))
     if image is not None:

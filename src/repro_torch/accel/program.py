@@ -31,11 +31,12 @@ accounting only: the arithmetic is the resident program's.
 ``model_shards``/``data_shards`` give the allocator the reference's
 ``data x model`` mesh arithmetic (:func:`partition_for`): a partitioned
 image's tiles and segments are per-device shard sizes and residency is
-decided against the per-device budget, while its stored planes stay the
-full logical arrays.  Only the accounting and the image's metadata
-change: dispatch runs the whole image on one device, as the reference
-does without a mesh (executing a partition is the port's multi-device
-slice).
+decided against the per-device budget.  With a ``mesh``
+(:class:`~repro_torch.launch.mesh.ServeMesh`) each rank compiles only its
+own tile of every partitioned image (``CimaImage.tile``): the planes,
+grid and per-column scale of its ``n / devices`` rows (``"row"``) or
+``m / devices`` columns (``"col"``), the same bits as slicing the whole
+image, and dispatch runs it through :mod:`repro_torch.accel.shard`.
 """
 from __future__ import annotations
 
@@ -88,6 +89,9 @@ class CimaImage:
     partition: Optional[str] = None
     devices: int = 1
     data_shards: int = 1
+    # the model-axis index of the tile the arrays hold (None: the whole
+    # image); ``n``/``m`` stay the logical sizes
+    tile: Optional[int] = None
 
     def layer(self, i: int) -> "CimaImage":
         """The image of index ``i`` on the leading stacked axis (one
@@ -178,37 +182,61 @@ def _int8_planes(q: torch.Tensor, cfg) -> torch.Tensor:
     return out
 
 
+def tile_bounds(size: int, devices: int, tile: int) -> tuple:
+    """``(start, stop)`` of tile ``tile`` of ``size`` split ``devices``
+    ways."""
+    step = size // devices
+    return tile * step, (tile + 1) * step
+
+
 def _compile_image(w: torch.Tensor, spec, path: str, shards: int = 1,
-                   partition: Optional[str] = None) -> CimaImage:
+                   partition: Optional[str] = None,
+                   tile: Optional[int] = None) -> CimaImage:
     """Quantize + decompose one (possibly stacked) projection exactly as
     the on-the-fly backends do per call, one copy at a time, each written
     into its slot of the preallocated stacked image (a MoE stack of
     7 x 64 experts would hold its planes twice over if they were stacked
-    from a list).  ``partition``/``shards`` change only the accounting
-    (tiles and segments of one device's shard) and the metadata: the
-    planes are the full logical arrays."""
+    from a list).  ``partition``/``shards`` set the accounting (tiles and
+    segments of one device's shard) and the metadata; ``tile`` keeps
+    only that model-axis tile of a partitioned image: each copy is
+    quantized whole (a per-tensor scale sees every element) and its
+    tile's rows or columns decomposed."""
     lead = tuple(w.shape[:-2])
     n, m = int(w.shape[-2]), int(w.shape[-1])
     cfg = spec.bpbs()
     flat = w.reshape((-1, n, m))
     copies = flat.shape[0]
-    ws = torch.empty((copies, n, cfg.ba, m), dtype=torch.int8,
+    devices = shards if partition in ("col", "row") else 1
+    n_loc = n // devices if partition == "row" else n
+    m_loc = m // devices if partition == "col" else m
+    if devices == 1:
+        tile = None
+    rows, cols = slice(0, n), slice(0, m)
+    if tile is not None:
+        if partition == "row":
+            rows = slice(*tile_bounds(n, devices, tile))
+        else:
+            cols = slice(*tile_bounds(m, devices, tile))
+    ws = torch.empty((copies, rows.stop - rows.start, cfg.ba,
+                      cols.stop - cols.start), dtype=torch.int8,
                      device=w.device)
-    wq = torch.empty((copies, n, m), dtype=torch.int16, device=w.device)
+    wq = torch.empty(ws.shape[:2] + ws.shape[3:], dtype=torch.int16,
+                     device=w.device)
     scales = []
     for i, wi in enumerate(flat):
         qw = quantize(wi.to(torch.float32), spec.ba, spec.coding,
                       axis=1 if spec.per_channel else None)
-        ws[i] = _int8_planes(qw.q, cfg)
-        wq[i] = qw.q
-        scales.append(qw.scale)
+        q = qw.q[rows, cols]
+        ws[i] = _int8_planes(q, cfg)
+        wq[i] = q
+        scale = qw.scale
+        if spec.per_channel and partition == "col":
+            scale = scale[..., cols]
+        scales.append(scale)
     scale = torch.stack(scales)
     ws = ws.reshape(lead + ws.shape[1:])
     wq = wq.reshape(lead + wq.shape[1:])
     scale = scale.reshape(lead + scale.shape[1:])
-    devices = shards if partition in ("col", "row") else 1
-    n_loc = n // devices if partition == "row" else n
-    m_loc = m // devices if partition == "col" else m
     return CimaImage(ws=ws, wq=wq, scale=scale, path=path,
                      tag=spec.tag, ba=spec.ba, coding=Coding(spec.coding),
                      per_channel=spec.per_channel, n=n, m=m,
@@ -216,7 +244,19 @@ def _compile_image(w: torch.Tensor, spec, path: str, shards: int = 1,
                      tiles=image_tiles(n_loc, m_loc, spec.ba),
                      segments=image_segments(n_loc, m_loc, spec.ba),
                      partition=partition if devices > 1 else None,
-                     devices=devices)
+                     devices=devices, tile=tile)
+
+
+def stored_shape(img: CimaImage, w_shape) -> tuple:
+    """The ``ws`` shape ``img`` stores for a weight of ``w_shape``: a
+    tile's partitioned dim is the logical one over the devices."""
+    n, m = int(w_shape[-2]), int(w_shape[-1])
+    if img.tile is not None:
+        if img.partition == "row":
+            n //= img.devices
+        else:
+            m //= img.devices
+    return tuple(w_shape[:-2]) + (n, img.ba, m)
 
 
 def image_matches(img: Optional[CimaImage], spec, w: torch.Tensor) -> bool:
@@ -230,8 +270,7 @@ def image_matches(img: Optional[CimaImage], spec, w: torch.Tensor) -> bool:
         and img.ba == spec.ba
         and Coding(img.coding) == Coding(spec.coding)
         and img.per_channel == spec.per_channel
-        and tuple(img.ws.shape) == (tuple(w.shape[:-1]) + (spec.ba,)
-                                    + tuple(w.shape[-1:]))
+        and tuple(img.ws.shape) == stored_shape(img, w.shape)
     )
 
 
@@ -486,18 +525,27 @@ class CimaProgram:
 
 
 def build_program(params, cfg, capacity_chips: Optional[int] = None,
-                  version: int = 0, model_shards: int = 1,
-                  data_shards: int = 1, double_buffer: bool = True
-                  ) -> CimaProgram:
+                  version: int = 0, mesh=None,
+                  model_shards: Optional[int] = None,
+                  data_shards: Optional[int] = None,
+                  double_buffer: bool = True) -> CimaProgram:
     """Compile every policy-managed projection routed to a program backend
     into a :class:`CimaImage` (digital projections are never compiled),
     placed by :func:`plan_allocation` on ``capacity_chips`` 590kb arrays
-    per device (None = all resident), partitioned over ``model_shards``
-    devices and replicated over ``data_shards`` (accounting and
-    metadata).  Streamed images are reloaded every pass, double-buffered
-    unless ``double_buffer=False``: accounting only, the numerics are
-    the resident program's."""
-    shards, data = int(model_shards), int(data_shards)
+    per device (None = all resident), partitioned over the ``"model"``
+    axis and replicated over ``"data"``.  With ``mesh`` the axis sizes
+    are the mesh's and this rank keeps only its tile of each partitioned
+    image; explicit ``model_shards``/``data_shards`` without a mesh set
+    the accounting and metadata only (whole images).  Streamed images
+    are reloaded every pass, double-buffered unless
+    ``double_buffer=False``: accounting only, the numerics are the
+    resident program's."""
+    shape = dict(mesh.shape) if mesh is not None else {}
+    shards = int(model_shards if model_shards is not None
+                 else shape.get("model", 1))
+    data = int(data_shards if data_shards is not None
+               else shape.get("data", 1))
+    tile = mesh.index("model") if mesh is not None else None
     plan = plan_allocation(model_footprint(params, cfg), cfg.policy,
                            capacity_chips=capacity_chips,
                            model_shards=shards, data_shards=data,
@@ -511,7 +559,8 @@ def build_program(params, cfg, capacity_chips: Optional[int] = None,
         if shards > 1 and sharding_excluded(tag):
             excluded.append(tag)
         img = _compile_image(w, pl.spec, _path_str(path, key),
-                             shards=shards, partition=pl.partition)
+                             shards=shards, partition=pl.partition,
+                             tile=tile)
         if data > 1:
             img = dataclasses.replace(img, data_shards=data)
         if not pl.resident:
@@ -580,9 +629,14 @@ class ProgramManager:
     weight snapshot)."""
 
     def __init__(self, cfg, capacity_chips: Optional[int] = None,
+                 mesh=None, model_shards: Optional[int] = None,
+                 data_shards: Optional[int] = None,
                  double_buffer: bool = True):
         self.cfg = cfg
         self.capacity_chips = capacity_chips
+        self.mesh = mesh
+        self.model_shards = model_shards
+        self.data_shards = data_shards
         self.double_buffer = double_buffer
         self._program: Optional[CimaProgram] = None
         self._dirty = True
@@ -600,6 +654,9 @@ class ProgramManager:
             self.version += 1
             self._program = build_program(
                 params, self.cfg, capacity_chips=self.capacity_chips,
-                version=self.version, double_buffer=self.double_buffer)
+                version=self.version, mesh=self.mesh,
+                model_shards=self.model_shards,
+                data_shards=self.data_shards,
+                double_buffer=self.double_buffer)
             self._dirty = False
         return self._program

@@ -1,0 +1,337 @@
+"""Divisibility-aware sharding rules (DP / FSDP / TP / EP).  Port of
+``repro.distributed.sharding``.
+
+Every rule is a *candidate list* per tensor dimension; an axis is
+assigned only when the dimension is divisible by it and the axis is not
+already used on another dimension of the same tensor.  A spec is a tuple
+with one entry per leading dimension: an axis name, a tuple of axis
+names or None (replicated), trailing Nones dropped, the analogue of the
+reference's ``PartitionSpec`` (``tuple(P(...))`` is the same tuple).
+:func:`local_slice` cuts a rank's part of a tensor under its spec.
+
+Layout conventions (DESIGN.md §6):
+
+* batch           -> ("pod", "data")   pure DP
+* weight matrices -> 2-D: TP ("model") on the parallel dim, FSDP
+                     ("data") on the other
+* experts         -> EP: expert dim on "model", then FSDP on d_model
+* caches          -> batch on the DP axes + the largest divisible dim on
+                     "model"
+
+The serving engine applies the image rules (each rank compiles only its
+tile) and the ``"data"`` entries of the cache rules (each data shard
+holds its batch rows); activations, and so the weights and caches
+outside the images, stay whole on the model axis in the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Any, NamedTuple, Optional, Sequence
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPolicy:
+    """Distribution policy, carried explicitly through configs.
+
+    ``mode``: ``"2d"`` (TP on "model" + FSDP/DP on "data") or ``"fsdp"``
+    (no tensor parallelism: batch over all axes, parameters ZeRO-3 over
+    ("data", "model")).  ``data_shards`` declares the intended size of
+    the mesh's ``"data"`` axis for serving; the engine validates it
+    against the actual mesh."""
+
+    mode: str = "2d"
+    data_shards: int = 1
+
+    def __post_init__(self):
+        if self.mode not in ("2d", "fsdp"):
+            raise ValueError(f"ShardPolicy mode must be '2d' or 'fsdp', "
+                             f"got {self.mode!r}")
+        if int(self.data_shards) < 1:
+            raise ValueError(f"ShardPolicy data_shards must be >= 1, "
+                             f"got {self.data_shards!r}")
+
+    @property
+    def is_fsdp(self) -> bool:
+        return self.mode == "fsdp"
+
+    def dp_axes(self, mesh):
+        if self.is_fsdp:
+            return tuple(a for a in ("pod", "data", "model")
+                         if a in mesh.axis_names)
+        return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+    def fsdp_axes(self, mesh):
+        if self.is_fsdp:
+            return tuple(a for a in ("data", "model")
+                         if a in mesh.axis_names)
+        return tuple(a for a in ("data",) if a in mesh.axis_names)
+
+
+# the policy used when a caller passes none (immutable: no global setter)
+DEFAULT_POLICY = ShardPolicy("2d")
+
+
+def resolve_policy(policy: Optional[ShardPolicy]) -> ShardPolicy:
+    return DEFAULT_POLICY if policy is None else policy
+
+
+def axis_size(mesh, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    shape = dict(mesh.shape)
+    return int(math.prod(shape[a] for a in axes))
+
+
+def dp_axes(mesh, policy: Optional[ShardPolicy] = None):
+    return resolve_policy(policy).dp_axes(mesh)
+
+
+def fsdp_axes(mesh, policy: Optional[ShardPolicy] = None):
+    return resolve_policy(policy).fsdp_axes(mesh)
+
+
+def _strip(spec: list) -> tuple:
+    while spec and spec[-1] is None:
+        spec.pop()
+    return tuple(spec)
+
+
+def pick_spec(shape: Sequence[int], mesh,
+              candidates: Sequence[Sequence[Any]]) -> tuple:
+    """For each dim, the first candidate axis (or axis tuple) that divides
+    the dim and whose axes are still unused on this tensor."""
+    used: set = set()
+    out = []
+    for dim, cands in zip(shape, candidates):
+        chosen = None
+        for cand in cands:
+            if cand is None:
+                break
+            axes = (cand,) if isinstance(cand, str) else tuple(cand)
+            if any(a in used or a not in mesh.axis_names for a in axes):
+                continue
+            size = axis_size(mesh, axes)
+            if dim % size == 0 and size > 1:
+                chosen = axes if len(axes) > 1 else axes[0]
+                used.update(axes)
+                break
+        out.append(chosen)
+    out += [None] * (len(shape) - len(out))
+    return _strip(out)
+
+
+def local_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's part of ``t`` under ``spec`` (a view): each sharded dim
+    cut into its axes' size, the rank's block by its mesh coordinates
+    (row-major over an axis tuple)."""
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        idx = 0
+        for a in axes:
+            idx = idx * int(dict(mesh.shape)[a]) + mesh.index(a)
+        size = t.shape[dim] // axis_size(mesh, axes)
+        t = t.narrow(dim, idx * size, size)
+    return t
+
+
+# ------------------------------------------------------------- parameters
+
+_ROW_PARALLEL_PARENTS = ("down", "wo", "out", "out_proj", "w_ukv")
+
+
+def _param_rule(path: str, shape, policy: ShardPolicy) -> list:
+    """Candidate lists for the trailing dims; leading (stacked) dims get
+    none.  Returns the full candidate list, aligned right."""
+    nd = len(shape)
+    if policy.is_fsdp:
+        zero3 = [("data", "model"), ("model",), ("data",)]
+        if nd >= 2:
+            trail = [zero3, zero3]
+            if nd >= 3 and not path.endswith("['conv_w']"):
+                trail = [zero3] * min(nd, 3)
+        elif nd == 1:
+            trail = [[]]
+        else:
+            trail = []
+        return [[]] * (nd - len(trail)) + trail
+    if path.endswith("['table']"):                     # embedding [V, d]
+        trail = [["model"], ["data"]]
+    elif "['w_gate']" in path or "['w_up']" in path or "['w_down']" in path:
+        trail = [["model"], ["data"], []]              # experts [E, in, out]
+    elif path.endswith("['w']"):
+        parent = path.split("][")[-2] if "][" in path else ""
+        if any(k in parent for k in _ROW_PARALLEL_PARENTS):
+            trail = [["model"], ["data"]]              # row-parallel
+        else:
+            trail = [["data"], ["model"]]              # column-parallel
+    elif path.endswith("['conv_w']"):
+        trail = [[], ["model"]]                        # [k, channels]
+    elif path.endswith("['dec_pos']") or path.endswith("['pos']"):
+        trail = [[], ["data"]]
+    else:
+        trail = [[]] * min(nd, 1)                      # 1-D/scalars replicate
+    return [[]] * (nd - len(trail)) + trail
+
+
+# ------------------------------------------------- compiled weight images
+
+class ImageSpecs(NamedTuple):
+    """The specs of one installed CimaImage's stored leaves."""
+
+    ws: tuple
+    wq: tuple
+    scale: tuple
+
+
+def _image_leaf_spec(pstr: str, shape, program, mesh) -> Optional[tuple]:
+    """The spec of one leaf of an installed CimaImage, or None for any
+    other leaf.  The image's ``partition`` decides: ``"col"`` splits
+    ``ws`` [..., N, BA, M], ``wq`` [..., N, M] and a per-channel
+    ``scale`` [..., 1, M] on the last dim; ``"row"`` splits ``ws`` on
+    dim -3 and ``wq`` on dim -2 (the scale replicates); an unpartitioned
+    image, or one compiled for another mesh, replicates."""
+    tokens = [a or b for a, b in
+              re.findall(r"\['([^']+)'\]|\.([A-Za-z_]\w*)", pstr)]
+    if "cima" not in tokens:
+        return None
+    field = tokens[-1]
+    img = program.images.get(".".join(tokens[:-1]))
+    if img is None or field not in ("ws", "wq", "scale"):
+        return None
+    part = img.partition
+    if part not in ("col", "row") or img.devices <= 1 \
+            or "model" not in mesh.axis_names \
+            or dict(mesh.shape)["model"] != img.devices:
+        return ()
+    nd = len(shape)
+    spec: list = [None] * nd
+    if part == "col":
+        if field == "scale" and not img.per_channel:
+            return ()
+        spec[nd - 1] = "model"
+    elif field == "ws":
+        spec[nd - 3] = "model"
+    elif field == "wq":
+        spec[nd - 2] = "model"
+    return tuple(spec)
+
+
+def _logical_shape(img, field: str) -> tuple:
+    """A stored image leaf's logical (whole-image) shape: a tile's
+    partitioned dim times the devices."""
+    t = getattr(img, field)
+    shape = list(t.shape)
+    if img.tile is not None and img.partition in ("col", "row"):
+        if img.partition == "col" and (field != "scale" or img.per_channel):
+            shape[-1] = img.m
+        elif img.partition == "row" and field != "scale":
+            shape[-3 if field == "ws" else -2] = img.n
+    return tuple(shape)
+
+
+def _map_with_path(fn, tree, prefix: str = ""):
+    """``fn(keystr, leaf)`` over a parameter tree, keys named as
+    ``jax.tree_util.keystr`` names them; a CimaImage maps to its
+    :class:`ImageSpecs`."""
+    from repro_torch.accel.program import CimaImage
+
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, f"{prefix}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, CimaImage):
+        return ImageSpecs(*(fn(f"{prefix}.{f}", _Shape(_logical_shape(
+            tree, f))) for f in ImageSpecs._fields))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_with_path(fn, v, f"{prefix}.{name}")
+                            for name, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, f"{prefix}[{i}]")
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+class _Shape(NamedTuple):
+    shape: tuple
+
+
+def param_specs(params, mesh, policy: Optional[ShardPolicy] = None,
+                program=None):
+    """Parameter tree -> spec tree (path-based rules).  ``program`` adds
+    the rules of its installed images (:func:`_image_leaf_spec`), whose
+    leaves map to :class:`ImageSpecs`; without it image leaves fall
+    through the weight rules."""
+    pol = resolve_policy(policy)
+
+    def one(pstr, leaf):
+        if program is not None:
+            ispec = _image_leaf_spec(pstr, leaf.shape, program, mesh)
+            if ispec is not None:
+                return ispec
+        return pick_spec(leaf.shape, mesh,
+                         _param_rule(pstr, leaf.shape, pol))
+
+    return _map_with_path(one, params)
+
+
+# ------------------------------------------------------------------ batch
+
+def batch_specs(batch, mesh, batch_size: int,
+                policy: Optional[ShardPolicy] = None):
+    dp = dp_axes(mesh, policy)
+
+    def one(_pstr, leaf):
+        cands = [[dp] if d == batch_size else [] for d in leaf.shape]
+        return pick_spec(leaf.shape, mesh, cands)
+
+    return _map_with_path(one, batch)
+
+
+# ------------------------------------------------------------------ cache
+
+def cache_spec(shape, mesh, batch_size: int,
+               policy: Optional[ShardPolicy] = None) -> tuple:
+    """One cache leaf's spec: DP on the batch dim (the first dim of size
+    ``batch_size``), "model" on the largest divisible other dim."""
+    shape = tuple(shape)
+    if not shape:
+        return ()
+    dp = dp_axes(mesh, policy)
+    msize = axis_size(mesh, ("model",))
+    try:
+        bdim = shape.index(batch_size)
+    except ValueError:
+        bdim = -1
+    cand_dims = [i for i, d in enumerate(shape)
+                 if i != bdim and d % msize == 0 and d >= msize]
+    mdim = max(cand_dims, key=lambda i: shape[i]) if cand_dims else -1
+    spec: list = []
+    for i, d in enumerate(shape):
+        if i == bdim and dp and d % axis_size(mesh, dp) == 0:
+            spec.append(dp if len(dp) > 1 else dp[0])
+        elif i == mdim:
+            spec.append("model")
+        else:
+            spec.append(None)
+    return _strip(spec)
+
+
+def cache_specs(cache, mesh, batch_size: int,
+                policy: Optional[ShardPolicy] = None):
+    """Generic cache rule over a cache tree (KV caches, MLA latents,
+    LRU/SSM states).  ``batch_size == 1`` (an admission prefill's slot
+    cache) is deterministic: the first size-1 dim is the batch dim and is
+    kept off the model axis, so a slot cache gets the live cache's
+    non-batch layout."""
+    return _map_with_path(
+        lambda _p, leaf: cache_spec(leaf.shape, mesh, batch_size, policy),
+        cache)

@@ -1,0 +1,194 @@
+"""Serving meshes over ``torch.distributed``.  Port of
+``repro.launch.mesh``.
+
+The port runs a ``data x model`` mesh in SPMD form: one process per mesh
+position, as ``torchrun --nproc-per-node`` starts them, every process
+running the same program on its own rank.  :class:`ServeMesh` is the
+small mesh object the distribution layer reads: the reference's axis
+names ``("data", "model")``, the axis sizes as ``shape``, this rank's
+coordinates, and one process group per axis (the ranks that share this
+rank's data index form its model group, those that share its model
+index its data group).
+
+The collective backend is an explicit argument, never chosen by trying:
+
+* ``"nccl"`` when each rank owns a card;
+* ``"gloo"`` when ranks share one card (NCCL refuses two ranks on one
+  GPU) or run on the CPU.  gloo takes CUDA tensors and moves their bytes
+  through host memory itself; only the collective's bytes leave the
+  card.
+
+``stats`` counts the collectives this rank issued and their bytes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+AXES = ("data", "model")
+BACKENDS = ("gloo", "nccl")
+
+
+@dataclasses.dataclass
+class ServeMesh:
+    """A ``data x model`` mesh seen from one rank.  ``rank`` is this
+    process's row-major position (``data_index * model + model_index``);
+    without groups (a 1 x 1 mesh, or a shape-only mesh for validation)
+    every collective is the identity."""
+
+    data: int = 1
+    model: int = 1
+    rank: int = 0
+    backend: Optional[str] = None
+    device: torch.device = dataclasses.field(
+        default_factory=lambda: torch.device("cpu"))
+    groups: dict = dataclasses.field(default_factory=dict)
+    stats: dict = dataclasses.field(
+        default_factory=lambda: {"collectives": 0, "bytes": 0})
+
+    axis_names = AXES
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.data, "model": self.model}
+
+    @property
+    def coords(self) -> tuple:
+        """``(data_index, model_index)`` of this rank."""
+        return divmod(self.rank, self.model)
+
+    def size(self, axis: str) -> int:
+        return self.shape[axis]
+
+    def index(self, axis: str) -> int:
+        return self.coords[AXES.index(axis)]
+
+    def _group(self, axis: str):
+        if self.size(axis) <= 1:
+            return None
+        if axis not in self.groups:
+            raise RuntimeError(f"mesh axis {axis!r} of size "
+                               f"{self.size(axis)} has no process group")
+        return self.groups[axis]
+
+    def _count(self, t: torch.Tensor) -> None:
+        self.stats["collectives"] += 1
+        self.stats["bytes"] += t.numel() * t.element_size()
+
+    def all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum of ``t`` over ``axis`` (a new tensor)."""
+        group = self._group(axis)
+        if group is None:
+            return t
+        self._count(t)
+        out = t.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """The ranks' ``t`` along ``axis`` concatenated on ``dim`` in
+        mesh order."""
+        group = self._group(axis)
+        if group is None:
+            return t
+        self._count(t)
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.size(axis))]
+        dist.all_gather(parts, t, group=group)
+        return torch.cat(parts, dim=dim)
+
+
+def _default_device() -> torch.device:
+    """``cuda:<local rank>`` under nccl; the one card ranks share (or the
+    local rank's, when there are several) under gloo."""
+    local = int(os.environ.get("LOCAL_RANK",
+                               dist.get_rank() if dist.is_initialized()
+                               else 0))
+    count = max(torch.cuda.device_count(), 1)
+    return torch.device("cuda", local % count)
+
+
+def make_serve_mesh(data: int = 1, model: int = 1, *, backend: str,
+                    device=None, init_method: Optional[str] = None,
+                    rank: Optional[int] = None,
+                    world_size: Optional[int] = None,
+                    ranks: Optional[list] = None) -> Optional[ServeMesh]:
+    """An explicit ``data x model`` serving mesh (DESIGN.md §13).
+
+    ``model`` ranks per replica each hold one tile of every partitioned
+    CIMA image; ``data`` replicas each serve their slice of the batch.
+    Every process of the job calls it (the groups are made collectively).
+    The default process group is started here when it is not yet, with
+    ``init_method`` (default ``env://``, what ``torchrun`` sets),
+    ``rank`` and ``world_size``.  The job's size must equal
+    ``data * model``; ``ranks`` (global ranks, mesh order) builds the
+    mesh over a subset instead, and the processes outside it get None.
+    ``device`` defaults to ``cuda:<local rank>`` (shared ``cuda:0`` on a
+    one-card machine); pass ``"cpu"`` to run on the host."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    need = int(data) * int(model)
+    if need < 1:
+        raise ValueError(f"make_serve_mesh({data}x{model}): sizes must be "
+                         f"positive")
+    if not dist.is_initialized():
+        if need == 1 and init_method is None and world_size in (None, 1) \
+                and "WORLD_SIZE" not in os.environ:
+            return ServeMesh(device=torch.device(
+                "cuda" if device is None else device))
+        dist.init_process_group(backend, init_method=init_method or "env://",
+                                rank=rank, world_size=world_size)
+    members = list(range(dist.get_world_size())) if ranks is None \
+        else [int(r) for r in ranks]
+    if len(members) != need:
+        have = "processes" if ranks is None else "ranks"
+        raise ValueError(
+            f"make_serve_mesh({data}x{model}) needs {need} {have}, have "
+            f"{len(members)} (start one process per mesh position, e.g. "
+            f"torchrun --nproc-per-node={need})")
+    if device is None:
+        device = _default_device()
+    device = torch.device(device)
+    if backend == "nccl" and device.type == "cuda" \
+            and need > torch.cuda.device_count():
+        raise ValueError(
+            f"nccl needs one card per rank: {need} ranks, "
+            f"{torch.cuda.device_count()} cards (ranks that share a card "
+            f"take backend='gloo')")
+    me = dist.get_rank()
+    groups: dict = {}
+    # every process makes every group, in one order
+    for d in range(data):
+        g = dist.new_group([members[d * model + j] for j in range(model)],
+                           backend=backend)
+        if me in members and members.index(me) // model == d:
+            groups["model"] = g
+    for j in range(model):
+        g = dist.new_group([members[d * model + j] for d in range(data)],
+                           backend=backend)
+        if me in members and members.index(me) % model == j:
+            groups["data"] = g
+    if me not in members:
+        return None
+    return ServeMesh(data=int(data), model=int(model),
+                     rank=members.index(me), backend=backend, device=device,
+                     groups=groups)
+
+
+def make_host_mesh(model: int = 1, *, backend: str, device=None,
+                   **init) -> ServeMesh:
+    """A ``(world / model) x model`` mesh over every process of the job
+    (tests and smoke runs); ``init`` as :func:`make_serve_mesh` takes
+    it."""
+    n = (dist.get_world_size() if dist.is_initialized() else
+         int(init.get("world_size") or os.environ.get("WORLD_SIZE", 1)))
+    if n % model:
+        raise ValueError(f"make_host_mesh(model={model}): {n} processes "
+                         f"do not split into model groups of {model}")
+    return make_serve_mesh(n // model, model, backend=backend,
+                           device=device, **init)

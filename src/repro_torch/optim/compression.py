@@ -5,7 +5,8 @@ Gradients are symmetrically quantized to ``bits`` per leaf (round half
 to even, as ``jnp.round``) before the data-parallel reduction, and the
 local quantization residual is fed back into the next step's gradient.
 The collective form (``compress_psum`` over mesh axes) comes with the
-port's mesh slice.
+port's sharded-training slice (the mesh serves already:
+:mod:`repro_torch.accel.shard`).
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ def compress_psum(grads, error, axis_names, bits: int = 8):
     ported."""
     if axis_names:
         raise NotImplementedError(
-            "compress_psum over mesh axes comes with the port's mesh slice")
+            "compress_psum over mesh axes comes with the port's "
+            "sharded-training slice")
 
     def one(g, e):
         gc = g + e                       # error feedback

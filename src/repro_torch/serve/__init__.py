@@ -3,13 +3,14 @@
 from .engine import ContinuousBatcher, Engine, ServeConfig
 from .host import host_sync
 from .kv import (BlockAllocator, PagedCache, PagedLayout, build_layout,
-                 gather_cache, init_paged_cache, scatter_decode,
-                 splice_request)
+                 gather_cache, init_paged_cache, paged_cache_specs,
+                 scatter_decode, splice_request)
 from .scheduler import PagedScheduler
 
 __all__ = [
     "ContinuousBatcher", "Engine", "ServeConfig", "host_sync",
     "BlockAllocator", "PagedCache", "PagedLayout", "build_layout",
-    "gather_cache", "init_paged_cache", "scatter_decode", "splice_request",
+    "gather_cache", "init_paged_cache", "paged_cache_specs",
+    "scatter_decode", "splice_request",
     "PagedScheduler",
 ]

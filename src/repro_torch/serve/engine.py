@@ -1,6 +1,6 @@
 """Batched serving engine: weight-stationary program load, prefill,
 greedy (or sampled) decode, and slot-level continuous batching.  Port of
-``repro.serve.engine`` without the mesh.
+``repro.serve.engine``.
 
 :class:`ContinuousBatcher` keeps a fixed pool of batch slots.  Decode
 always runs at full batch width, and ``DecodeCache.pos`` is per slot, so
@@ -17,6 +17,21 @@ the model's footprint the allocator streams the tail, which a
 ``torch.inference_mode()`` and, by default, ``override(x_per_row=True)``:
 one input scale per row, so a request's tokens never depend on its batch
 neighbours.
+
+On a ``data x model`` mesh (``ServeConfig.mesh``, a
+:class:`~repro_torch.launch.mesh.ServeMesh`; every rank runs the same
+calls) the program compiles partitioned: each rank holds only its tile
+of every partitioned image, the raw weight behind a tile is released,
+and every call runs under the mesh, so each projection runs as the
+rank's tile (:mod:`repro_torch.accel.shard`).  Activations stay whole on
+the model axis.  The data axis splits batch rows: a batch the data axis
+divides (``generate``'s prompts, the batchers' slots) is served by each
+data shard on its own rows, with its own rows of the cache, and rows are
+gathered over the data group only where the host reads them (sampled
+tokens, the EOS poll).  A batch it does not divide (an admission's
+batch-1 prefill) runs on every data shard.  A MoE layer's expert
+capacity then counts one shard's tokens (a dropless capacity factor
+gives the unsharded streams).
 """
 from __future__ import annotations
 
@@ -29,7 +44,10 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
-from repro_torch.accel import build_program, install_program, override
+from repro_torch.accel import (CimaImage, build_program, install_program,
+                               override)
+from repro_torch.accel.program import tile_bounds
+from repro_torch.distributed.autoshard import manual, use_mesh
 from repro_torch.models import decode_step, init_cache, prefill, splice_slot
 
 from .host import host_sync
@@ -66,6 +84,12 @@ class ServeConfig:
     # burst cannot stall the live slots behind a run of prefills
     # (None = admit greedily)
     max_admit_per_step: Optional[int] = 1
+    # multi-device serving: a data x model ServeMesh (launch.mesh.
+    # make_serve_mesh).  The program compiles partitioned over "model"
+    # (each rank keeps its tile), batch rows and slot state split over
+    # "data"; the ShardPolicy is explicit (no module-global policy)
+    mesh: Optional[object] = None
+    shard_policy: Optional[object] = None
 
     def __post_init__(self):
         for name in ("max_seq", "max_new_tokens", "eos_check_every",
@@ -88,6 +112,25 @@ class ServeConfig:
         if self.temperature < 0:
             raise ValueError(f"ServeConfig.temperature must be >= 0, "
                              f"got {self.temperature}")
+        # a policy that declares data_shards must match the actual mesh
+        declared = getattr(self.shard_policy, "data_shards", 1)
+        if declared > 1:
+            if self.mesh is None:
+                raise ValueError(
+                    f"shard_policy.data_shards={declared} requires a mesh "
+                    f"with a 'data' axis, got mesh=None")
+            actual = int(dict(self.mesh.shape).get("data", 1))
+            if actual != declared:
+                raise ValueError(
+                    f"shard_policy.data_shards={declared} but the mesh "
+                    f"'data' axis has size {actual}")
+        # a per-tensor input scale reads the whole batch, which the data
+        # axis splits across ranks
+        if self.mesh is not None and not self.x_per_row \
+                and int(dict(self.mesh.shape).get("data", 1)) > 1:
+            raise ValueError("ServeConfig.x_per_row=False needs one input "
+                             "scale across the batch, which a data axis "
+                             "splits; serve data > 1 with x_per_row=True")
 
     @classmethod
     def from_tuned(cls, tuned, mesh=None, **kw) -> "ServeConfig":
@@ -97,22 +140,33 @@ class ServeConfig:
         fusion) through ``tuned.apply_model(cfg)``.  Extra keywords pass
         through to the constructor and override the tuned values.
 
-        A tuned mesh wider than 1x1 needs a ``mesh`` of that shape, as in
-        the reference; serving on one is the port's multi-device slice,
-        so with a mesh it raises ``NotImplementedError``."""
+        A tuned mesh wider than 1x1 needs a ``mesh`` whose ``data``/
+        ``model`` sizes match the tuned shape (``launch.mesh.
+        make_serve_mesh``): a silent mismatch would serve another design
+        point than the tuner priced.  A tuned data axis wider than 1
+        attaches a matching :class:`~repro_torch.distributed.sharding.
+        ShardPolicy` unless the caller gives one."""
         want = (getattr(tuned, "data_shards", 1),
                 getattr(tuned, "model_shards", 1))
         if want != (1, 1):
             if mesh is None:
                 raise ValueError(
                     f"tuned config {getattr(tuned, 'label', '')!r} wants a "
-                    f"{want[0]}x{want[1]} data x model mesh; pass mesh=")
-            raise NotImplementedError(
-                f"serving the tuned {want[0]}x{want[1]} data x model mesh "
-                "waits for the port's multi-device slice")
+                    f"{want[0]}x{want[1]} data x model mesh; pass mesh= "
+                    f"(e.g. launch.mesh.make_serve_mesh)")
+            shape = dict(mesh.shape)
+            have = (int(shape.get("data", 1)), int(shape.get("model", 1)))
+            if have != want:
+                raise ValueError(
+                    f"mesh is {have[0]}x{have[1]} data x model but the "
+                    f"tuned config was priced at {want[0]}x{want[1]}")
+        if want[0] > 1 and "shard_policy" not in kw:
+            from repro_torch.distributed.sharding import ShardPolicy
+
+            kw["shard_policy"] = ShardPolicy(data_shards=want[0])
         kw.setdefault("cima_chips", tuned.capacity_chips)
         kw.setdefault("stream_double_buffer", tuned.double_buffer)
-        return cls(**kw)
+        return cls(mesh=mesh, **kw)
 
 
 def _to_device(tree, device):
@@ -123,13 +177,34 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-class Engine:
-    """Serves ``params`` under ``cfg`` on ``device`` (``cuda`` unless the
-    caller asks for the CPU)."""
+def _release_tiled(tree):
+    """``tree`` with the raw weight of every projection whose installed
+    image is one tile replaced by a ``meta`` tensor of its shape:
+    dispatch reads only its shape, and the rank keeps only its tile."""
+    if isinstance(tree, dict):
+        img = tree.get("cima")
+        out = {k: _release_tiled(v) for k, v in tree.items()}
+        if isinstance(img, CimaImage) and img.tile is not None \
+                and torch.is_tensor(tree.get("w")):
+            w = tree["w"]
+            out["w"] = torch.empty(w.shape, dtype=w.dtype, device="meta")
+        return out
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_release_tiled(v) for v in tree)
+    return tree
 
-    def __init__(self, params, cfg, serve_cfg: ServeConfig, device="cuda"):
+
+class Engine:
+    """Serves ``params`` under ``cfg`` on ``device``: the mesh's device
+    with a ``serve_cfg.mesh``, else ``cuda`` unless the caller asks for
+    the CPU."""
+
+    def __init__(self, params, cfg, serve_cfg: ServeConfig, device=None):
         self.cfg = cfg
         self.scfg = serve_cfg
+        self.mesh = serve_cfg.mesh
+        if device is None:
+            device = self.mesh.device if self.mesh is not None else "cuda"
         self.device = torch.device(device)
         params = _to_device(params, self.device)
         self.program = None
@@ -137,22 +212,51 @@ class Engine:
             with torch.inference_mode():
                 program = build_program(
                     params, cfg, capacity_chips=serve_cfg.cima_chips,
+                    mesh=self.mesh,
                     double_buffer=serve_cfg.stream_double_buffer)
             if program:
                 self.program = program
                 params = install_program(params, program, cfg)
+                if self.mesh is not None:
+                    params = _release_tiled(params)
         self.params = params
         # decode steps issued by the last generate() (EOS may stop early)
         self.last_decode_steps = 0
 
     @contextlib.contextmanager
     def _scope(self) -> Iterator[None]:
-        """The serving execution scope: inference mode plus the per-row
-        input quantization discipline (unless disabled)."""
+        """The serving execution scope: inference mode, the per-row input
+        quantization discipline (unless disabled) and the mesh."""
         with torch.inference_mode(), contextlib.ExitStack() as stack:
             if self.scfg.x_per_row:
                 stack.enter_context(override(x_per_row=True))
+            if self.mesh is not None:
+                stack.enter_context(use_mesh(self.mesh,
+                                             self.scfg.shard_policy))
             yield
+
+    def data_rows(self, batch: int) -> Optional[slice]:
+        """This data shard's rows of a ``batch``-row batch, or None where
+        the batch does not split (no mesh, a data axis of 1, or one that
+        does not divide it: every data shard runs every row)."""
+        d = self.mesh.size("data") if self.mesh is not None else 1
+        if d <= 1 or batch % d:
+            return None
+        return slice(*tile_bounds(batch, d, self.mesh.index("data")))
+
+    @contextlib.contextmanager
+    def local_rows(self, rows: Optional[slice]) -> Iterator[None]:
+        """Scope of calls on this data shard's ``rows`` (from
+        :meth:`data_rows`; None: the whole batch, no scope)."""
+        with manual("data") if rows is not None else contextlib.nullcontext():
+            yield
+
+    def gather_rows(self, t: torch.Tensor, rows: Optional[slice],
+                    dim: int = 0) -> torch.Tensor:
+        """The whole batch of a per-shard ``t`` (rows on ``dim``)."""
+        if rows is None:
+            return t
+        return self.mesh.all_gather(t, "data", dim)
 
     def prefill(self, prompts: torch.Tensor, frontend_embeds=None):
         """Prefill a dense [B, S] batch into a ``max_seq`` cache; returns
@@ -189,8 +293,11 @@ class Engine:
             return decode_step(self.params, tok, cache, self.cfg)
 
     def init_cache(self, batch: int):
-        """A fresh decode cache at full batch width."""
-        return init_cache(self.cfg, batch, self.scfg.max_seq, self.device)
+        """A fresh decode cache at full batch width: on a mesh whose data
+        axis splits ``batch``, this data shard's rows of it."""
+        rows = self.data_rows(batch)
+        n = batch if rows is None else rows.stop - rows.start
+        return init_cache(self.cfg, n, self.scfg.max_seq, self.device)
 
     def sample(self, logits: torch.Tensor, request_ids, steps) -> torch.Tensor:
         """Next tokens [B].  Greedy at temperature 0; otherwise row ``i``
@@ -215,36 +322,46 @@ class Engine:
         Prompts must be real equal-length sequences (no pad mask here).
         ``frontend_embeds`` go to the prefill (:meth:`prefill`).
         ``request_ids`` (default ``arange(B)``) seed the per-row sampling
-        generators."""
+        generators.  On a mesh whose data axis divides B each data shard
+        serves its rows; every rank returns the whole [B, T] block."""
         prompts = torch.as_tensor(prompts, device=self.device)
         if prompts.ndim != 2:
             raise ValueError("prompts must be a dense [B, S] batch")
         b = prompts.shape[0]
         eos = self.scfg.eos_id
         rids = np.arange(b) if request_ids is None else np.asarray(request_ids)
-        logits, cache = self.prefill(prompts, frontend_embeds)
-        tok = self.sample(logits, rids, np.zeros(b, np.int64))
-        out = [tok]
-        done = torch.zeros_like(tok, dtype=torch.bool)
-        self.last_decode_steps = 0
-        check = self.scfg.eos_check_every
-        for t in range(1, self.scfg.max_new_tokens):
-            if eos >= 0:
-                done = done | (tok == eos)
-                # every row emitted EOS: stop and pad with eos_id (what the
-                # full loop would have produced); polled every `check` steps
-                if (t - 1) % check == 0 and bool(host_sync(
-                        done, reason="eos early-exit poll, amortized over "
-                        "eos_check_every decode steps").all()):
-                    break
-            logits, cache = self.decode(tok, cache)
-            self.last_decode_steps += 1
-            nxt = self.sample(logits, rids, np.full(b, t))
-            if eos >= 0:
-                nxt = torch.where(done, eos, nxt)
-            tok = nxt
-            out.append(tok)
-        gen = host_sync(torch.stack(out, dim=1),
+        rows = self.data_rows(b)
+        if rows is not None:
+            prompts, rids = prompts[rows], rids[rows]
+            if frontend_embeds is not None:
+                frontend_embeds = frontend_embeds[rows]
+        nb = len(rids)
+        with self.local_rows(rows):
+            logits, cache = self.prefill(prompts, frontend_embeds)
+            tok = self.sample(logits, rids, np.zeros(nb, np.int64))
+            out = [tok]
+            done = torch.zeros_like(tok, dtype=torch.bool)
+            self.last_decode_steps = 0
+            check = self.scfg.eos_check_every
+            for t in range(1, self.scfg.max_new_tokens):
+                if eos >= 0:
+                    done = done | (tok == eos)
+                    # every row emitted EOS: stop and pad with eos_id (what
+                    # the full loop would have produced); polled every
+                    # `check` steps
+                    if (t - 1) % check == 0 and bool(host_sync(
+                            self.gather_rows(done, rows),
+                            reason="eos early-exit poll, amortized over "
+                            "eos_check_every decode steps").all()):
+                        break
+                logits, cache = self.decode(tok, cache)
+                self.last_decode_steps += 1
+                nxt = self.sample(logits, rids, np.full(nb, t))
+                if eos >= 0:
+                    nxt = torch.where(done, eos, nxt)
+                tok = nxt
+                out.append(tok)
+        gen = host_sync(self.gather_rows(torch.stack(out, dim=1), rows),
                         reason="end of generate: one batched pull of the "
                         "whole [B, T] token block")
         if gen.shape[1] < self.scfg.max_new_tokens:
@@ -294,7 +411,7 @@ class ContinuousBatcher:
     """
 
     def __init__(self, params, cfg, serve_cfg: ServeConfig, n_slots: int,
-                 device="cuda"):
+                 device=None):
         if n_slots <= 0:
             raise ValueError(f"n_slots must be positive, got {n_slots}")
         self.engine = Engine(params, cfg, serve_cfg, device)
@@ -343,6 +460,9 @@ class ContinuousBatcher:
         instead of exiting when both queue and slots drain."""
         b = self.n_slots
         eos = self.scfg.eos_id
+        # on a data axis that divides the slots, this shard's slots
+        rows = self.engine.data_rows(b)
+        lo, hi = (0, b) if rows is None else (rows.start, rows.stop)
         with self.engine._scope():
             cache = self.engine.init_cache(b)
         cur = np.zeros(b, np.int64)
@@ -375,8 +495,9 @@ class ContinuousBatcher:
                     if (eos >= 0 and tok == eos) or req.budget <= 1:
                         self.results[req.rid] = emitted.pop(req.rid)
                         continue        # retired at its first token
-                    with self.engine._scope():
-                        cache = splice_slot(cache, slot_cache, i)
+                    if lo <= i < hi:
+                        with self.engine._scope():
+                            cache = splice_slot(cache, slot_cache, i - lo)
                     cur[i] = tok
                     slots[i] = _Slot(req.rid, req.budget, 1)
             active = [i for i in range(b) if slots[i] is not None]
@@ -390,15 +511,18 @@ class ContinuousBatcher:
 
             # one fixed-width decode step for every slot (idle rows ride
             # along; their samples are discarded)
-            logits, cache = self.engine.decode(
-                torch.as_tensor(cur, device=self.engine.device), cache)
+            with self.engine.local_rows(rows):
+                logits, cache = self.engine.decode(
+                    torch.as_tensor(cur[lo:hi], device=self.engine.device),
+                    cache)
             self.stats["decode_steps"] += 1
             self.stats["slot_steps"] += len(active)
-            rids = np.asarray([s.rid if s else 0 for s in slots])
-            steps = np.asarray([s.n_gen if s else 0 for s in slots])
-            toks = host_sync(self.engine.sample(logits, rids, steps),
-                             reason="slot-batcher reference loop: one "
-                             "token sync per decode step by design")
+            rids = np.asarray([s.rid if s else 0 for s in slots[lo:hi]])
+            steps = np.asarray([s.n_gen if s else 0 for s in slots[lo:hi]])
+            toks = host_sync(self.engine.gather_rows(
+                self.engine.sample(logits, rids, steps), rows),
+                reason="slot-batcher reference loop: one token sync per "
+                "decode step by design")
             for i in active:
                 s = slots[i]
                 tok = int(toks[i])

@@ -1,5 +1,4 @@
-"""Block-table paged KV cache.  Port of ``repro.serve.kv`` without the
-mesh (``paged_cache_specs``).
+"""Block-table paged KV cache.  Port of ``repro.serve.kv``.
 
 The slot batcher pads every slot's cache to ``max_seq``.  This module
 pools the sequence-indexed cache leaves into shared physical *blocks* of
@@ -279,6 +278,53 @@ def splice_request(paged: PagedCache, slot: DecodeCache, i: int,
             d.reshape((t, bs) + d.shape[1:]).to(pool.dtype))
     paged.pos[i:i + 1] = slot.pos.to(paged.pos.dtype)
     return paged
+
+
+# ------------------------------------------------------------------ mesh
+
+def paged_cache_specs(paged: PagedCache, layout: PagedLayout, mesh,
+                      policy=None) -> PagedCache:
+    """The spec tree of a :class:`PagedCache` under a serving mesh.
+
+    Pool leaves have no batch dim; the block-offset dim is the paging
+    address space and stays whole, and "model" goes on the largest
+    divisible remaining dim (heads, latent), mirroring
+    :func:`~repro_torch.distributed.sharding.cache_specs`.  On a ``data x
+    model`` mesh the block-id dim also splits over "data" where the
+    ``num_blocks`` logical blocks divide (the zero-read and discard
+    blocks are each shard's own), and the per-slot positions split with
+    the slots.  State leaves take the cache rule with batch
+    ``n_slots``."""
+    from repro_torch.distributed import sharding as shd
+
+    msize = shd.axis_size(mesh, ("model",))
+    dsize = (shd.axis_size(mesh, ("data",))
+             if "data" in mesh.axis_names else 1)
+
+    def pool_spec(shape, b_ax):
+        spec: list = [None] * len(shape)
+        if dsize > 1 and layout.num_blocks % dsize == 0:
+            spec[b_ax] = "data"
+        reserved = {b_ax, b_ax + 1}
+        cand = [i for i, d in enumerate(shape)
+                if i not in reserved and d % msize == 0 and d >= msize > 1]
+        mdim = max(cand, key=lambda i: shape[i]) if cand else -1
+        if mdim >= 0:
+            spec[mdim] = "model"
+        while spec and spec[-1] is None:
+            spec.pop()
+        return tuple(spec)
+
+    out = []
+    for leaf, (b_ax, q_ax, _L, _shape, _) in zip(tree.leaves(paged.pools),
+                                                 _iter_meta(layout)):
+        if q_ax is None:
+            out.append(shd.cache_spec(leaf.shape, mesh, layout.n_slots,
+                                      policy))
+        else:
+            out.append(pool_spec(tuple(leaf.shape), b_ax))
+    pos = ("data",) if dsize > 1 and layout.n_slots % dsize == 0 else ()
+    return PagedCache(tree.unflatten(layout.treedef, out), pos)
 
 
 def required_blocks(n_positions: int, layout: PagedLayout) -> int:

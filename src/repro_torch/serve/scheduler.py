@@ -1,5 +1,5 @@
 """Request scheduler over the paged KV cache.  Port of
-``repro.serve.scheduler`` without the mesh branch.
+``repro.serve.scheduler``.
 
 Where :class:`~repro_torch.serve.engine.ContinuousBatcher` syncs the
 host once per decode step to retire and refill slots, the paged
@@ -27,6 +27,16 @@ scheduler batches everything the host must decide:
 Unwritten pool positions gather as exact zeros, so the dense view each
 block consumes is bit for bit the slot batcher's contiguous cache, and
 the streams equal the slot batcher's token for token.
+
+On a mesh (``ServeConfig.mesh``) every rank runs the same host loop.
+Where the data axis divides ``n_slots`` each data shard holds the slot
+state and positions of its own slots (``paged_cache_specs``' "data"
+entries) and decodes only them, and the block's tokens are gathered over
+the data group before the host reads them.  The pools keep the whole
+block-id space on every data shard (one global allocator hands any slot
+any block): a shard writes and reads only its own slots' blocks.
+Admission prefills run on every rank; the splice lands on the shard that
+holds the slot.
 """
 from __future__ import annotations
 
@@ -78,7 +88,7 @@ class PagedScheduler:
     """
 
     def __init__(self, params, cfg, serve_cfg: ServeConfig, n_slots: int,
-                 num_blocks: Optional[int] = None, device="cuda"):
+                 num_blocks: Optional[int] = None, device=None):
         if n_slots <= 0:
             raise ValueError(f"n_slots must be positive, got {n_slots}")
         if cfg.is_encdec:
@@ -91,8 +101,26 @@ class PagedScheduler:
         self.layout = kv.build_layout(cfg, n_slots, serve_cfg.max_seq,
                                       serve_cfg.kv_block_size, num_blocks)
         self.alloc = kv.BlockAllocator(self.layout.num_blocks)
+        # on a data axis that divides the slots, this shard's slots: the
+        # device layout holds them over the whole block-id space
+        mesh = self.engine.mesh
+        dsize = mesh.size("data") if mesh is not None else 1
+        if dsize > 1 and n_slots % dsize:
+            import warnings
+            warnings.warn(
+                f"n_slots={n_slots} is not divisible by the mesh "
+                f"'data' axis ({dsize}): slot state and positions "
+                f"replicate instead of sharding — size the slot pool "
+                f"as a multiple of data for the intended capacity",
+                stacklevel=2)
+        self._rows = self.engine.data_rows(n_slots)
+        self._lo, self._hi = ((0, n_slots) if self._rows is None
+                              else (self._rows.start, self._rows.stop))
+        self._local = self.layout if self._rows is None else kv.build_layout(
+            cfg, self._hi - self._lo, serve_cfg.max_seq,
+            serve_cfg.kv_block_size, self.layout.num_blocks)
         with self.engine._scope():
-            self.paged = kv.init_paged_cache(self.layout, self.device)
+            self.paged = kv.init_paged_cache(self._local, self.device)
         # host-side mirrors: the scheduler owns block placement
         self.tables = np.full((n_slots, self.layout.table_width),
                               self.layout.sentinel, np.int32)
@@ -218,9 +246,11 @@ class PagedScheduler:
         self.tables[i] = row
         self._row_blocks[i] = ids
         self._pos_host[i] = req.n_done
-        with self.engine._scope():
-            self.paged = kv.splice_request(self.paged, req.cache, i,
-                                           self._upload(row), self.layout)
+        if self._lo <= i < self._hi:
+            with self.engine._scope():
+                self.paged = kv.splice_request(
+                    self.paged, req.cache, i - self._lo, self._upload(row),
+                    self._local)
         req.cache = None
         n_gen = req.gen_done if req.gen_done else 1
         self.slots[i] = _PSlot(req, n_gen, req.first_tok)
@@ -303,8 +333,8 @@ class PagedScheduler:
         scatter the touched blocks.  Returns the [K, B] tokens; nothing in
         here synchronises with the host."""
         K = self.scfg.decode_block
-        with self.engine._scope():
-            dense = kv.gather_cache(self.paged, tables, self.layout)
+        with self.engine._scope(), self.engine.local_rows(self._rows):
+            dense = kv.gather_cache(self.paged, tables, self._local)
             start_pos = dense.pos
             tok, out = cur, []
             for t in range(K):
@@ -312,7 +342,7 @@ class PagedScheduler:
                 tok = self.engine.sample(logits, rids, steps + t)
                 out.append(tok)
             self.paged = kv.scatter_decode(self.paged, dense, tables,
-                                           self.layout, start_pos, K)
+                                           self._local, start_pos, K)
             return torch.stack(out)
 
     def _decode_block(self):
@@ -328,8 +358,10 @@ class PagedScheduler:
         for i in active:
             s = self.slots[i]
             cur[i], rids[i], steps[i] = s.cur, s.req.rid, s.n_gen
-        toks = self._run_block(self._upload(self.tables), self._upload(cur),
-                               rids, steps)
+        lo, hi = self._lo, self._hi
+        toks = self.engine.gather_rows(self._run_block(
+            self._upload(self.tables[lo:hi]), self._upload(cur[lo:hi]),
+            rids[lo:hi], steps[lo:hi]), self._rows, dim=1)
         self.stats["decode_blocks"] += 1
         self.stats["decode_steps"] += K
         self.stats["slot_steps"] += K * len(active)

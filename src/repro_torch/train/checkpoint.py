@@ -116,11 +116,12 @@ def gc_old(ckpt_dir: str, keep: int):
 def restore(path: str, template: Any, sharding_tree: Any = None):
     """Restore into ``template``'s structure: each leaf takes its
     template leaf's dtype and device.  Returns ``(tree, step)``.
-    ``sharding_tree`` (re-sharding for a mesh) comes with the port's mesh
-    slice."""
+    ``sharding_tree`` (re-sharding for a mesh) comes with the port's
+    sharded-training slice."""
     if sharding_tree is not None:
         raise NotImplementedError(
-            "restore under a sharding comes with the port's mesh slice")
+            "restore under a sharding comes with the port's "
+            "sharded-training slice")
     with open(os.path.join(path, _KEYFILE)) as f:
         manifest = json.load(f)
     with np.load(os.path.join(path, "arrays.npz")) as data:

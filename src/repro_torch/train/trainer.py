@@ -59,12 +59,13 @@ def train(cfg, data_cfg: DataConfig, opt_cfg: AdamWConfig,
     weights, so a serving or eval consumer sharing the manager rebuilds
     them from the fresh params.  Training itself runs the on-the-fly STE
     path and never installs images.  ``mesh``, ``shard_policy`` and
-    ``state_shardings`` come with the port's mesh slice.
+    ``state_shardings`` come with the port's sharded-training slice.
     """
     if mesh is not None or shard_policy is not None \
             or state_shardings is not None:
         raise NotImplementedError(
-            "sharded training comes with the port's mesh slice")
+            "sharded training comes with the port's sharded-training "
+            "slice")
     from repro_torch.models import init_params
 
     log = log_fn or (lambda s: print(s, flush=True))

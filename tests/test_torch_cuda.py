@@ -902,3 +902,76 @@ def test_frontend_model_kernel_equals_plain_version(cuda, monkeypatch, name):
     monkeypatch.setattr(K, "cima_mvm_planes", K.cima_mvm_planes_reference)
     np.testing.assert_array_equal(got, engine.generate(toks,
                                                        frontend_embeds=fe))
+
+
+# ------------------------------------------------------ per-device tiles
+
+@pytest.mark.parametrize("rows", [4, 128])
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("part", ["col", "row"])
+def test_tile_launch_equals_plain_version(cuda, part, shards, rows):
+    """One rank's tile of olmo-1b's mlp.up (2,048 x 8,192 cut along M) or
+    mlp.down's transpose (cut along N): the kernel on the tile is bitwise
+    its plain version; the column tiles side by side are the whole
+    launch, and at bank_n = 256 (whole banks per tile) the row tiles'
+    integer partials sum to it."""
+    from repro_torch.core.quant import quantize
+
+    cfg = BpbsConfig(ba=4, bx=4, bank_n=256)
+    g = torch.Generator(device="cuda").manual_seed(shards * 1000 + rows)
+    x = torch.randn(rows, 2048, generator=g, device="cuda")
+    w = torch.randn(2048, 8192, generator=g, device="cuda") * 2048 ** -0.5
+    if part == "row":
+        x = torch.randn(rows, 8192, generator=g, device="cuda")
+        w = w.T.contiguous()
+    qx = quantize(x, 4, Coding.XNOR, per_row=True).q.to(torch.int8)
+    qw = quantize(w, 4, Coding.XNOR, axis=1).q
+    whole = K.cima_mvm(qx, qw, cfg)
+    n, m = qw.shape
+    outs = []
+    for k in range(shards):
+        if part == "col":
+            xq, wq = qx, qw[:, k * m // shards:(k + 1) * m // shards]
+        else:
+            lo, hi = k * n // shards, (k + 1) * n // shards
+            xq, wq = qx[:, lo:hi], qw[lo:hi]
+        xs, nu, _ = K.prepare_inputs(xq, cfg)
+        ws, fs = K.prepare_weights(wq, cfg)
+        y = K.cima_mvm_planes(xs, ws, nu, fs, cfg)
+        assert torch.equal(y, K.cima_mvm_planes_reference(xs, ws, nu, fs,
+                                                          cfg))
+        outs.append(y)
+    if part == "col":
+        assert torch.equal(torch.cat(outs, dim=-1), whole)
+    else:
+        assert torch.equal(sum(outs), whole)
+
+
+def test_sharded_engine_on_the_card_equals_unsharded(cuda, tmp_path):
+    """Two gloo ranks sharing the card serve reduced olmo-1b on a 1 x 2
+    mesh through the kernel: tokens, logits (bank_n = 16: whole banks per
+    tile) and both batchers' streams equal the unsharded engine's."""
+    import torch_mesh as tm
+
+    cfg = get_config("olmo-1b").reduced().with_accel("kernel", ba=4, bx=4,
+                                                     bank_n=16)
+    params = init_params(cfg, 0, device="cpu", max_seq=64)
+    r = np.random.default_rng(0)
+    prompts = r.integers(0, cfg.vocab, (4, 8))
+    requests = [(r.integers(0, cfg.vocab, (n,)), m)
+                for n, m in zip((5, 9, 3, 12, 7), (4, 6, 2, 5, 3))]
+    serve = dict(max_seq=32, max_new_tokens=6, kv_block_size=8,
+                 decode_block=4)
+    ranks = tm.spawn("serve", 2, tmp_path, dict(
+        configs={"olmo-1b": (cfg, params)}, meshes={"olmo-1b": [(1, 2)]},
+        prompts=prompts, requests=requests, serve=serve, n_slots=4,
+        tuned_config="olmo-1b", device="cuda"))
+    flat = tm.serve_all(params, cfg, ServeConfig(**serve), prompts,
+                        requests, 4, device="cuda")
+    for res in ranks:
+        got = res[((1, 2), "olmo-1b")]
+        np.testing.assert_array_equal(got["tokens"], flat["tokens"])
+        for key in ("logits", "logits_digital_int"):
+            assert torch.equal(got[key], flat[key]), key
+        assert got["batcher"] == flat["batcher"]
+        assert got["paged"] == flat["paged"]

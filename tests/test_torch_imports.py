@@ -54,6 +54,8 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.train.checkpoint, repro_torch.train.trainer\n"
         "import repro_torch.train.cifar_qat, repro_torch.figures.run\n"
         "import repro_torch.tune, repro_torch.tune.tuner\n"
+        "import repro_torch.launch, repro_torch.distributed\n"
+        "import repro_torch.accel.shard\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120,

@@ -1,0 +1,209 @@
+"""Serving on a mesh: the port's ``Engine``, ``ContinuousBatcher`` and
+``PagedScheduler`` on spawned ``gloo`` groups against the port unsharded
+and the JAX package.
+
+Reduced olmo-1b (the reference's ``init_params`` converted key for key)
+at 1 x 2, 1 x 4 and 2 x 2 (data x model), reduced mamba2-130m at 2 x 2,
+on ``bpbs`` (no noise) with ``bank_n = 16``, so every per-device row
+count is whole banks and sharded is bitwise unsharded.  One group of 4
+CPU ranks (``tests/torch_mesh.py::serve_all``) runs everything: greedy
+``generate`` (traced), prefill logits on ``bpbs`` and under
+``digital_int``, the kernel route's tokens (its plain version here), the
+slot batcher's and the paged scheduler's streams on ragged requests over
+4 slots, and ``ServeConfig.from_tuned`` on the 2 x 2 mesh.  Held: every
+rank's tokens equal; logits bitwise and streams token for token equal to
+the port unsharded; the trace's per-tag records, calls and loads equal
+the unsharded trace's; against the reference unsharded, greedy tokens
+equal and ``digital_int`` logits within 1e-4 (float ops in another
+order, as the port's other model tests hold them).
+"""
+import warnings
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import torch_mesh as tm
+from repro import accel as jaccel
+from repro.configs import get_config as jget
+from repro.distributed.sharding import ShardPolicy as JPolicy
+from repro.models import init_params as jinit
+from repro.models import prefill as jprefill
+from repro.serve import Engine as JEngine
+from repro.serve import ServeConfig as JServe
+from repro_torch.configs import get_config as tget
+from repro_torch.convert import params_from_jax
+from repro_torch.distributed.sharding import ShardPolicy
+from repro_torch.launch.mesh import ServeMesh
+from repro_torch.serve import PagedScheduler, ServeConfig
+from repro_torch.tune import TunedConfig
+
+SPEC = dict(ba=4, bx=4, bank_n=16)
+SERVE = dict(max_seq=32, max_new_tokens=6, kv_block_size=8, decode_block=4)
+MESHES = {"olmo-1b": list(tm.MESHES), "mamba2-130m": [(2, 2)]}
+CASES = [(m, name) for name, ms in MESHES.items() for m in ms]
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jc = jget("olmo-1b").reduced()
+    pj = jinit(jc, jax.random.PRNGKey(0), max_seq=64)
+    configs = {"olmo-1b": (
+        tget("olmo-1b").reduced().with_accel("bpbs", **SPEC),
+        params_from_jax(jax.tree.map(np.asarray, pj), "cpu"))}
+    jm = jget("mamba2-130m").reduced()
+    configs["mamba2-130m"] = (
+        tget("mamba2-130m").reduced().with_accel("bpbs", **SPEC),
+        params_from_jax(jax.tree.map(np.asarray, jinit(
+            jm, jax.random.PRNGKey(0), max_seq=64)), "cpu"))
+    r = np.random.default_rng(0)
+    prompts = r.integers(0, jc.vocab, (4, 8))
+    requests = [(r.integers(0, jc.vocab, (n,)), m)
+                for n, m in zip((5, 9, 3, 12, 7), (4, 6, 2, 5, 3))]
+    return dict(jc=jc, pj=pj, configs=configs, prompts=prompts,
+                requests=requests)
+
+
+@pytest.fixture(scope="module")
+def runs(setup, tmp_path_factory):
+    """The 4-rank group's results and the port's unsharded ones."""
+    args = dict(configs=setup["configs"], meshes=MESHES,
+                prompts=setup["prompts"], requests=setup["requests"],
+                serve=SERVE, n_slots=4, tuned_config="olmo-1b")
+    wait = tm.start("serve", 4, tmp_path_factory.mktemp("serve"), args,
+                    timeout=600)
+    torch.set_num_threads(2)
+    flat = {name: tm.serve_all(params, cfg, ServeConfig(**SERVE),
+                               setup["prompts"], setup["requests"], 4)
+            for name, (cfg, params) in setup["configs"].items()}
+    flat["reference"] = _reference(setup)
+    return wait(), flat
+
+
+def _reference(setup) -> dict:
+    """The reference unsharded on the same converted weights: greedy
+    ``bpbs`` tokens, and ``digital_int`` prefill logits under the serving
+    quantization scope."""
+    jc = setup["jc"]
+    prompts = jax.numpy.asarray(setup["prompts"], jax.numpy.int32)
+    tokens = np.asarray(JEngine(setup["pj"], jc.with_accel("bpbs", **SPEC),
+                                JServe(**SERVE)).generate(prompts))
+    with jaccel.override(x_per_row=True):
+        logits = np.asarray(jprefill(
+            setup["pj"], prompts, jc.with_accel("digital_int", **SPEC),
+            SERVE["max_seq"])[0])
+    return dict(tokens=tokens, logits_digital_int=logits)
+
+
+def _ids(cases):
+    return [f"{d}x{m}-{name}" for (d, m), name in cases]
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
+def test_generate_tokens_equal_unsharded(runs, case):
+    ranks, flat = runs
+    (data, model), name = case
+    got = ranks[0][case]
+    for r in ranks[1:data * model]:
+        np.testing.assert_array_equal(r[case]["tokens"], got["tokens"])
+    np.testing.assert_array_equal(got["tokens"], flat[name]["tokens"])
+    np.testing.assert_array_equal(got["tokens_kernel"],
+                                  flat[name]["tokens_kernel"])
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
+def test_prefill_logits_bitwise_unsharded(runs, case):
+    ranks, flat = runs
+    got = ranks[0][case]
+    for key in ("logits", "logits_digital_int"):
+        assert torch.equal(got[key], flat[case[1]][key]), key
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
+def test_batcher_and_paged_streams_equal_unsharded(runs, case):
+    ranks, flat = runs
+    (data, model), name = case
+    for r in ranks[:data * model]:
+        assert r[case]["batcher"] == flat[name]["batcher"]
+        assert r[case]["paged"] == flat[name]["paged"]
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
+def test_trace_records_are_logical(runs, case):
+    """One record per projection call with the full n, m: the sharded
+    trace's records, calls and loads per tag equal the unsharded
+    trace's, every partitioned record names the mesh's model axis."""
+    ranks, flat = runs
+    (data, model), name = case
+    got = ranks[0][case]
+    assert got["trace"] == flat[name]["trace"]
+    parts = {p for _, p, _ in got["partitions"]}
+    assert parts == {"col", "row"}
+    assert all(d == model for _, p, d in got["partitions"] if p)
+    # each rank holds its tile: a model-th of the planes (scales aside)
+    assert got["image_bytes"] < flat[name]["image_bytes"] / model * 1.05
+
+
+def test_tokens_and_logits_match_reference(runs):
+    """The sharded port against the reference unsharded on the same
+    converted weights: greedy bpbs tokens equal, digital_int prefill
+    logits within 1e-4."""
+    ranks, flat = runs
+    want = flat["reference"]
+    for shape in MESHES["olmo-1b"]:
+        got = ranks[0][(shape, "olmo-1b")]
+        np.testing.assert_array_equal(got["tokens"], want["tokens"])
+        np.testing.assert_allclose(got["logits_digital_int"].numpy(),
+                                   want["logits_digital_int"], **TOL)
+
+
+def test_from_tuned_serves_on_its_mesh(runs):
+    ranks, flat = runs
+    for r in ranks:
+        tokens, policy = r["tuned"]
+        np.testing.assert_array_equal(tokens, flat["olmo-1b"]["tokens"])
+        assert policy == ShardPolicy(data_shards=2)
+
+
+def test_from_tuned_mesh_shape_errors_match_reference():
+    tuned = TunedConfig(policy=None, capacity_chips=2, data_shards=2,
+                        model_shards=4, label="u4b4b/v1.2/c2/2x4")
+    for data, model in ((1, 8), (2, 2)):
+        amesh = jax.sharding.AbstractMesh((data, model), ("data", "model"))
+        with pytest.raises(ValueError) as je:
+            JServe.from_tuned(tuned, mesh=amesh)
+        with pytest.raises(ValueError) as te:
+            ServeConfig.from_tuned(tuned, mesh=ServeMesh(data=data,
+                                                         model=model))
+        assert str(te.value) == str(je.value)
+    scfg = ServeConfig.from_tuned(tuned, mesh=ServeMesh(data=2, model=4))
+    assert scfg.shard_policy == ShardPolicy(data_shards=2)
+    assert scfg.cima_chips == 2 and scfg.mesh.shape == {"data": 2,
+                                                        "model": 4}
+
+
+def test_data_shards_errors_match_reference():
+    amesh = jax.sharding.AbstractMesh((1, 2), ("data", "model"))
+    for jmesh, tmesh in ((None, None), (amesh, ServeMesh(1, 2))):
+        with pytest.raises(ValueError) as je:
+            JServe(shard_policy=JPolicy(data_shards=2), mesh=jmesh)
+        with pytest.raises(ValueError) as te:
+            ServeConfig(shard_policy=ShardPolicy(data_shards=2), mesh=tmesh)
+        assert str(te.value) == str(je.value)
+    with pytest.raises(ValueError, match="x_per_row=False"):
+        ServeConfig(mesh=ServeMesh(data=2, model=1), x_per_row=False)
+
+
+def test_paged_warns_on_slots_the_data_axis_does_not_divide(setup):
+    cfg, params = setup["configs"]["olmo-1b"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        PagedScheduler(params, cfg, ServeConfig(mesh=ServeMesh(2, 1),
+                                                **SERVE), 3, device="cpu")
+    # the reference's message
+    assert [str(w.message) for w in caught] == [
+        "n_slots=3 is not divisible by the mesh 'data' axis (2): slot "
+        "state and positions replicate instead of sharding — size the "
+        "slot pool as a multiple of data for the intended capacity"]

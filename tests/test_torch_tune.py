@@ -396,9 +396,12 @@ def test_tuned_config_drives_engine(lm):
 
 
 def test_serve_config_from_tuned_mesh_validation():
-    """The reference's mesh-shape refusal without a mesh; with one, the
-    port refuses to serve it until its multi-device slice; explicit
+    """The reference's mesh-shape refusals: without a mesh and with a
+    mesh of another shape; a mesh of the tuned shape gives a config that
+    carries it (and the tuned data axis's ShardPolicy); explicit
     keywords override the tuned values on the 1x1 path."""
+    from repro_torch.distributed.sharding import ShardPolicy
+    from repro_torch.launch.mesh import ServeMesh
     from repro_torch.serve.engine import ServeConfig
 
     tuned = tune.TunedConfig(policy=accel.PrecisionPolicy(),
@@ -406,8 +409,12 @@ def test_serve_config_from_tuned_mesh_validation():
                              model_shards=2)
     with pytest.raises(ValueError, match="mesh"):
         ServeConfig.from_tuned(tuned)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ServeConfig.from_tuned(tuned, mesh=object())
+    with pytest.raises(ValueError, match="priced at 2x2"):
+        ServeConfig.from_tuned(tuned, mesh=ServeMesh(data=1, model=4))
+    mesh = ServeMesh(data=2, model=2)
+    scfg = ServeConfig.from_tuned(tuned, mesh=mesh, max_seq=64)
+    assert scfg.mesh is mesh and scfg.cima_chips == 2
+    assert scfg.shard_policy == ShardPolicy(data_shards=2)
     flat = tune.TunedConfig(policy=accel.PrecisionPolicy(),
                             capacity_chips=2, double_buffer=False)
     scfg = ServeConfig.from_tuned(flat, max_seq=64)

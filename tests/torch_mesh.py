@@ -1,0 +1,249 @@
+"""Spawned ``gloo`` process groups for the port's mesh tests.
+
+:func:`spawn` starts one plain Python process per rank, as ``torchrun``
+would, each running ``python tests/torch_mesh.py <task> <rank> <world>
+<dir>``: the rank joins a ``gloo`` group through a ``file://`` rendezvous
+under ``dir`` (no port, so parallel test workers never clash), runs the
+task on the CPU and writes its results to ``dir/rank<r>.pt``.  The ranks
+import ``repro_torch`` only: the JAX reference runs in the test process.
+
+Tasks take the job's arguments (``dir/args.pt``) and return a dict of
+tensors, arrays and plain values.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+MESHES = ((1, 2), (1, 4), (2, 2))     # (data, model)
+
+
+def spawn(task: str, world: int, workdir, args: dict,
+          timeout: int = 300) -> list:
+    """Run ``task`` on ``world`` spawned ranks; returns each rank's
+    results, in rank order.  A failing rank fails the call with every
+    rank's output."""
+    return start(task, world, workdir, args, timeout)()
+
+
+def start(task: str, world: int, workdir, args: dict, timeout: int = 300):
+    """:func:`spawn` without waiting: returns the call that waits for the
+    ranks and returns their results."""
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    torch.save(args, workdir / "args.pt")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, task, str(r), str(world), str(workdir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=REPO) for r in range(world)]
+
+    def wait() -> list:
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=timeout)[0])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise
+        if any(p.returncode for p in procs):
+            raise AssertionError("\n".join(
+                f"--- rank {r} exited {p.returncode}:\n{o}"
+                for r, (p, o) in enumerate(zip(procs, outs))))
+        return [torch.load(workdir / f"rank{r}.pt", weights_only=False)
+                for r in range(world)]
+    return wait
+
+
+def meshes(world: int, device: str = "cpu"):
+    """Every mesh of MESHES that fits the job, over its first ranks, on
+    ``gloo``: ``(shape, mesh or None)`` on every rank (None outside the
+    mesh)."""
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    for data, model in MESHES:
+        if data * model <= world:
+            yield (data, model), make_serve_mesh(
+                data, model, backend="gloo", device=device,
+                ranks=list(range(data * model)))
+
+
+# ------------------------------------------------------------------ tasks
+
+def _operands(args):
+    r = np.random.default_rng(args["seed"])
+    x = r.normal(size=args["x_shape"]).astype(np.float32)
+    w = r.normal(size=args["w_shape"]).astype(np.float32)
+    post = {k: r.normal(size=(args["w_shape"][1],)).astype(np.float32)
+            for k in ("scale", "bias")}
+    return x, w, post
+
+
+def task_shard(args) -> dict:
+    """``sharded_program_matmul`` on every case of ``args["cases"]``
+    (``(mesh, tag, backend, bank_n, with_post, tiled)``): the result of
+    dispatch under the mesh, and of ``sharded_program_matmul`` called
+    directly; both on a whole image (``tiled`` False: sliced per rank)
+    or on the rank's compiled tile."""
+    from repro_torch import accel
+    from repro_torch.accel.program import _compile_image, partition_for
+    from repro_torch.accel.shard import sharded_program_matmul
+    from repro_torch.core.datapath import Postreduce
+    from repro_torch.distributed.autoshard import use_mesh
+
+    x, w, post_regs = _operands(args)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    post = Postreduce(scale=torch.from_numpy(post_regs["scale"]),
+                      bias=torch.from_numpy(post_regs["bias"]),
+                      act="relu", saturate=True)
+    out = {}
+    for shape, mesh in meshes(args["world"]):
+        if mesh is None:
+            continue
+        for tag, backend, bank_n, with_post, tiled in args["cases"]:
+            # "whole": per-device rows are whole banks
+            spec = accel.ExecSpec(backend=backend, ba=4, bx=4, tag=tag,
+                                  bank_n=(w.shape[0] // shape[1]
+                                          if bank_n == "whole" else bank_n))
+            part = partition_for(tag, w.shape[0], w.shape[1], shape[1])
+            img = _compile_image(wt, spec, "p", shards=shape[1],
+                                 partition=part,
+                                 tile=mesh.index("model") if tiled else None)
+            p = post if with_post else None
+            with torch.inference_mode(), use_mesh(mesh):
+                y = accel.matmul(xt, wt, spec, image=img, post=p)
+                y_direct = sharded_program_matmul(xt, spec, img, mesh,
+                                                  post=p)
+            key = (shape, tag, backend, spec.bank_n, with_post, tiled)
+            out[key] = (y, y_direct)
+    return out
+
+
+def task_mesh(args) -> dict:
+    """Each mesh's coordinates, group collectives and counts, and the
+    refusals of a mesh that does not fit the job."""
+    from repro_torch.launch.mesh import make_host_mesh, make_serve_mesh
+
+    rank = torch.distributed.get_rank()
+    out = {}
+    for shape, mesh in meshes(args["world"]):
+        if mesh is None:
+            out[shape] = None
+            continue
+        t = torch.tensor([[float(rank), 1.0]])
+        out[shape] = dict(
+            coords=mesh.coords, shape=dict(mesh.shape),
+            axis_names=mesh.axis_names,
+            model_sum=mesh.all_reduce(t, "model"),
+            data_sum=mesh.all_reduce(t, "data"),
+            model_cat=mesh.all_gather(t, "model", dim=-1),
+            data_cat=mesh.all_gather(t, "data", dim=0),
+            stats=dict(mesh.stats))
+    for data, model in ((3, 1), (2, 4)):
+        try:
+            make_serve_mesh(data, model, backend="gloo", device="cpu")
+        except ValueError as e:
+            out[f"refused {data}x{model}"] = str(e)
+    host = make_host_mesh(2, backend="gloo", device="cpu")
+    out["host"] = (dict(host.shape), host.coords)
+    return out
+
+
+def serve_all(params, cfg, scfg, prompts, requests, n_slots: int,
+              device="cpu") -> dict:
+    """Everything the serving tests compare, on one config and (maybe
+    meshed) ServeConfig: ``generate``'s tokens, prefill logits on the
+    config's backend and under ``digital_int``, the kernel route's
+    tokens, the per-tag calls and loads of a traced ``generate``, and the
+    streams of ``ContinuousBatcher`` and ``PagedScheduler`` on
+    ``requests`` (``(prompt, budget)`` pairs)."""
+    from repro_torch import accel
+    from repro_torch.serve import ContinuousBatcher, Engine, PagedScheduler
+
+    engine = Engine(params, cfg, scfg, device)
+    prompts = torch.as_tensor(prompts, device=engine.device)
+    with accel.trace() as records:
+        out = {"tokens": engine.generate(prompts)}
+    out["logits"] = engine.prefill(prompts)[0].cpu()
+    with accel.override(backend="digital_int"):
+        out["logits_digital_int"] = engine.prefill(prompts)[0].cpu()
+    with accel.override(backend="kernel"):
+        out["tokens_kernel"] = engine.generate(prompts)
+    calls: dict = {}
+    for r in records:
+        c = calls.setdefault(r.tag, [0, 0, 0])
+        c[0] += 1
+        c[1] += r.calls
+        c[2] += r.loads
+    out["trace"] = calls
+    out["partitions"] = sorted({(r.tag, r.partition, r.devices)
+                                for r in records})
+    for name, server in (("batcher", ContinuousBatcher),
+                         ("paged", PagedScheduler)):
+        srv = server(params, cfg, scfg, n_slots, device=device)
+        rids = [srv.submit(p, max_new_tokens=m) for p, m in requests]
+        res = srv.run()
+        out[name] = [res[r] for r in rids]
+    if engine.program is not None:
+        out["image_bytes"] = sum(
+            t.numel() * t.element_size()
+            for img in engine.program.images.values()
+            for t in (img.ws, img.wq, img.scale))
+    return out
+
+
+def task_serve(args) -> dict:
+    """:func:`serve_all` of each config in ``args["configs"]`` on every
+    mesh of the job, and ``ServeConfig.from_tuned`` on the 2 x 2 mesh."""
+    from repro_torch.serve import ServeConfig
+    from repro_torch.tune import TunedConfig
+
+    device = args.get("device", "cpu")
+    out = {}
+    for shape, mesh in meshes(args["world"], device):
+        if mesh is None:
+            continue
+        for name, (cfg, params) in args["configs"].items():
+            if shape not in args["meshes"][name]:
+                continue
+            scfg = ServeConfig(mesh=mesh, **args["serve"])
+            out[(shape, name)] = serve_all(params, cfg, scfg,
+                                           args["prompts"], args["requests"],
+                                           args["n_slots"], device)
+        if shape == (2, 2):
+            cfg, params = args["configs"][args["tuned_config"]]
+            tuned = TunedConfig(policy=cfg.policy, capacity_chips=None,
+                                data_shards=2, model_shards=2)
+            scfg = ServeConfig.from_tuned(tuned, mesh=mesh, **args["serve"])
+            from repro_torch.serve import Engine
+
+            engine = Engine(params, cfg, scfg, device=device)
+            out["tuned"] = (engine.generate(torch.as_tensor(args["prompts"])),
+                            scfg.shard_policy)
+    return out
+
+
+def main():
+    task, rank, world, workdir = sys.argv[1:5]
+    rank, world, workdir = int(rank), int(world), Path(workdir)
+    torch.set_num_threads(1)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{workdir / 'store'}", rank=rank,
+        world_size=world)
+    args = torch.load(workdir / "args.pt", weights_only=False)
+    args["world"] = world
+    out = globals()[f"task_{task}"](args)
+    torch.save(out, workdir / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    main()
