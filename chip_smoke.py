@@ -131,6 +131,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -174,7 +175,11 @@ from repro_torch.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
 from repro_torch.optim.qat import calibrate_bn_stats, noise_aware  # noqa: E402
 from repro_torch.serve import (ContinuousBatcher, Engine, PagedScheduler,  # noqa: E402
                                ServeConfig, host_sync)
-from repro_torch.train import build_train_step, init_train_state  # noqa: E402
+from repro_torch.train import (build_train_step, init_train_state,  # noqa: E402
+                               state_template)
+from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
+from repro_torch.distributed.sharding import (ShardPolicy, shard_tree,  # noqa: E402
+                                              state_specs)
 from repro_torch.train import cifar_qat, step as train_step  # noqa: E402
 from repro_torch.train.cifar_qat import fig11_accuracy, qat_update  # noqa: E402
 from repro_torch.train.trainer import CrashInjected, TrainerConfig, train  # noqa: E402
@@ -450,6 +455,19 @@ MESH_SHARDS = (2, 4)
 MESH_ROWS = (4, 128)
 MESH_SERVE = ((1, 2), (2, 2))
 MESH_TIMEOUT = 420
+# sharded training (train_mesh): full-width olmo-1b as train_lm trains it
+# on (data, model) meshes of gloo ranks sharing the card, each mesh in
+# its ShardPolicy mode; losses held to train_lm's of the same run (the
+# reference's own invariant and tolerance, and step 1 at the cost of the
+# global loss's summation order); the 2 x 2 mesh again with the kernel
+# routed to its plain version, and on the kernel, at MESH_PLAIN_LAYERS
+# layers (gloo's transfers of the whole tree set a step's time);
+# the reduced trainer crashed on 2 x 2 and resumed on 1 x 2 and 1 x 1
+TRAIN_MESHES = (((2, 2), "fsdp"), ((1, 2), "2d"))
+TRAIN_MESH_RTOL, TRAIN_MESH_FIRST_RTOL = 5e-3, 1e-6
+MESH_PLAIN_LAYERS = 1
+ELASTIC_STEPS, ELASTIC_CRASH = 6, 4
+OLMO_TREE_BYTES = 1_176_764_416 * 4                   # one float32 tree
 # ADC noise at the 0.85 V corner.  At fs = 255 (one bank of 255 rows, no
 # adaptive range) the clean ADC is exact and a code moves by
 # e = round(sigma z): P(e = +-1) = erfc(0.5 / (sigma sqrt 2)) = 0.09558,
@@ -472,8 +490,13 @@ def check(cond, msg: str) -> None:
         fail(msg)
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``t_s`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def cima_operands(coding, ba, bx, n, m, batch, seed=0, sparsity=0.3):
@@ -780,8 +803,9 @@ def device_profile(step, t_step_ms: float, steps: int = 3) -> dict:
     device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: host op events are not read, and turning them
+    # into events costs seconds a step at tens of thousands of ops
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
@@ -2762,6 +2786,8 @@ def phase_train_lm():
 
 
 def train_lm():
+    """Returns the main path's launches and its per-step losses and
+    gradient norms."""
     cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
     data_cfg = DataConfig(seq_len=LM_SEQ, global_batch=LM_BATCH,
                           vocab=cfg.vocab, seed=0)
@@ -2817,7 +2843,7 @@ def train_lm():
          forward_ms=t_fwd, backward_ms=t_bwd, step_profile=profile,
          max_memory_allocated_bytes=peak, device_memory_bytes=total_mem)
     torch.cuda.empty_cache()
-    return launches
+    return launches, [(s["loss"], s["grad_norm"]) for s in steps]
 
 
 def phase_trainer_resume():
@@ -3561,10 +3587,13 @@ def spawn_mesh(kind: str, data: int, model: int, args: dict) -> list:
     world = data * model
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
     torch.save(args, tmp / "args.pt")
+    # ranks sharing the card: expandable segments keep a rank's freed
+    # blocks from stranding memory the others need
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
          kind, str(tmp), str(r), str(world), str(data), str(model)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
         for r in range(world)]
     outs = []
     try:
@@ -3579,10 +3608,13 @@ def spawn_mesh(kind: str, data: int, model: int, args: dict) -> list:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode:
-            print(out[-4000:], file=sys.stderr, flush=True)
-            fail(f"{kind} on {data}x{model}: rank {r} exited {p.returncode}")
+    failed = [r for r, p in enumerate(procs) if p.returncode]
+    for r in failed:
+        print(f"--- rank {r}:\n{outs[r][-4000:]}", file=sys.stderr,
+              flush=True)
+    if failed:
+        fail(f"{kind} on {data}x{model}: ranks {failed} exited "
+             f"{[procs[r].returncode for r in failed]}")
     res = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
            for r in range(world)]
     for f in tmp.iterdir():
@@ -3814,6 +3846,237 @@ def worker_tuned(mesh, args) -> dict:
                                    for i in engine.program.images.values()}))
 
 
+def elastic_setup(root: Path):
+    """The reduced trainer of ``trainer_resume`` on the kernel, for the
+    elastic runs: (config, data, optimizer, TrainerConfig maker)."""
+    cfg = get_config("olmo-1b").reduced().with_accel("kernel", ba=4, bx=4)
+    data_cfg = DataConfig(seq_len=16, global_batch=4, vocab=cfg.vocab,
+                          seed=11)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2,
+                          total_steps=ELASTIC_STEPS)
+
+    def tcfg(name, crash=None):
+        return TrainerConfig(total_steps=ELASTIC_STEPS,
+                             ckpt_dir=str(root / name), ckpt_every=2,
+                             log_every=100, crash_at_step=crash)
+
+    return cfg, data_cfg, opt_cfg, tcfg
+
+
+def phase_train_mesh(lm_steps) -> int:
+    """Full-width olmo-1b trained on the kernel on a 1 x 2 ("2d") and a
+    2 x 2 ("fsdp") mesh of gloo ranks sharing the card (``train_mesh``:
+    ``build_train_step(mesh=)``, the mesh form of train_lm's main path,
+    LM_STEPS steps of LM_BATCH x LM_SEQ from seed 0, remat on).  Every
+    rank's losses within TRAIN_MESH_RTOL of train_lm's in this run (step
+    1 within TRAIN_MESH_FIRST_RTOL) and equal across ranks; 225 launches
+    a step a rank (113 forward, 112 remat), whatever its rows.  On 2 x 2
+    the steps again with the kernel routed to its plain version: losses
+    and gradient norms bitwise.  The reduced trainer (``train(mesh=)``)
+    crashed at ELASTIC_CRASH on 2 x 2 and resumed from its checkpoint
+    (full leaves) on 1 x 2 and on this process: final losses within
+    TRAIN_MESH_RTOL of the uninterrupted run's.  Per rank: ms a step by
+    phase (gather, forward and backward, gradient reduction, update),
+    collectives and bytes by phase, state bytes, peak memory, idle
+    share."""
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    launches = 0
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        tmp = Path(tmp)
+        cfg_r, data_r, opt_r, tcfg = elastic_setup(tmp)
+        _, ref = train(cfg_r, data_r, opt_r, tcfg("ref"),
+                       log_fn=lambda s: None, device="cuda")
+        for (data, model), mode in TRAIN_MESHES:
+            plain = (data, model) == (2, 2)
+            t0 = time.perf_counter()
+            res = spawn_mesh("train", data, model, dict(
+                mode=mode, plain=plain, elastic=str(tmp),
+                elastic_role="crash" if plain else "resume"))
+            seconds = time.perf_counter() - t0
+            if plain:
+                for name in ("crash_1x2", "crash_1x1"):
+                    shutil.copytree(tmp / "crash", tmp / name)
+            ranks = []
+            for r, got in enumerate(res):
+                what = f"train_mesh {data}x{model} rank {r}"
+                losses = [s["loss"] for s in got["steps"]]
+                check(losses == [s["loss"] for s in res[0]["steps"]],
+                      f"{what}: losses differ from rank 0's")
+                for k, (s, (want, _)) in enumerate(zip(got["steps"],
+                                                       lm_steps)):
+                    rtol = TRAIN_MESH_FIRST_RTOL if k == 0 \
+                        else TRAIN_MESH_RTOL
+                    check(abs(s["loss"] - want) <= rtol * abs(want),
+                          f"{what}: step {k} loss {s['loss']} vs train_lm "
+                          f"{want} (rtol {rtol})")
+                split = [(s["launches_forward"], s["launches_backward_remat"])
+                         for s in got["steps"]]
+                check(split == [(LAUNCHES_PER_FORWARD, LM_LAUNCHES_PER_STEP
+                                 - LAUNCHES_PER_FORWARD)] * LM_STEPS,
+                      f"{what}: launches (forward, backward) {split}")
+                launches += got["launches"] + got["elastic_launches"]
+                if plain:
+                    for a, b in zip(got["steps_at_plain_depth"],
+                                    got["plain"]):
+                        for k in ("loss", "grad_norm"):
+                            check(a[k] == b[k], f"{what}: {k} on the "
+                                  f"kernel {a[k]} vs plain {b[k]}")
+                ranks.append(dict(
+                    rank=r, coords=got["coords"], steps=got["steps"],
+                    launches=got["launches"],
+                    state_bytes=got["state_bytes"],
+                    state_bytes_over_unsharded=got["state_bytes"]
+                    / (3 * OLMO_TREE_BYTES),
+                    max_memory_allocated_bytes=got["peak_bytes"],
+                    step_profile=got["profile"],
+                    plain_route=got.get("plain"),
+                    elastic=got["elastic"]))
+            # step 1 warms up, the last is profiled
+            t_step = statistics.median(
+                s["ms"] for x in ranks for s in x["steps"][1:-1])
+            emit("train_mesh", config="olmo-1b",
+                 layers=get_config("olmo-1b").n_layers,
+                 mesh={"data": data, "model": model}, mode=mode,
+                 backend="gloo", device="cuda:0 shared by every rank",
+                 seq=LM_SEQ, batch=LM_BATCH, steps=LM_STEPS,
+                 train_lm_losses=[x[0] for x in lm_steps],
+                 losses=[s["loss"] for s in res[0]["steps"]],
+                 loss_rel_diff_vs_train_lm=[
+                     abs(s["loss"] - w[0]) / abs(w[0])
+                     for s, w in zip(res[0]["steps"], lm_steps)],
+                 grad_norms=[s["grad_norm"] for s in res[0]["steps"]],
+                 train_lm_grad_norms=[x[1] for x in lm_steps],
+                 plain_route_layers=MESH_PLAIN_LAYERS if plain
+                 else None, equal_to_plain_route_bitwise=plain or None,
+                 ms_per_step_median=t_step,
+                 tokens_per_s=LM_SEQ * LM_BATCH / t_step * 1e3,
+                 unsharded_state_bytes=3 * OLMO_TREE_BYTES,
+                 phase_s=seconds, ranks=ranks)
+        cks = ckpt_lib.list_checkpoints(str(tmp / "crash_1x1"))
+        check(cks and cks[-1][0] == ELASTIC_CRASH,
+              f"the 2 x 2 crash left checkpoints {cks}")
+        with np.load(Path(cks[-1][1]) / "arrays.npz") as z:
+            shapes = [z[f"a{i}"].shape for i in range(len(z.files))]
+        full = state_template(init_params(cfg_r, data_r.seed, "cuda"))
+        check(shapes == [tuple(t.shape) for t in leaves(full)],
+              f"checkpoint leaves {shapes} are not full")
+        _, one = train(cfg_r, data_r, opt_r, tcfg("crash_1x1"),
+                       log_fn=lambda s: None, device="cuda")
+    resumed = [x["elastic"] for x in res]    # the 1 x 2 ranks' resumes
+    for hist, what in [(h, f"1 x 2 rank {r}")
+                       for r, h in enumerate(resumed)] + [(one, "1 x 1")]:
+        check(hist[0]["step"] == ELASTIC_CRASH,
+              f"elastic resume on {what} at step {hist[0]['step']}")
+        check(abs(hist[-1]["loss"] - ref[-1]["loss"])
+              <= TRAIN_MESH_RTOL * abs(ref[-1]["loss"]),
+              f"elastic resume on {what}: final loss {hist[-1]['loss']} "
+              f"vs {ref[-1]['loss']}")
+    emit("train_mesh_elastic", config="olmo-1b reduced", backend="kernel",
+         saved_on={"data": 2, "model": 2, "mode": "fsdp"},
+         crash_at_step=ELASTIC_CRASH, steps=ELASTIC_STEPS,
+         checkpoint_leaf_shapes_full=True,
+         uninterrupted_final_loss=ref[-1]["loss"],
+         resumed_1x2_final_loss=resumed[0][-1]["loss"],
+         resumed_1x1_final_loss=one[-1]["loss"])
+    return launches
+
+
+def worker_train(mesh, args) -> dict:
+    """One rank of ``train_mesh``."""
+    torch.use_deterministic_algorithms(True)
+    cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
+    policy = ShardPolicy(args["mode"])
+    data_cfg = DataConfig(seq_len=LM_SEQ, global_batch=LM_BATCH,
+                          vocab=cfg.vocab, seed=0)
+    batches = [make_batch(data_cfg, s, "cuda") for s in range(LM_STEPS)]
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=200)
+
+    def run(cfg, route=None, profiled=False):
+        """LM_STEPS steps from seed 0; with ``profiled`` the last one runs
+        under the profiler (``device_profile``): a rank's steps are tens
+        of seconds, so the phase profiles its main path's last step
+        rather than add one."""
+        params = init_params(cfg, 0, device="cuda")
+        specs = state_specs(state_template(params), mesh, policy)
+        holder = [init_train_state(shard_tree(params, specs.params, mesh))]
+        del params
+        torch.cuda.empty_cache()
+        step_fn = build_train_step(cfg, opt_cfg, mesh=mesh,
+                                   shard_policy=policy, specs=specs)
+        scope = (routed_launches(route, keep=False) if route is not None
+                 else contextlib.nullcontext())
+        out, profile = [], None
+        torch.cuda.synchronize()
+        with scope, backward_marks(train_step, "loss_fn") as marks:
+            for k, b in enumerate(batches):
+                n0 = K.cima_mvm_planes.launches
+                t0 = time.perf_counter()
+                metrics = []
+
+                def one(b=b):
+                    holder[0], m = step_fn(holder[0], b)
+                    metrics.append(m)
+
+                if profiled and k == len(batches) - 1:
+                    profile = device_profile(one, 1.0, steps=1)
+                else:
+                    one()
+                torch.cuda.synchronize()
+                n1 = K.cima_mvm_planes.launches
+                out.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                launches_forward=marks[-1] - n0,
+                                launches_backward_remat=n1 - marks[-1],
+                                loss=float(metrics[0]["loss"]),
+                                grad_norm=float(metrics[0]["grad_norm"]),
+                                profiled=profile is not None
+                                and k == len(batches) - 1,
+                                **step_fn.clock.steps[-1]))
+        if profile is not None and profile["device_busy_ms_per_step"]:
+            # against an unprofiled step (the first warms up)
+            profile["device_idle_share"] = \
+                1.0 - profile["device_busy_ms_per_step"] / out[1]["ms"]
+        return holder[0], out, profile
+
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts at 0 just before, read just after
+    K.cima_mvm_planes.launches = 0
+    state, steps, profile = run(cfg, profiled=True)
+    out = dict(coords=mesh.coords, steps=steps,
+               launches=K.cima_mvm_planes.launches,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               state_bytes=tensor_bytes(state), profile=profile)
+    del state
+    torch.cuda.empty_cache()
+    if args["plain"]:
+        small = dataclasses.replace(cfg, n_layers=MESH_PLAIN_LAYERS)
+        before = K.cima_mvm_planes.launches
+        out["steps_at_plain_depth"] = run(small)[1]
+        out["plain"] = run(small, K.cima_mvm_planes_reference)[1]
+        check(K.cima_mvm_planes.launches - before
+              == LM_STEPS * (MESH_PLAIN_LAYERS * 14 + 1),
+              "the plain route launched the kernel")
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    cfg_r, data_r, opt_r, tcfg = elastic_setup(Path(args["elastic"]))
+    K.cima_mvm_planes.launches = 0
+    if args["elastic_role"] == "crash":
+        try:
+            train(cfg_r, data_r, opt_r, tcfg("crash", ELASTIC_CRASH),
+                  log_fn=lambda s: None, mesh=mesh,
+                  shard_policy=ShardPolicy("fsdp"), device="cuda")
+            check(False, "no injected crash")
+        except CrashInjected:
+            out["elastic"] = None
+    else:
+        out["elastic"] = train(cfg_r, data_r, opt_r, tcfg("crash_1x2"),
+                               log_fn=lambda s: None, mesh=mesh,
+                               shard_policy=policy, device="cuda")[1]
+    out["elastic_launches"] = K.cima_mvm_planes.launches
+    return out
+
+
 def mesh_worker(argv) -> None:
     """``--mesh-worker <kind> <dir> <rank> <world> <data> <model>``: one
     rank of a mesh phase, on the card its parent uses."""
@@ -3825,7 +4088,8 @@ def mesh_worker(argv) -> None:
                            init_method=f"file://{tmp / 'store'}",
                            rank=int(rank), world_size=int(world))
     args = torch.load(tmp / "args.pt", weights_only=False)
-    out = {"serve": worker_serve, "tuned": worker_tuned}[kind](mesh, args)
+    out = {"serve": worker_serve, "tuned": worker_tuned,
+           "train": worker_train}[kind](mesh, args)
     torch.save(out, tmp / f"rank{rank}.pt")
     torch.distributed.destroy_process_group()
 
@@ -3858,13 +4122,14 @@ def main():
     cifar_rows, cifar_launches, cifar_err = phase_cifar(peaks)
     phase_serve_energy()
     qat_rows, qat_launches = phase_train_cifar()
-    lm_launches = phase_train_lm()
+    lm_launches, lm_steps = phase_train_lm()
     trainer_launches = phase_trainer_resume()
     moe_train_launches = phase_train_moe()
     tune_launches, tuned = phase_tune()
     mesh_err, mesh_rows = phase_mesh_shapes(peaks)
     mesh_launches, mesh_step = phase_serve_mesh()
     tuned_mesh_launches = phase_serve_tuned_mesh(tuned)
+    train_mesh_launches = phase_train_mesh(lm_steps)
     phase_noise()
     phase_noise_qat()
     phase_noise_corner()
@@ -3891,7 +4156,8 @@ def main():
                      + ds_batcher_launches + wh_launches + fr_launches
                      + paged_launches + paged_archs_launches
                      + moe_train_launches + tune_launches
-                     + mesh_launches + tuned_mesh_launches),
+                     + mesh_launches + tuned_mesh_launches
+                     + train_mesh_launches),
         "max_abs_err": max(err_cases, err_main, cifar_err, rec_err, moe_err,
                            fr_err, mesh_err),
         "ms": step["ms"], "plain_ms": step["plain_ms"],
@@ -3932,8 +4198,13 @@ def main():
                "generate, 113 tile launches a forward, and the 2 x 2 "
                "ranks' PagedScheduler runs) and serve_tuned_mesh's ranks "
                "(reduced olmo-1b on the tuned pick's mesh, 29 a forward, "
-               "8 forwards); the noisy paths (noise, noise_qat, noise_corner) run bpbs "
-               "and launch it 0 times",
+               "8 forwards); train_mesh's ranks (full-width olmo-1b "
+               "trained on 2 x 2 fsdp and 1 x 2 2d gloo meshes sharing "
+               "the card: 3 steps of 225 launches a rank, 113 forward and "
+               "112 remat, whatever its rows; the reduced trainer's 4 "
+               "steps a rank crashed on 2 x 2 and 2 resumed on 1 x 2, 29 "
+               "each); the noisy paths (noise, noise_qat, noise_corner) "
+               "run bpbs and launch it 0 times",
         "mesh_decode_step_ms": {f"{d}x{m}": v
                                 for (d, m), v in mesh_step.items()},
         "mesh_tiles_b4": [dict(name=k[0], part=k[1], shards=k[2], **v)

@@ -26,6 +26,7 @@ from repro_torch.core.bpbs import (bpbs_matmul_planes,
                                    bpbs_matmul_planes_reference,
                                    weight_planes)
 from repro_torch.core.quant import Coding, QTensor, quantize
+from repro_torch.distributed.autoshard import batch_stats
 from repro_torch.kernels import ops as kernel_ops
 
 from .context import ExecContext
@@ -37,8 +38,15 @@ def quantize_input(x: torch.Tensor, spec: ExecSpec) -> QTensor:
     """Quantize the dynamic input onto the spec's grid (int8 values);
     ``spec.x_per_row`` keeps one scale per input row.  The 8-bit XNOR
     grid reaches +128, which the int8 cast saturates to 127 as XLA's
-    float-to-int conversion does (a torch cast would wrap it to -128)."""
-    qx = quantize(x, spec.bx, spec.coding, per_row=spec.x_per_row)
+    float-to-int conversion does (a torch cast would wrap it to -128).
+    Inside a training step on a mesh
+    (:func:`~repro_torch.distributed.autoshard.global_batch`) a
+    per-tensor scale is the global batch's."""
+    return _int8(quantize(x, spec.bx, spec.coding, per_row=spec.x_per_row,
+                          across=None if spec.x_per_row else batch_stats()))
+
+
+def _int8(qx: QTensor) -> QTensor:
     return dataclasses.replace(
         qx, q=torch.clamp(qx.q, -128, 127).to(torch.int8))
 
@@ -62,8 +70,8 @@ def quantize_input_groups(x: torch.Tensor, spec: ExecSpec) -> QTensor:
         return QTensor(torch.stack([p.q for p in parts]),
                        torch.stack([p.scale for p in parts]).reshape(g, 1, 1),
                        spec.bx, spec.coding)
-    qx = quantize_input(x.reshape(g, -1), dataclasses.replace(
-        spec, x_per_row=True))
+    qx = _int8(quantize(x.reshape(g, -1), spec.bx, spec.coding,
+                        per_row=True, across=batch_stats()))
     return QTensor(qx.q.reshape(x.shape), qx.scale.reshape(g, 1, 1),
                    spec.bx, spec.coding)
 

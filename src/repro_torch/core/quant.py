@@ -73,10 +73,16 @@ class QTensor:
 
 def quantize(x: torch.Tensor, bits: int, coding: Coding,
              axis: Optional[int] = None, eps: float = 1e-12,
-             per_row: bool = False) -> QTensor:
+             per_row: bool = False, across=None) -> QTensor:
     """Symmetric per-tensor, per-axis (``axis`` kept) or per-row (one scale
     per leading index, reduced over the last axis) quantization onto the
-    coding grid.  ``per_row`` and ``axis`` are mutually exclusive."""
+    coding grid.  ``per_row`` and ``axis`` are mutually exclusive.
+
+    ``across`` (a :class:`~repro_torch.distributed.autoshard.BatchStats`)
+    makes the statistic span ranks that each hold an equal block of the
+    rest of ``x``: the amax is the maximum over them (the same in any
+    order), the XNOR 1-bit mean their summed total over the global
+    element count (another summation order than one rank's mean)."""
     coding = Coding(coding)
     if per_row and axis is not None:
         raise ValueError("quantize: per_row and axis are mutually exclusive")
@@ -90,11 +96,18 @@ def quantize(x: torch.Tensor, bits: int, coding: Coding,
         dims = tuple(i for i in range(x.ndim) if i != axis % x.ndim)
         return fn(ax, dim=dims, keepdim=True)
 
-    amax = torch.clamp_min(_reduce(torch.amax), eps)
+    if coding == Coding.XNOR and bits == 1:
+        if across is None:
+            mean = _reduce(torch.mean)
+        else:
+            total = across.sum(_reduce(torch.sum))
+            count = ax.numel() // max(total.numel(), 1) * across.size
+            mean = total / torch.full_like(total, float(count))
+        scale = torch.clamp_min(mean, eps)
+        return QTensor(torch.where(x >= 0, 1.0, -1.0), scale, bits, coding)
+    amax = _reduce(torch.amax)
+    amax = torch.clamp_min(amax if across is None else across.max(amax), eps)
     if coding == Coding.XNOR:
-        if bits == 1:
-            scale = torch.clamp_min(_reduce(torch.mean), eps)
-            return QTensor(torch.where(x >= 0, 1.0, -1.0), scale, bits, coding)
         half = 2.0 ** (bits - 2)
         scale = amax / (2.0 * half)
         level = torch.clamp(torch.round(x / (2.0 * scale)), -half, half)

@@ -1,12 +1,17 @@
 """Distribution layer: divisibility-aware sharding rules, the explicit
-:class:`ShardPolicy`, and the ambient serving mesh."""
-from .autoshard import (get_mesh, get_shard_policy, in_manual, manual,
-                        mesh_axis_size, set_mesh, use_mesh)
-from .sharding import (ShardPolicy, batch_specs, cache_specs, local_slice,
-                       param_specs, pick_spec)
+:class:`ShardPolicy`, the ambient serving mesh and the training step's
+global-batch scope."""
+from .autoshard import (BatchStats, batch_stats, get_mesh, get_shard_policy,
+                        global_batch, in_manual, manual, mesh_axis_size,
+                        set_mesh, use_mesh)
+from .sharding import (ShardPolicy, batch_specs, cache_specs, gather_leaf,
+                       local_slice, param_specs, pick_spec, shard_tree,
+                       state_specs, unshard_tree)
 
 __all__ = [
     "ShardPolicy", "param_specs", "batch_specs", "cache_specs",
-    "local_slice", "pick_spec", "get_mesh", "get_shard_policy",
+    "state_specs", "local_slice", "gather_leaf", "shard_tree",
+    "unshard_tree", "pick_spec", "get_mesh", "get_shard_policy",
     "in_manual", "manual", "mesh_axis_size", "set_mesh", "use_mesh",
+    "global_batch", "batch_stats", "BatchStats",
 ]

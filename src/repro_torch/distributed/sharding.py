@@ -129,7 +129,7 @@ def pick_spec(shape: Sequence[int], mesh,
 def local_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """This rank's part of ``t`` under ``spec`` (a view): each sharded dim
     cut into its axes' size, the rank's block by its mesh coordinates
-    (row-major over an axis tuple)."""
+    (row-major over an axis tuple).  :func:`gather_leaf` inverts it."""
     for dim, axes in enumerate(spec):
         if axes is None:
             continue
@@ -140,6 +140,70 @@ def local_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
         size = t.shape[dim] // axis_size(mesh, axes)
         t = t.narrow(dim, idx * size, size)
     return t
+
+
+def gather_leaf(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The full tensor from this rank's :func:`local_slice` of it: an
+    all-gather along each sharded dim over its axis or axes (every rank
+    of the mesh calls it)."""
+    for dim, axes in enumerate(spec):
+        if axes is not None:
+            t = mesh.all_gather(t, axes, dim)
+    return t
+
+
+def shard_tree(tree, specs, mesh):
+    """This rank's slices of a tree of full tensors under a spec tree of
+    the same structure (:func:`state_specs`, :func:`param_specs`): own
+    copies, so the full tensors can go; replicated leaves stay as they
+    are."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t, s: local_slice(t, s, mesh).clone()
+                    if any(a is not None for a in s) else t, tree, specs)
+
+
+def unshard_tree(tree, specs, mesh):
+    """The full tensors of a tree of this rank's slices (the inverse of
+    :func:`shard_tree`), gathered leaf by leaf."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t, s: gather_leaf(t, s, mesh), tree, specs)
+
+
+def spec_leaves(tree, specs) -> list:
+    """The specs of ``tree``'s leaves, in :func:`repro_torch.tree.leaves`
+    order (a spec is a tuple, so the spec tree alone does not say where
+    its leaves end)."""
+    from repro_torch.tree import tree_map
+
+    out: list = []
+    tree_map(lambda _t, s: out.append(s), tree, specs)
+    return out
+
+
+def sharded_leaf_reduce(values: list, tree, specs, mesh, op: str) -> list:
+    """Per-leaf statistics of a tree of slices (one 0-dim tensor a leaf
+    of ``tree``, in leaf order) reduced with ``op`` over the axes that
+    shard each leaf under ``specs``, one collective an axis; a statistic
+    of a leaf no axis shards stays as it is."""
+    if not values:
+        return values
+    v = torch.stack(values)
+    per_leaf = [sharded_axes(s) for s in spec_leaves(tree, specs)]
+    for a in ("data", "model"):
+        hit = [a in axes for axes in per_leaf]
+        if any(hit):
+            v = torch.where(torch.tensor(hit, device=v.device),
+                            mesh.all_reduce(v, a, op=op), v)
+    return list(v.unbind())
+
+
+def sharded_axes(spec: tuple) -> tuple:
+    """The mesh axes ``spec`` splits some dim over, in mesh order."""
+    used = {a for axes in spec if axes is not None
+            for a in ((axes,) if isinstance(axes, str) else axes)}
+    return tuple(a for a in ("data", "model") if a in used)
 
 
 # ------------------------------------------------------------- parameters
@@ -323,6 +387,23 @@ def cache_spec(shape, mesh, batch_size: int,
         else:
             spec.append(None)
     return _strip(spec)
+
+
+def state_specs(state, mesh, policy: Optional[ShardPolicy] = None):
+    """A :class:`~repro_torch.train.state.TrainState` of specs: params, the
+    AdamW moments and the compression error tree (None without one) take
+    the parameter rules; ``count`` and ``step`` replicate (``()``).
+    ``state`` holds full shapes (tensors or anything with ``shape``)."""
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.train.state import TrainState
+
+    return TrainState(
+        params=param_specs(state.params, mesh, policy),
+        opt=OptState(mu=param_specs(state.opt.mu, mesh, policy),
+                     nu=param_specs(state.opt.nu, mesh, policy), count=()),
+        error=(None if state.error is None
+               else param_specs(state.error, mesh, policy)),
+        step=())
 
 
 def cache_specs(cache, mesh, batch_size: int,

@@ -18,11 +18,18 @@ The collective backend is an explicit argument, never chosen by trying:
   through host memory itself; only the collective's bytes leave the
   card.
 
-``stats`` counts the collectives this rank issued and their bytes.
+A collective names one mesh axis or a tuple of them; over a tuple it
+runs axis by axis (reductions in the tuple's order, gathers innermost
+axis first, so a dim split over ``("data", "model")`` reassembles in
+row-major block order).  Training adds the max reduction (a shared
+quantization scale, ``compress_psum``'s ``pmax``) and :meth:`ServeMesh.
+barrier`.  ``stats`` counts the collectives this rank issued and their
+bytes.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Optional
 
@@ -31,6 +38,7 @@ import torch.distributed as dist
 
 AXES = ("data", "model")
 BACKENDS = ("gloo", "nccl")
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 @dataclasses.dataclass
@@ -75,31 +83,62 @@ class ServeMesh:
                                f"{self.size(axis)} has no process group")
         return self.groups[axis]
 
+    def size_of(self, axes) -> int:
+        """The product of the sizes of ``axes`` (an axis or a tuple)."""
+        return math.prod(self.size(a) for a in _axes(axes))
+
     def _count(self, t: torch.Tensor) -> None:
         self.stats["collectives"] += 1
         self.stats["bytes"] += t.numel() * t.element_size()
 
-    def all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
-        """The sum of ``t`` over ``axis`` (a new tensor)."""
-        group = self._group(axis)
-        if group is None:
+    def all_reduce(self, t: torch.Tensor, axis, op: str = "sum") \
+            -> torch.Tensor:
+        """The sum (``op="sum"``) or maximum (``"max"``) of ``t`` over
+        ``axis`` (a new tensor; ``t`` itself where no axis is wider than
+        1)."""
+        if all(self._group(a) is None for a in _axes(axis)):
             return t
-        self._count(t)
-        out = t.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
+        return self.all_reduce_(t.contiguous().clone(), axis, op)
 
-    def all_gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    def all_reduce_(self, t: torch.Tensor, axis, op: str = "sum") \
+            -> torch.Tensor:
+        """:meth:`all_reduce` in place on a contiguous ``t``; returns
+        it."""
+        if op not in _OPS:
+            raise ValueError(f"op must be one of {sorted(_OPS)}, got {op!r}")
+        for a in _axes(axis):
+            group = self._group(a)
+            if group is not None:
+                self._count(t)
+                dist.all_reduce(t, op=_OPS[op], group=group)
+        return t
+
+    def all_gather(self, t: torch.Tensor, axis, dim: int) -> torch.Tensor:
         """The ranks' ``t`` along ``axis`` concatenated on ``dim`` in
-        mesh order."""
-        group = self._group(axis)
-        if group is None:
-            return t
-        self._count(t)
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.size(axis))]
-        dist.all_gather(parts, t, group=group)
-        return torch.cat(parts, dim=dim)
+        mesh order (over a tuple, row-major over its axes)."""
+        for a in reversed(_axes(axis)):
+            group = self._group(a)
+            if group is None:
+                continue
+            self._count(t)
+            t = t.contiguous()
+            parts = [torch.empty_like(t) for _ in range(self.size(a))]
+            dist.all_gather(parts, t, group=group)
+            t = torch.cat(parts, dim=dim)
+        return t
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh (a barrier on each axis's
+        group: a rank leaves the second only after every rank reached
+        the first).  Not counted in ``stats``."""
+        for a in AXES:
+            group = self._group(a)
+            if group is not None:
+                dist.barrier(group=group)
+
+
+def _axes(axis) -> tuple:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
 def _default_device() -> torch.device:

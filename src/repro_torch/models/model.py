@@ -32,6 +32,7 @@ from typing import Any, NamedTuple, Optional, Union
 import torch
 
 from repro_torch.accel import matmul as accel_matmul, vmapped
+from repro_torch.distributed.autoshard import batch_stats
 from repro_torch.tree import tree_map
 
 from . import attention as attn_mod
@@ -211,7 +212,11 @@ def loss_fn(params, batch: dict, cfg):
     ``tokens`` [B, S] (+ optional ``loss_mask`` and ``frontend_embeds``;
     without a ``loss_mask`` an early-fusion decoder scores no target
     below ``frontend_seq``).  Returns (loss, metrics) with ``loss``,
-    ``ce``, ``aux`` and ``tokens`` (the masked target count)."""
+    ``ce``, ``aux`` and ``tokens`` (the masked target count).  Inside a
+    training step on a mesh (:func:`~repro_torch.distributed.autoshard.
+    global_batch`) ``batch`` is this rank's rows: the count and the
+    metrics are the global batch's, and the loss returned is this rank's
+    share of the global one."""
     tokens = batch["tokens"]
     logits, aux = forward(params, tokens, cfg,
                           frontend_embeds=batch.get("frontend_embeds"))
@@ -228,10 +233,20 @@ def loss_fn(params, batch: dict, cfg):
             mask = mask * (pos >= cfg.frontend_seq)[None, :]
     else:
         mask = mask[:, 1:].to(torch.float32)
-    denom = torch.clamp_min(mask.sum(), 1.0)
-    ce = (nll * mask).sum() / denom
-    loss = ce + 0.01 * aux
-    return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": denom}
+    stats = batch_stats()
+    if stats is None:
+        denom = torch.clamp_min(mask.sum(), 1.0)
+        ce = (nll * mask).sum() / denom
+        loss = ce + 0.01 * aux
+        return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": denom}
+    # a rank's rows of the global batch: its nll sum over the global
+    # count, so the ranks' gradients sum to the global loss's (no config
+    # with routed experts trains on a mesh: aux is 0)
+    denom = torch.clamp_min(stats.sum(mask.sum()), 1.0)
+    part = (nll * mask).sum() / denom
+    ce = stats.sum(part.detach())
+    return part + 0.01 * aux, {"loss": ce + 0.01 * aux, "ce": ce,
+                               "aux": aux, "tokens": denom}
 
 
 # ---------------------------------------------------------------- serving

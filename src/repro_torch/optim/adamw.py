@@ -64,22 +64,37 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * cos
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves(tree)))
+def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
+    """The norm of the whole tree.  With ``specs`` and ``mesh`` the tree
+    holds this rank's slices (:func:`~repro_torch.distributed.sharding.
+    shard_tree`): each leaf's sum of squares is summed over the axes that
+    shard it (a replicated leaf counts once), so every rank gets the full
+    tree's norm, its sums in another order."""
+    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in leaves(tree)]
+    if specs is not None:
+        from repro_torch.distributed.sharding import sharded_leaf_reduce
+
+        sq = sharded_leaf_reduce(sq, tree, specs, mesh, "sum")
+    return torch.sqrt(sum(sq))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """``grads`` scaled to at most ``max_norm`` and their norm (``norm``
+    when given: the norm of the tree that ``grads`` slices)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp_max(f32(max_norm, norm)
                             / torch.clamp_min(norm, 1e-9), 1.0)
     return tree_map(lambda g: g * scale, grads), norm
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state: OptState, cfg: AdamWConfig):
-    """One AdamW step.  Returns (new_params, new_state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+def apply_updates(params, grads, state: OptState, cfg: AdamWConfig,
+                  norm=None):
+    """One AdamW step.  Returns (new_params, new_state, metrics).
+    ``norm``: the gradient's global norm, when ``grads`` are one rank's
+    slices of the gradient."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm)
     b1, b2 = cfg.betas
     count = state.count + 1
     lr = schedule(cfg, state.count)

@@ -9,6 +9,11 @@
   spelled as ``jax.tree_util.keystr`` spells them, so a checkpoint the
   JAX package wrote restores into the port and back.  Dtypes numpy lacks
   (bfloat16) are stored as float32 and cast back on restore.
+* Elastic: leaves are stored whole.  On a mesh the checkpointer gathers
+  each leaf from its slices, one rank writes and every rank waits for
+  it (so no rank resumes from an older step); :func:`restore` with a
+  spec tree cuts this rank's slices from the full arrays, so a job saved
+  on one mesh shape resumes on another or on one device.
 """
 from __future__ import annotations
 
@@ -58,15 +63,24 @@ def save(ckpt_dir: str, step: int, tree: Any) -> str:
 
 class AsyncCheckpointer:
     """Fire-and-forget saves on a worker thread; at most one in flight.
-    A failed save raises from the next :meth:`save` or :meth:`wait`."""
+    A failed save raises from the next :meth:`save` or :meth:`wait`.
 
-    def __init__(self, ckpt_dir: str, keep: int = 3):
+    With ``mesh`` and ``specs`` (a tree of this rank's slices and its
+    spec tree) every rank of the mesh calls :meth:`save`: the leaves are
+    gathered to the host whole, rank 0 writes, and the save returns on
+    every rank once the checkpoint is in place."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3, mesh=None, specs=None):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.mesh, self.specs = mesh, specs
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
 
     def save(self, step: int, tree: Any):
+        if self.mesh is not None:
+            self._save_on_mesh(step, tree)
+            return
         host_tree = tree_map(lambda t: t.detach().to("cpu", copy=True),
                              tree)                    # snapshot now
         self.wait()
@@ -80,6 +94,21 @@ class AsyncCheckpointer:
 
         self._thread = threading.Thread(target=_run, daemon=True)
         self._thread.start()
+
+    def _save_on_mesh(self, step: int, tree: Any) -> None:
+        from repro_torch.distributed.sharding import gather_leaf
+
+        first = self.mesh.rank == 0
+
+        def to_host(t, spec):
+            full = gather_leaf(t, spec, self.mesh)   # every rank gathers
+            return full.detach().to("cpu", copy=True) if first else None
+
+        host_tree = tree_map(to_host, tree, self.specs)
+        if first:
+            save(self.ckpt_dir, step, host_tree)
+            gc_old(self.ckpt_dir, self.keep)
+        self.mesh.barrier()
 
     def wait(self):
         if self._thread is not None:
@@ -113,15 +142,15 @@ def gc_old(ckpt_dir: str, keep: int):
         shutil.rmtree(path, ignore_errors=True)
 
 
-def restore(path: str, template: Any, sharding_tree: Any = None):
-    """Restore into ``template``'s structure: each leaf takes its
-    template leaf's dtype and device.  Returns ``(tree, step)``.
-    ``sharding_tree`` (re-sharding for a mesh) comes with the port's
-    sharded-training slice."""
-    if sharding_tree is not None:
-        raise NotImplementedError(
-            "restore under a sharding comes with the port's "
-            "sharded-training slice")
+def restore(path: str, template: Any, sharding_tree: Any = None,
+            mesh=None):
+    """Restore into ``template``'s structure (full shapes): each leaf
+    takes its template leaf's dtype and device.  Returns ``(tree,
+    step)``.  ``sharding_tree`` (a spec tree of ``template``'s
+    structure) re-shards for ``mesh``: each leaf is this rank's slice of
+    the stored array, the elastic-rescale path."""
+    if sharding_tree is not None and mesh is None:
+        raise ValueError("restore under a sharding needs its mesh")
     with open(os.path.join(path, _KEYFILE)) as f:
         manifest = json.load(f)
     with np.load(os.path.join(path, "arrays.npz")) as data:
@@ -134,6 +163,13 @@ def restore(path: str, template: Any, sharding_tree: Any = None):
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {name}: "
                              f"{arr.shape} vs {tuple(leaf.shape)}")
-        out.append(torch.from_numpy(arr).to(dtype=leaf.dtype,
-                                            device=leaf.device))
+        out.append(torch.from_numpy(arr))
+    if sharding_tree is not None:
+        from repro_torch.distributed.sharding import local_slice, spec_leaves
+
+        out = [local_slice(a, s, mesh).clone() for a, s in
+               zip(out, spec_leaves(template, sharding_tree))]
+    out = [a.to(dtype=leaf.dtype, device=leaf.device)
+           for a, leaf in zip(out, (leaf for _, leaf in
+                                    leaves_with_path(template)))]
     return unflatten(template, out), manifest["step"]

@@ -7,6 +7,7 @@ import torch
 
 from repro_torch.optim.adamw import OptState, init_opt_state
 from repro_torch.optim.compression import init_error_state
+from repro_torch.tree import leaves
 
 
 class TrainState(NamedTuple):
@@ -24,3 +25,15 @@ def init_train_state(params, use_compression: bool = False) -> TrainState:
         error=init_error_state(params) if use_compression else None,
         step=torch.zeros((), dtype=torch.int32, device=opt.count.device),
     )
+
+
+def state_template(params, use_compression: bool = False) -> TrainState:
+    """A TrainState of full shapes that holds no moments: ``params``
+    stands in for mu, nu and the error tree.  It is what
+    :func:`~repro_torch.distributed.sharding.state_specs` and a
+    checkpoint restore read (shapes, dtypes, devices), so a rank of a
+    mesh never holds the whole moments."""
+    device = next(iter(leaves(params)), torch.zeros(())).device
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    return TrainState(params, OptState(params, params, zero),
+                      params if use_compression else None, zero)

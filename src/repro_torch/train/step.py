@@ -5,22 +5,54 @@ update.  Port of ``repro.train.step``.
 The steps run eagerly.  Every managed projection's forward runs on its
 backend (the CUDA kernel on the ``kernel`` backend); the straight-through
 backward is plain float32 GEMMs (:mod:`repro_torch.accel.dispatch`).
+
+On a ``data x model`` mesh (:func:`build_train_step` with ``mesh=``) the
+step is SPMD over the ranks, each holding its slices of the state under
+:func:`~repro_torch.distributed.sharding.state_specs`, and computes what
+the single-device step computes on the global batch, as the reference's
+step under ``jit`` with state shardings does:
+
+1. gather the full parameters from their slices;
+2. forward and backward on this rank's rows of the global batch (cut by
+   ``batch_specs`` over the policy's dp axes) inside
+   :func:`~repro_torch.distributed.autoshard.global_batch`, so a
+   per-tensor input scale and the loss's token count are the global
+   batch's;
+3. sum the gradient over the dp axes, leaf by leaf, and keep this rank's
+   slices of it;
+4. compress the reduced gradient (:func:`~repro_torch.optim.compression.
+   compress_sharded`), clip by its global norm, and run AdamW on this
+   rank's slices of params, mu and nu.
+
+In mode ``"2d"`` the model-axis ranks compute the same rows (no tensor-
+parallel compute in training yet).  Configs with routed experts do not
+train on a mesh: their capacity, dispatch and aux loss span the global
+token count (:data:`MOE_ON_MESH`).
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import torch
 
+from repro_torch.distributed import autoshard
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import loss_fn
-from repro_torch.optim.adamw import AdamWConfig, apply_updates, f32
+from repro_torch.optim.adamw import (AdamWConfig, apply_updates, f32,
+                                     global_norm)
 from repro_torch.optim.compression import (CompressionConfig,
-                                           compress_decompress)
+                                           compress_decompress,
+                                           compress_sharded)
 from repro_torch.tree import leaves, tree_map, unflatten
 
 from .state import TrainState
 
 METRICS = ("loss", "ce", "aux", "tokens")
+MOE_ON_MESH = (
+    "training a config with routed experts on a mesh is not ported: its "
+    "expert capacity, sort-based dispatch and Switch aux loss run over the "
+    "global token count (ROADMAP.md §1, item 4f)")
 
 
 def value_and_grad(fn: Callable, params, *args):
@@ -46,33 +78,47 @@ def _split_microbatches(batch: dict, n: int) -> list[dict]:
             for i in range(n)]
 
 
-def build_train_step(cfg, opt_cfg: AdamWConfig,
-                     comp_cfg: Optional[CompressionConfig] = None,
-                     microbatches: int = 1):
-    """``train_step(state, batch) -> (state, metrics)``; metrics are 0-dim
-    device tensors (``loss``, ``ce``, ``aux``, ``tokens``, ``grad_norm``,
-    ``lr``)."""
-    def grads_of(params, batch):
+def _grads(cfg, params, batches, step: torch.Tensor):
+    """``(metrics, grads)`` of ``loss_fn`` on ``params``, averaged over
+    ``batches`` (the microbatches; one batch as it is)."""
+    def grads_of(batch):
         (_, metrics), grads = value_and_grad(
             lambda p: loss_fn(p, batch, cfg), params)
         return metrics, grads
 
+    if len(batches) == 1:
+        return grads_of(batches[0])
+    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+    msum = {k: torch.zeros((), dtype=torch.float32, device=step.device)
+            for k in METRICS}
+    for one in batches:
+        metrics, grads = grads_of(one)
+        gsum = tree_map(torch.add, gsum, grads)
+        msum = {k: msum[k] + metrics[k] for k in METRICS}
+    n = f32(len(batches), step)
+    return ({k: v / n for k, v in msum.items()},
+            tree_map(lambda g: g / n, gsum))
+
+
+def build_train_step(cfg, opt_cfg: AdamWConfig,
+                     comp_cfg: Optional[CompressionConfig] = None,
+                     microbatches: int = 1, mesh=None, shard_policy=None,
+                     specs=None):
+    """``train_step(state, batch) -> (state, metrics)``; metrics are 0-dim
+    device tensors (``loss``, ``ce``, ``aux``, ``tokens``, ``grad_norm``,
+    ``lr``).  With ``mesh`` (and ``shard_policy``) the step takes this
+    rank's slices of the state under ``specs`` (the
+    :func:`~repro_torch.distributed.sharding.state_specs` of the full
+    state) and the global batch; see the module docstring."""
+    if mesh is not None:
+        return _build_mesh_step(cfg, opt_cfg, comp_cfg, microbatches, mesh,
+                                shard_policy, specs)
+
     def train_step(state: TrainState, batch: dict):
-        if microbatches > 1:
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=p.device),
-                            state.params)
-            msum = {k: torch.zeros((), dtype=torch.float32,
-                                   device=state.step.device) for k in METRICS}
-            for one in _split_microbatches(batch, microbatches):
-                metrics, grads = grads_of(state.params, one)
-                gsum = tree_map(torch.add, gsum, grads)
-                msum = {k: msum[k] + metrics[k] for k in METRICS}
-            n = f32(microbatches, state.step)
-            grads = tree_map(lambda g: g / n, gsum)
-            metrics = {k: v / n for k, v in msum.items()}
-        else:
-            metrics, grads = grads_of(state.params, batch)
+        batches = (_split_microbatches(batch, microbatches)
+                   if microbatches > 1 else [batch])
+        metrics, grads = _grads(cfg, state.params, batches, state.step)
 
         error = state.error
         if comp_cfg is not None and comp_cfg.enabled:
@@ -83,6 +129,102 @@ def build_train_step(cfg, opt_cfg: AdamWConfig,
         metrics = {**metrics, **opt_metrics}
         return TrainState(new_params, new_opt, error, state.step + 1), metrics
 
+    return train_step
+
+
+class StepClock:
+    """Host-clock ms and mesh collectives of a mesh step's phases, one
+    dict a step in ``steps``: ``<phase>_ms``, ``<phase>_collectives`` and
+    ``<phase>_bytes`` for ``gather`` (the parameters), ``compute``
+    (forward and backward, with their statistics' reductions),
+    ``reduce`` (the gradient) and ``update`` (compression, norm,
+    AdamW).  A CUDA device is synchronized at each mark, so a phase's
+    device work lands in it."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.steps: list = []
+
+    def _now(self, device) -> float:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    def start(self, device) -> None:
+        self.steps.append({})
+        self._t = self._now(device)
+        self._s = dict(self.mesh.stats)
+
+    def mark(self, phase: str, device) -> None:
+        t, s = self._now(device), dict(self.mesh.stats)
+        step = self.steps[-1]
+        step[f"{phase}_ms"] = (t - self._t) * 1e3
+        step[f"{phase}_collectives"] = s["collectives"] - \
+            self._s["collectives"]
+        step[f"{phase}_bytes"] = s["bytes"] - self._s["bytes"]
+        self._t, self._s = t, s
+
+
+def _build_mesh_step(cfg, opt_cfg, comp_cfg, microbatches, mesh, policy,
+                     specs):
+    if specs is None:
+        raise ValueError("a train step on a mesh needs the state's specs "
+                         "(distributed.state_specs of the full state)")
+    if cfg.moe:
+        raise NotImplementedError(MOE_ON_MESH)
+    dp = shd.dp_axes(mesh, policy)
+    dp_size = mesh.size_of(dp)
+    clock = StepClock(mesh)
+
+    def rows(batch: dict) -> dict:
+        """This rank's rows of a (micro)batch of the global batch."""
+        b = batch["tokens"].shape[0]
+        if b % dp_size:
+            raise ValueError(f"batch {b} does not split over the dp axes "
+                             f"{dp} ({dp_size} ranks)")
+        bspecs = shd.batch_specs(batch, mesh, b, policy)
+        return tree_map(lambda t, s: shd.local_slice(t, s, mesh), batch,
+                        bspecs)
+
+    def reduced_slices(gl: list, like) -> list:
+        """The gradient's leaves ``gl`` summed over the dp axes, leaf by
+        leaf in place, and this rank's slice of each (each full leaf
+        dropped from ``gl`` as it goes); ``like`` is a tree of the
+        parameters' structure."""
+        out = []
+        for i, spec in enumerate(shd.spec_leaves(like, specs.params)):
+            g, gl[i] = mesh.all_reduce_(gl[i].contiguous(), dp), None
+            out.append(shd.local_slice(g, spec, mesh).clone()
+                       if any(a is not None for a in spec) else g)
+        return out
+
+    def train_step(state: TrainState, batch: dict):
+        device = state.step.device
+        clock.start(device)
+        params = shd.unshard_tree(state.params, specs.params, mesh)
+        clock.mark("gather", device)
+        batches = (_split_microbatches(batch, microbatches)
+                   if microbatches > 1 else [batch])
+        with autoshard.global_batch(mesh, policy):
+            metrics, grads = _grads(cfg, params, [rows(b) for b in batches],
+                                    state.step)
+        flat = leaves(grads)
+        del params, grads
+        clock.mark("compute", device)
+        grads = unflatten(state.params, reduced_slices(flat, state.params))
+        clock.mark("reduce", device)
+        error = state.error
+        if comp_cfg is not None and comp_cfg.enabled:
+            grads, error = compress_sharded(grads, error, comp_cfg.bits,
+                                            specs.params, mesh)
+        norm = global_norm(grads, specs.params, mesh)
+        new_params, new_opt, opt_metrics = apply_updates(
+            state.params, grads, state.opt, opt_cfg, norm)
+        clock.mark("update", device)
+        return (TrainState(new_params, new_opt, error, state.step + 1),
+                {**metrics, **opt_metrics})
+
+    train_step.clock = clock
     return train_step
 
 

@@ -9,7 +9,10 @@
   running median is logged.
 
 The step runs eagerly on ``device`` (``cuda`` unless the caller passes
-another); the metrics are read to the host once per step.
+another); the metrics are read to the host once per step.  On a mesh
+every rank of it calls :func:`train`: each holds its slices of the
+state (:mod:`.step`), rank 0 logs, checkpoints hold full leaves, and a
+job resumes from any mesh shape's checkpoint.
 """
 from __future__ import annotations
 
@@ -21,12 +24,13 @@ import numpy as np
 import torch
 
 from repro_torch.data.pipeline import DataConfig, Prefetcher
+from repro_torch.distributed import sharding as shd
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.compression import CompressionConfig
 
 from . import checkpoint as ckpt_lib
-from .state import init_train_state
-from .step import build_train_step
+from .state import init_train_state, state_template
+from .step import MOE_ON_MESH, build_train_step
 
 
 @dataclasses.dataclass
@@ -58,31 +62,53 @@ def train(cfg, data_cfg: DataConfig, opt_cfg: AdamWConfig,
     invalidated after every optimizer update: compiled CIMA weight images are snapshots of the
     weights, so a serving or eval consumer sharing the manager rebuilds
     them from the fresh params.  Training itself runs the on-the-fly STE
-    path and never installs images.  ``mesh``, ``shard_policy`` and
-    ``state_shardings`` come with the port's sharded-training slice.
+    path and never installs images.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.ServeMesh`, every rank
+    of it calling) and ``shard_policy`` (an explicit
+    :class:`~repro_torch.distributed.ShardPolicy`): the state is sharded
+    under ``state_shardings``, a spec tree, or when None under
+    :func:`~repro_torch.distributed.sharding.state_specs` of the policy.
+    Every rank returns its own slices of the final state and the same
+    history.
     """
-    if mesh is not None or shard_policy is not None \
-            or state_shardings is not None:
-        raise NotImplementedError(
-            "sharded training comes with the port's sharded-training "
-            "slice")
     from repro_torch.models import init_params
 
+    if mesh is None and state_shardings is not None:
+        raise ValueError("state_shardings needs the mesh they shard over")
+    if mesh is not None and cfg.moe:
+        raise NotImplementedError(MOE_ON_MESH)
     log = log_fn or (lambda s: print(s, flush=True))
-    step_fn = build_train_step(cfg, opt_cfg, comp_cfg,
-                               trainer_cfg.microbatches)
+    if mesh is not None and mesh.rank != 0:
+        log = lambda s: None                            # noqa: E731
 
     # ---- init or resume
     latest = ckpt_lib.latest_checkpoint(trainer_cfg.ckpt_dir)
-    state = init_train_state(init_params(cfg, data_cfg.seed, device),
-                             comp_cfg is not None)
+    params = init_params(cfg, data_cfg.seed, device)
+    if mesh is None:
+        state = init_train_state(params, comp_cfg is not None)
+    else:                      # a rank holds its slices, never the moments
+        state = state_template(params, comp_cfg is not None)
+        if state_shardings is None:
+            state_shardings = shd.state_specs(state, mesh, shard_policy)
     start_step = 0
     if latest is not None:
-        state, start_step = ckpt_lib.restore(latest, state)
+        state, start_step = ckpt_lib.restore(latest, state, state_shardings,
+                                             mesh)
         log(f"[trainer] resumed from {latest} at step {start_step}")
+    elif mesh is not None:
+        state = init_train_state(
+            shd.shard_tree(params, state_shardings.params, mesh),
+            comp_cfg is not None)
+    del params
+    step_fn = build_train_step(cfg, opt_cfg, comp_cfg,
+                               trainer_cfg.microbatches, mesh=mesh,
+                               shard_policy=shard_policy,
+                               specs=state_shardings)
 
     saver = ckpt_lib.AsyncCheckpointer(trainer_cfg.ckpt_dir,
-                                       trainer_cfg.keep_ckpts)
+                                       trainer_cfg.keep_ckpts, mesh=mesh,
+                                       specs=state_shardings)
     history = []
     durations: list[float] = []
     prefetch = Prefetcher(data_cfg, start_step=start_step, device=device)

@@ -975,3 +975,72 @@ def test_sharded_engine_on_the_card_equals_unsharded(cuda, tmp_path):
             assert torch.equal(got[key], flat[key]), key
         assert got["batcher"] == flat["batcher"]
         assert got["paged"] == flat["paged"]
+
+
+def test_global_batch_input_scale_on_the_card(cuda, tmp_path):
+    """Two gloo ranks sharing the card each quantize their rows of one
+    input inside ``global_batch`` (a training step on a mesh): grid and
+    scale are the whole input's on the card, one collective each (the
+    amax bitwise; the XNOR 1-bit mean, a sum over the global count,
+    within 1e-6), where a rank's own statistic differs."""
+    import torch_mesh as tm
+    from repro_torch.accel.backends import quantize_input
+
+    r = np.random.default_rng(0)
+    x = (r.normal(size=(8, 64)) * np.arange(1, 9)[:, None]).astype(
+        np.float32)
+    grids = [(Coding.XNOR, 4), (Coding.AND, 4), (Coding.XNOR, 8),
+             (Coding.XNOR, 1)]
+    ranks = tm.spawn("quant", 2, tmp_path, dict(x=x, grids=grids,
+                                                device="cuda"))
+    xt = torch.from_numpy(x).to(cuda)
+    for coding, bx in grids:
+        spec = accel.ExecSpec(backend="bpbs", bx=bx, coding=coding)
+        whole = quantize_input(xt, spec)
+        for k, res in enumerate(ranks):
+            q, scale, collectives = res[(coding, bx)]
+            assert torch.equal(q, whole.q[4 * k:4 * k + 4]), (coding, bx)
+            if coding == Coding.XNOR and bx == 1:
+                torch.testing.assert_close(scale, whole.scale, rtol=1e-6,
+                                           atol=0)
+            else:
+                assert torch.equal(scale, whole.scale), (coding, bx)
+            assert collectives == 1
+        assert not torch.equal(quantize_input(xt[:4], spec).scale,
+                               whole.scale)
+
+
+def test_mesh_train_step_on_the_card_matches_unsharded(cuda, tmp_path):
+    """Two gloo ranks sharing the card train reduced olmo-1b on the
+    kernel on a 1 x 2 mesh in mode "fsdp" (each rank half the rows, the
+    state ZeRO-3): each rank's logits on its rows bitwise the unsharded
+    kernel route's, step 1's loss within 1e-6 and step 2's within 5e-3
+    of the unsharded steps'."""
+    import torch_mesh as tm
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import forward
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import build_train_step, init_train_state
+
+    cfg = get_config("olmo-1b").reduced().with_accel("kernel", ba=4, bx=4)
+    params = init_params(cfg, 0, device="cpu")
+    data = DataConfig(seq_len=16, global_batch=4, vocab=cfg.vocab, seed=0)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    case = ((1, 2), "fsdp", "olmo-1b", 2, None)
+    ranks = tm.spawn("train", 2, tmp_path, dict(
+        configs={"olmo-1b": (cfg, params)}, cases=[case], data=data,
+        opt=opt, device="cuda"))
+    p = tree.tree_map(lambda t: t.to(cuda), params)
+    with torch.no_grad():
+        logits = forward(p, make_batch(data, 0, "cuda")["tokens"], cfg)[0]
+    state, step, losses = init_train_state(p), build_train_step(cfg, opt), []
+    for s in range(2):
+        state, m = step(state, make_batch(data, s, "cuda"))
+        losses.append(float(m["loss"]))
+    for res in ranks:
+        got = res[case]
+        assert torch.equal(got["logits"], logits[got["rows"].to(cuda)])
+        np.testing.assert_allclose(got["steps"][0]["loss"], losses[0],
+                                   rtol=1e-6)
+        np.testing.assert_allclose(got["steps"][1]["loss"], losses[1],
+                                   rtol=5e-3)

@@ -230,6 +230,182 @@ def task_serve(args) -> dict:
     return out
 
 
+def _train_meshes(world: int, shapes, device: str = "cpu") -> dict:
+    """A gloo mesh over the first ranks for each of ``shapes`` that fits
+    the job (made on every rank, in one order; None outside it)."""
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    return {(d, m): make_serve_mesh(d, m, backend="gloo", device=device,
+                                    ranks=list(range(d * m)))
+            for d, m in shapes if d * m <= world}
+
+
+def train_case(cfg, params, mesh, mode: str, data_cfg, opt_cfg, steps: int,
+               comp_cfg=None, device: str = "cpu") -> dict:
+    """``steps`` mesh train steps of ``params`` on ``mesh`` in ``mode``:
+    per step the loss, gradient norm and this rank's state; before the
+    first, this rank's rows (global row ids) with their logits and the
+    gradient summed over the dp axes, both at ``params``, and this
+    rank's slices of the compressed reduced gradient and error
+    (``compress_sharded``) next to the full reduced gradient and error
+    they slice."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed import autoshard
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import forward, loss_fn
+    from repro_torch.optim.compression import compress_sharded
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import build_train_step, value_and_grad
+    from repro_torch.tree import leaves, tree_map
+
+    policy = shd.ShardPolicy(mode)
+    params = tree_map(lambda t: t.to(device), params)
+    state = init_train_state(params, comp_cfg is not None)
+    specs = shd.state_specs(state, mesh, policy)
+    batch = make_batch(data_cfg, 0, device)
+    b = batch["tokens"].shape[0]
+    bspec = shd.batch_specs(batch, mesh, b, policy)["tokens"]
+    ids = shd.local_slice(torch.arange(b), bspec, mesh)
+    mine = {k: shd.local_slice(v, bspec, mesh) for k, v in batch.items()}
+    dp = policy.dp_axes(mesh)
+    with torch.no_grad(), autoshard.global_batch(mesh, policy):
+        logits = forward(params, mine["tokens"], cfg)[0]
+    with autoshard.global_batch(mesh, policy):
+        (_, metrics), grads = value_and_grad(
+            lambda p: loss_fn(p, mine, cfg), params)
+    grads = tree_map(lambda g: mesh.all_reduce(g, dp), grads)
+    out = dict(rows=ids, logits=logits, grad=grads,
+               loss0=metrics["loss"], specs=specs)
+    if comp_cfg is not None:
+        err = tree_map(lambda g: 0.01 * g.flip(-1), grads)
+        out["comp_full"] = (grads, err)
+        out["comp_slices"] = compress_sharded(
+            shd.shard_tree(grads, specs.params, mesh),
+            shd.shard_tree(err, specs.params, mesh), comp_cfg.bits,
+            specs.params, mesh)
+    step = build_train_step(cfg, opt_cfg, comp_cfg, mesh=mesh,
+                            shard_policy=policy, specs=specs)
+    st = shd.shard_tree(state, specs, mesh)
+    out["steps"] = []
+    for s in range(steps):
+        st, m = step(st, make_batch(data_cfg, s, device))
+        out["steps"].append(dict(loss=float(m["loss"]),
+                                 grad_norm=float(m["grad_norm"]),
+                                 tokens=float(m["tokens"]), state=st))
+    out["clock"] = step.clock.steps
+    out["coords"] = mesh.coords
+    return out
+
+
+def task_train(args) -> dict:
+    """Every case of ``args``: ``cases`` ((mesh, mode, config, steps,
+    compression) -> :func:`train_case`), ``psum`` (``compress_psum`` of
+    each rank's gradient and error over each of ``psum_axes`` at each
+    bit width, on the 2 x 2 mesh) and ``trainer`` (``train(mesh=)``
+    uninterrupted, crashed and resumed on 2 x 2, the crash resumed on
+    1 x 2)."""
+    from repro_torch.optim.compression import compress_psum
+
+    device = args.get("device", "cpu")
+    shapes = sorted({c[0] for c in args["cases"]} | {(2, 2), (1, 2)})
+    meshes = _train_meshes(args["world"], shapes, device)
+    out = {}
+    for key in args["cases"]:
+        shape, mode, name, steps, comp = key
+        if meshes.get(shape) is None:
+            continue
+        cfg, params = args["configs"][name]
+        out[key] = train_case(cfg, params, meshes[shape], mode,
+                              args["data"], args["opt"], steps, comp,
+                              device)
+    mesh = meshes.get((2, 2))
+    if mesh is not None and "psum" in args:
+        t = torch.tensor([[float(mesh.rank), -float(mesh.rank)]])
+        s0 = dict(mesh.stats)
+        out["collectives"] = dict(
+            max_data=mesh.all_reduce(t, "data", op="max"),
+            max_both=mesh.all_reduce(t, ("data", "model"), op="max"),
+            sum_both=mesh.all_reduce(t, ("data", "model")),
+            cat_both=mesh.all_gather(t, ("data", "model"), dim=0),
+            counted=mesh.stats["collectives"] - s0["collectives"],
+            counted_bytes=mesh.stats["bytes"] - s0["bytes"])
+        g, e = args["psum"][mesh.rank]
+        g = {k: torch.from_numpy(v) for k, v in g.items()}
+        e = {k: torch.from_numpy(v) for k, v in e.items()}
+        for axes in args["psum_axes"]:
+            for bits in args["psum_bits"]:
+                out[("psum", axes, bits)] = compress_psum(g, e, axes, bits,
+                                                          mesh=mesh)
+    if "trainer" in args:
+        out["trainer"] = _trainer_runs(args["trainer"], meshes)
+    return out
+
+
+def task_quant(args) -> dict:
+    """``quantize_input`` of this rank's rows of ``args["x"]`` inside
+    ``global_batch`` on a ``world x 1`` mesh, for each ``(coding, bx)``
+    of ``args["grids"]``: the grid, the scale and the collectives it
+    took."""
+    from repro_torch.accel import ExecSpec
+    from repro_torch.accel.backends import quantize_input
+    from repro_torch.distributed import autoshard
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    device = args.get("device", "cpu")
+    mesh = make_serve_mesh(args["world"], 1, backend="gloo", device=device)
+    rows = shd.local_slice(torch.from_numpy(args["x"]).to(device),
+                           ("data",), mesh)
+    out = {}
+    for coding, bx in args["grids"]:
+        spec = ExecSpec(backend="bpbs", bx=bx, coding=coding)
+        c0 = mesh.stats["collectives"]
+        with autoshard.global_batch(mesh):
+            qx = quantize_input(rows, spec)
+        out[(coding, bx)] = (qx.q, qx.scale,
+                             mesh.stats["collectives"] - c0)
+    return out
+
+
+def _trainer_runs(t: dict, meshes: dict) -> dict:
+    """``train(mesh=)`` on 2 x 2: uninterrupted, then crashed at
+    ``crash`` and resumed; the crash's checkpoints copied before the
+    resume and resumed on 1 x 2 (its own copy)."""
+    import shutil
+
+    from repro_torch.distributed.sharding import ShardPolicy
+    from repro_torch.train.trainer import CrashInjected, TrainerConfig, train
+
+    root = Path(t["root"])
+    quiet = lambda s: None                                # noqa: E731
+
+    def run(mesh, name, crash=None):
+        tcfg = TrainerConfig(total_steps=t["total"],
+                             ckpt_dir=str(root / name), ckpt_every=2,
+                             log_every=100, crash_at_step=crash)
+        return train(t["cfg"], t["data"], t["opt"], tcfg, log_fn=quiet,
+                     mesh=mesh, shard_policy=ShardPolicy(t["mode"]),
+                     device="cpu")
+
+    out = {}
+    mesh = meshes[(2, 2)]
+    if mesh is not None:
+        out["ref"] = run(mesh, "ref")[1]
+        try:
+            run(mesh, "crash", t["crash"])
+            out["crashed"] = False
+        except CrashInjected:
+            out["crashed"] = True
+        if mesh.rank == 0:
+            for name in ("crash_1x2", "crash_1x1"):
+                shutil.copytree(root / "crash", root / name)
+        out["resumed"] = run(mesh, "crash")[1]
+    mesh = meshes[(1, 2)]
+    if mesh is not None:
+        out["resumed_1x2"] = run(mesh, "crash_1x2")[1]
+    return out
+
+
 def main():
     task, rank, world, workdir = sys.argv[1:5]
     rank, world, workdir = int(rank), int(world), Path(workdir)
