@@ -116,7 +116,14 @@ into ``build/`` (one ``nvcc`` per source, started together), then
   on the 2 x 2 mesh (``serve_mesh``); and serves the reduced tune pick
   through ``ServeConfig.from_tuned`` on its 2 x 4 mesh, tokens equal to
   the 1 x 1 route's (``serve_tuned_mesh``).  The ranks are this script
-  run as ``--mesh-worker``; they load the kernels the parent built.
+  run as ``--mesh-worker``; they load the kernels the parent built;
+* runs the runtime sanitizer (``sanitize``): full-width olmo-1b's
+  ``generate`` on the kernel outside and then inside ``accel.sanitize()``
+  (tokens equal, every dispatch's input, weight and kernel output
+  checked, the decode step's ms both ways); a NaN weight, an inf scale
+  the kernel fuses and a block held back from ``PagedScheduler``'s pool
+  each raising ``SanitizeError`` at its site; the 0.85 V corner's
+  mismatch counts; and ``bpbs``'s ADC counters equal to the CPU's.
 
 Each phase prints one JSON line.  The card's name and power limit follow
 as ``nvidia-smi`` prints them, then the kernels line, and last
@@ -163,9 +170,9 @@ from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import cima_mvm as K  # noqa: E402
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_batch  # noqa: E402
-from repro_torch.models import (counting, init_cache, init_params,  # noqa: E402
-                                loss_fn, prefill, prefill_resume,
-                                splice_slot)
+from repro_torch.models import (counting, forward, init_cache,  # noqa: E402
+                                init_params, loss_fn, prefill,
+                                prefill_resume, splice_slot)
 from repro_torch.models.cnn import (cnn_forward, cnn_loss, init_cnn,  # noqa: E402
                                     update_bn_stats)
 from repro_torch.models.moe import capacity as moe_capacity  # noqa: E402
@@ -478,6 +485,8 @@ NOISE_ROWS, NOISE_N, NOISE_M = 4096, 255, 256
 NOISE_SEEDS = (11, 12, 13)        # noisy Fig. 11 evaluations, averaged
 NOISE_CAL_BATCHES = 4             # calibrate_bn_stats, as the QAT CLI
 CORNER_STEPS, CORNER_BATCH, CORNER_EVAL = 60, 32, 8
+# sanitize: olmo-1b generate at B = 4, outside and then inside a scope
+SAN_BATCH, SAN_NEW = 4, 16
 
 
 def fail(msg: str) -> None:
@@ -3500,6 +3509,221 @@ def phase_figures():
          seconds=time.perf_counter() - t0)
 
 
+# -------------------------------------------------------------- sanitize
+
+def decode_ms(engine, prompts, scope) -> list:
+    """Each of ``SAN_NEW - 1`` greedy decode steps' wall ms after a fresh
+    prefill of ``prompts``, the steps inside ``scope()``."""
+    logits, cache = engine.prefill(prompts)
+    tok = torch.argmax(logits, -1)
+    out = []
+    with scope():
+        for _ in range(SAN_NEW - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = engine.decode(tok, cache)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+            tok = torch.argmax(logits, -1)
+    return out
+
+
+def planted(fn, site: str) -> tuple:
+    """``fn(scope)`` must raise ``SanitizeError`` naming ``site``; returns
+    (the message, the scope's stats).  Only that error is caught: any
+    other exception, or none, fails the phase."""
+    scope = accel.sanitize()
+    try:
+        fn(scope)
+    except accel.SanitizeError as e:
+        msg = str(e)
+    else:
+        fail(f"planted fault at {site}: no SanitizeError")
+    check(site in msg, f"planted fault at {site}: {msg}")
+    return msg, scope.sanitizer.stats
+
+
+def phase_sanitize() -> int:
+    """``accel.sanitize()`` on the card: (a) full-width olmo-1b on the
+    kernel, its program installed, ``generate`` outside and then inside
+    a scope (tokens equal, every dispatch checked, decode ms a step both
+    ways); (b) planted faults raise at their site: a NaN weight at the
+    first dispatch, an inf Postreduce scale at the kernel's fused output,
+    a block held back from ``PagedScheduler``'s pool at its shutdown
+    audit (the same run without it passes); (c) the 0.85 V recipe at
+    sigma 0.3 LSB counts no corner mismatch, at sigma 0 one a dispatch;
+    (d) ``bpbs`` ADC and B_y counters on the card equal the CPU's."""
+    t_phase = time.perf_counter()
+    launches = 0
+    cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
+    engine = Engine(init_params(cfg, 0, device="cuda"), cfg,
+                    ServeConfig(max_seq=256, max_new_tokens=SAN_NEW),
+                    device="cuda")
+    check(engine.program is not None and len(engine.program.images) == 8,
+          "sanitize: olmo-1b program images missing")
+    prompts = serve_prompts(cfg.vocab, SAN_BATCH)
+
+    # (a) the main path outside, then inside a scope
+    K.cima_mvm_planes.launches = 0
+    tokens = engine.generate(prompts)
+    out_launches = K.cima_mvm_planes.launches
+    K.cima_mvm_planes.launches = 0
+    with accel.sanitize() as san:
+        tokens_in = engine.generate(prompts)
+    in_launches = K.cima_mvm_planes.launches
+    launches += out_launches + in_launches
+    s = san.stats
+    check(np.array_equal(tokens, tokens_in),
+          "tokens inside the sanitize scope differ from outside")
+    check(out_launches == in_launches == LAUNCHES_PER_FORWARD * SAN_NEW,
+          f"sanitize: {out_launches} / {in_launches} launches")
+    check(s.dispatches == in_launches and s.finite_checks == 3 * s.dispatches
+          and s.adc_conversions == 0,
+          f"sanitize: stats of the scoped generate {s}")
+    rounds = [decode_ms(engine, prompts, scope)
+              for scope in (contextlib.nullcontext, accel.sanitize) * 2]
+    out_ms, in_ms = rounds[0] + rounds[2], rounds[1] + rounds[3]
+    a = dict(tokens_equal=int((tokens == tokens_in).sum()),
+             tokens_total=int(tokens.size), launches_outside=out_launches,
+             launches_inside=in_launches, dispatches=s.dispatches,
+             finite_checks=s.finite_checks,
+             adc_conversions=s.adc_conversions,
+             decode_ms_per_step_outside=statistics.median(out_ms),
+             decode_ms_per_step_inside=statistics.median(in_ms),
+             decode_ms_outside=out_ms, decode_ms_inside=in_ms)
+    a["scope_ms_per_step"] = (a["decode_ms_per_step_inside"]
+                              - a["decode_ms_per_step_outside"])
+    del engine
+
+    # (b) planted faults
+    cfg2 = dataclasses.replace(get_config("olmo-1b"), n_layers=2
+                               ).with_accel("kernel", ba=4, bx=4)
+    p2 = init_params(cfg2, 0, device="cuda")
+    p2["stack"]["scanned"]["u0"]["attn"]["wq"]["w"][0, 0, 0] = float("nan")
+    nan_engine = Engine(p2, cfg2, ServeConfig(max_seq=64, max_new_tokens=2),
+                        device="cuda")
+    del p2
+
+    def nan_weight(scope):
+        with scope:
+            nan_engine.generate(prompts)
+
+    nan_msg, nan_stats = planted(nan_weight, "accel.matmul[attn.q] weight")
+    check(nan_stats.dispatches == 1,
+          f"the NaN weight raised at dispatch {nan_stats.dispatches}")
+    del nan_engine
+    x, w = cima_operands(Coding.XNOR, 4, 4, 2048, 2048, 4)
+    scale = torch.ones(2048, device="cuda")
+    scale[7] = float("inf")
+    spec = accel.ExecSpec(backend="kernel", ba=4, bx=4)
+    post = accel.Postreduce(scale=scale)
+    with torch.inference_mode():
+        K.cima_mvm_planes.launches = 0
+        y = accel.matmul(x, w, spec, post=post)     # no scope: no guard
+        unguarded_finite = bool(torch.isfinite(y).all())
+
+        def inf_scale(scope):
+            with scope:
+                accel.matmul(x, w, spec, post=post)
+
+        inf_msg, inf_stats = planted(inf_scale, "output")
+        inf_launches = K.cima_mvm_planes.launches
+    launches += inf_launches
+    check(not unguarded_finite and inf_launches == 2
+          and inf_stats.finite_checks == 3,
+          f"inf scale: {inf_launches} launches, {inf_stats}")
+    reqs = batcher_requests(cfg)
+    ps = PagedScheduler(init_params(cfg, 0, device="cuda"), cfg,
+                        ServeConfig(max_new_tokens=16, **PAGED), BATCH_SLOTS,
+                        device="cuda")
+
+    def submit_all():
+        return [ps.submit(p, max_new_tokens=m) for p, m in reqs]
+
+    kept = ps.alloc.alloc(1)
+
+    def leak(scope):
+        submit_all()
+        with scope:
+            ps.run()
+
+    K.cima_mvm_planes.launches = 0
+    leak_msg, leak_stats = planted(leak, "leaked 1 block")
+    leak_launches = K.cima_mvm_planes.launches
+    ps.alloc.free(kept)
+    rids = submit_all()
+    K.cima_mvm_planes.launches = 0
+    with accel.sanitize() as san_ok:
+        results = ps.run()
+    ok_launches = K.cima_mvm_planes.launches
+    launches += leak_launches + ok_launches
+    check(san_ok.stats.allocator_audits == 1 and leak_stats.allocator_audits
+          == 1 and ok_launches == leak_launches > 0
+          and [len(results[r]) for r in rids] == [m for _, m in reqs],
+          f"paged audit: {san_ok.stats}, {ok_launches} launches")
+    del ps
+    b = dict(nan_weight=nan_msg, nan_weight_dispatches=nan_stats.dispatches,
+             inf_scale=inf_msg, inf_scale_launches=inf_launches,
+             inf_scale_unguarded_finite=unguarded_finite,
+             leaked_block=leak_msg, leak_run_launches=leak_launches,
+             clean_run=dataclasses.asdict(san_ok.stats),
+             clean_run_launches=ok_launches)
+
+    # (c) the 0.85 V recipe: sigma 0.3 LSB on bpbs with a noise scope
+    net = NETWORK_A.reduced()
+    cparams = init_cnn(0, net, device="cuda")
+    images = make_batch(DataConfig(kind="cifar_synthetic",
+                                   global_batch=CORNER_BATCH, seed=1),
+                        0, "cuda")["images"]
+    with torch.no_grad():
+        with accel.sanitize(vdd=0.85, require_noise_key=True) as noisy, \
+                noise_aware(7, NOISE_SIGMA):
+            cnn_forward(cparams, images, net, backend="bpbs")
+        with accel.sanitize(vdd=0.85, require_noise_key=True) as quiet:
+            cnn_forward(cparams, images, net, backend="bpbs")
+
+        def keyless(scope):
+            with scope, accel.override(adc_sigma_lsb=NOISE_SIGMA):
+                cnn_forward(cparams, images, net, backend="bpbs")
+
+        scope = accel.sanitize(vdd=0.85, require_noise_key=True)
+        keyless_msg, _ = planted(lambda _: keyless(scope), "no noise key")
+    check(noisy.stats.corner_mismatches == 0 and noisy.stats.dispatches > 0
+          and quiet.stats.corner_mismatches == quiet.stats.dispatches
+          == noisy.stats.dispatches,
+          f"corner: {noisy.stats} / {quiet.stats}")
+    c = dict(net=net.name, sigma_lsb=NOISE_SIGMA,
+             noisy=dataclasses.asdict(noisy.stats),
+             noiseless=dataclasses.asdict(quiet.stats), keyless=keyless_msg)
+
+    # (d) bpbs counters on the card equal the CPU's on the same inputs
+    rcfg = get_config("olmo-1b").reduced().with_accel("bpbs", ba=4, bx=4)
+    rparams = init_params(rcfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, rcfg.vocab, (2, 16)))
+    sat_x, sat_w = torch.full((4, 8), 3.0), torch.ones(8, 16)
+    sat_spec = accel.ExecSpec(backend="bpbs", ba=1, bx=1)
+    counters = {}
+    for where, dev in (("cpu", "cpu"), ("card", "cuda")):
+        p = tree_map(lambda t: t.to(dev), rparams)
+        with torch.inference_mode():
+            with accel.sanitize() as fwd:
+                forward(p, toks.to(dev), rcfg)
+            with accel.sanitize() as sat:
+                accel.matmul(sat_x.to(dev), sat_w.to(dev), sat_spec)
+        counters[where] = dict(forward=dataclasses.asdict(fwd.stats),
+                               saturating=dataclasses.asdict(sat.stats))
+    check(counters["card"] == counters["cpu"]
+          and counters["card"]["forward"]["adc_conversions"] > 0
+          and counters["card"]["saturating"]["adc_saturated"] > 0,
+          f"bpbs counters: card {counters['card']}, CPU {counters['cpu']}")
+    emit("sanitize", config=cfg.name, batch=SAN_BATCH, new_tokens=SAN_NEW,
+         main_path=a, planted=b, corner=c, counters_card=counters["card"],
+         counters_cpu=counters["cpu"], cima_mvm_launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 # ------------------------------------------------------------------ mesh
 
 def tile_operands(qx, qw, part: str, shards: int, k: int):
@@ -4134,6 +4358,7 @@ def main():
     phase_noise_qat()
     phase_noise_corner()
     phase_figures()
+    san_launches = phase_sanitize()
     # one decode step's worth of launches at B=4, from the per-shape times
     step = {k: sum(rows[(s[0], 4)][k] * s[4] for s in MAIN_SHAPES)
             for k in ("ms", "plain_ms", "bound_ms")}
@@ -4157,7 +4382,7 @@ def main():
                      + paged_launches + paged_archs_launches
                      + moe_train_launches + tune_launches
                      + mesh_launches + tuned_mesh_launches
-                     + train_mesh_launches),
+                     + train_mesh_launches + san_launches),
         "max_abs_err": max(err_cases, err_main, cifar_err, rec_err, moe_err,
                            fr_err, mesh_err),
         "ms": step["ms"], "plain_ms": step["plain_ms"],
@@ -4203,7 +4428,10 @@ def main():
                "the card: 3 steps of 225 launches a rank, 113 forward and "
                "112 remat, whatever its rows; the reduced trainer's 4 "
                "steps a rank crashed on 2 x 2 and 2 resumed on 1 x 2, 29 "
-               "each); the noisy paths (noise, noise_qat, noise_corner) "
+               "each); sanitize's (olmo-1b's generate outside and inside "
+               "a scope, 113 a forward each, the planted inf scale's 2 "
+               "launches, the paged batcher trace twice, 8,136 each); "
+               "the noisy paths (noise, noise_qat, noise_corner) "
                "run bpbs and launch it 0 times",
         "mesh_decode_step_ms": {f"{d}x{m}": v
                                 for (d, m), v in mesh_step.items()},

@@ -17,7 +17,10 @@
 * :mod:`.program` — weight-stationary :class:`CimaImage` programs, the
   first-fit bank allocator (:func:`plan_allocation`) with streaming, and
   :class:`ProgramManager`.
+* :func:`sanitize` (from :mod:`repro_torch.analysis.sanitize`) — the
+  opt-in runtime checks at the dispatch boundary.
 """
+from repro_torch.analysis.sanitize import SanitizeError, sanitize
 from repro_torch.core.datapath import Postreduce, fold_batchnorm
 
 from . import backends as _backends  # registers the built-in backends
@@ -41,4 +44,5 @@ __all__ = [
     "CimaImage", "CimaProgram", "ImageFootprint", "Placement",
     "ProgramManager", "build_program", "install_program",
     "model_footprint", "plan_allocation", "strip_program",
+    "sanitize", "SanitizeError",
 ]

@@ -41,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis.sanitize import active as _san_active
 from repro_torch.core.quant import quantize
 from repro_torch.core.sparsity import (count_zero_planes, element_mask,
                                        sparsity_fraction)
@@ -50,6 +51,16 @@ from .context import (ExecContext, MvmRecord, current_override,
                       streamed_load_seen, tracing)
 from .registry import get_backend
 from .spec import ExecSpec
+
+
+def _guard_out(y: torch.Tensor, spec: ExecSpec) -> torch.Tensor:
+    """Sanitizer NaN/Inf guard on the dispatch output (on the kernel
+    backend: the launch's own result, its fused epilogue included)."""
+    san = _san_active()
+    if san is not None:
+        san.check_finite(y, f"accel.matmul[{spec.tag or spec.backend}] "
+                            f"output")
+    return y
 
 
 def _strip_pad(x: torch.Tensor) -> torch.Tensor:
@@ -260,17 +271,24 @@ def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
         ctx = ExecContext(generator=next_noise_generator(x.device))
     if image is not None:
         ctx = dataclasses.replace(ctx, image=image)
+    san = _san_active()
+    if san is not None:
+        where = spec.tag or spec.backend
+        san.observe_dispatch(spec, ctx)
+        san.check_finite(x, f"accel.matmul[{where}] input")
+        san.check_finite(w, f"accel.matmul[{where}] weight")
     if spec.is_digital:
         dt = dtype or x.dtype
         if post is not None:
             ctx = dataclasses.replace(ctx, post=post)
-        return _run(fn, x.to(dt), w.to(dt), spec, ctx)
+        return _guard_out(_run(fn, x.to(dt), w.to(dt), spec, ctx), spec)
     xf, wf = x.to(torch.float32), w.to(torch.float32)
     regs = (post.scale, post.bias) if post is not None else ()
     if _records_grad(xf, wf, *regs):
         y = _StraightThrough.apply(xf, wf, fn, spec,
                                    dataclasses.replace(ctx, post=None))
-        return post.apply(y, spec.bx, spec.ba) if post is not None else y
+        return _guard_out(post.apply(y, spec.bx, spec.ba)
+                          if post is not None else y, spec)
     if post is not None:
         ctx = dataclasses.replace(ctx, post=post)
-    return _run(fn, xf, wf, spec, ctx)
+    return _guard_out(_run(fn, xf, wf, spec, ctx), spec)

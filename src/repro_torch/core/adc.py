@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis.sanitize import active as _san_active
 
 # Modelled residual analog non-ideality per VDD corner, in ADC LSB units.
 # Fig. 10's measured column transfer functions bound the deviation to a
@@ -70,7 +71,13 @@ def adc_convert(p: torch.Tensor, full_scale, adc_bits: int = 8,
                                             device=x.device)
         else:
             _warn_keyless_noise(sigma_lsb, "adc_convert")
-    return torch.clamp(torch.round(x), 0.0, cmax)
+    codes = torch.clamp(torch.round(x), 0.0, cmax)
+    san = _san_active()
+    if san is not None:
+        # saturation-rate counter: codes pinned to the top code mean the
+        # charge-share range clipped (sanitizer contract)
+        san.observe_adc(codes, cmax)
+    return codes
 
 
 def adc_reconstruct(code: torch.Tensor, full_scale, adc_bits: int = 8

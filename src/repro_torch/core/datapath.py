@@ -17,6 +17,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.sanitize import active as _san_active
+
 
 def output_bits(bx: int, ba: int) -> int:
     """B_y as set by the near-memory datapath (paper Fig. 8)."""
@@ -29,6 +31,11 @@ def saturate(y: torch.Tensor, bits: int) -> torch.Tensor:
     value exactly on a bound gets the reference's gradient 1/2 (the two
     operands of a tie share it); ``torch.clamp`` would give 1."""
     hi = 2.0 ** (bits - 1) - 1
+    san = _san_active()
+    if san is not None:
+        # overflow counter: values clipped here outgrew the Fig. 8 B_y
+        # output word (sanitizer contract)
+        san.observe_by(y, bits)
     if y.requires_grad:
         return torch.minimum(torch.maximum(y, y.new_full((), -(hi + 1))),
                              y.new_full((), hi))

@@ -57,6 +57,7 @@ def init_cnn(seed: int, net: CnnConfig, device="cuda") -> dict:
     layers = []
     for layer in net.layers:
         n = layer.cin * (9 if layer.kind == "conv" else 1)
+        # accel-lint: allow[JAX02] init: one seeded stream
         w = truncated_normal_init(gen, (n, layer.cout), n ** -0.5, "cpu")
         layers.append({
             "w": w.to(device),

@@ -48,6 +48,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitize import active as _san_active
 from repro_torch.models import decode_step, prefill_resume
 
 from . import kv
@@ -416,4 +417,9 @@ class PagedScheduler:
                     continue
                 break
         self._on_token = None
+        san = _san_active()
+        if san is not None:
+            # every request retired and freed its table: the pool must be
+            # whole again (leaks here = rows retired without free())
+            san.audit_allocator(self.alloc, "PagedScheduler.run shutdown")
         return self.results

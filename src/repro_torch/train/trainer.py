@@ -27,6 +27,7 @@ from repro_torch.data.pipeline import DataConfig, Prefetcher
 from repro_torch.distributed import sharding as shd
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.compression import CompressionConfig
+from repro_torch.serve.host import host_sync
 
 from . import checkpoint as ckpt_lib
 from .state import init_train_state, state_template
@@ -120,9 +121,11 @@ def train(cfg, data_cfg: DataConfig, opt_cfg: AdamWConfig,
             state, metrics = step_fn(state, batch)
             if program_manager is not None:
                 program_manager.invalidate()   # weights moved: images stale
-            names = sorted(metrics)            # one host read per step
-            metrics = dict(zip(names, torch.stack(
-                [metrics[k].to(torch.float32) for k in names]).tolist()))
+            names = sorted(metrics)
+            metrics = dict(zip(names, host_sync(torch.stack(
+                [metrics[k].to(torch.float32) for k in names]),
+                reason="one read of the step's metrics a step: the "
+                "log, the history and the straggler watchdog").tolist()))
             dt = time.monotonic() - t0
             durations.append(dt)
             med = float(np.median(durations[-50:]))

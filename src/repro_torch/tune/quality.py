@@ -50,6 +50,7 @@ def sqnr_operands(seed: int, batch: int, n: int, m: int, device):
     drawn from a generator seeded with ``seed`` on ``device``."""
     gen = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn((batch, n), generator=gen, device=device)
+    # accel-lint: allow[JAX02] x then w from the probe's own seeded stream
     w = torch.randn((n, m), generator=gen, device=device) * n ** -0.5
     return x, w
 

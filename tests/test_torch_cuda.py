@@ -1044,3 +1044,60 @@ def test_mesh_train_step_on_the_card_matches_unsharded(cuda, tmp_path):
                                    rtol=1e-6)
         np.testing.assert_allclose(got["steps"][1]["loss"], losses[1],
                                    rtol=5e-3)
+
+
+def test_sanitize_inside_graph_capture(cuda):
+    """A digital ``accel.matmul`` captured by ``torch.cuda.graph`` inside
+    a ``sanitize()`` scope: the dispatch counts, no check reads the
+    capturing stream (none raises, none counts), and the graph replays
+    to the eager result's bits."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(8, 64, generator=g, device=cuda)
+    w = torch.randn(64, 32, generator=g, device=cuda)
+    spec = accel.ExecSpec(backend="digital")
+    want = accel.matmul(x, w, spec)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # warm up off the graph
+        accel.matmul(x, w, spec)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with accel.sanitize() as san:
+        with torch.cuda.graph(graph):
+            y = accel.matmul(x, w, spec)
+    assert san.stats.dispatches == 1 and san.stats.finite_checks == 0
+    y.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
+
+
+def test_sanitize_scope_reaches_autograds_thread(cuda):
+    """A remat training step of 2-layer olmo-1b on ``bpbs`` under a scope
+    counts the same dispatches, checks and ADC codes on the card as on
+    the CPU: on CUDA autograd replays the layers in its own thread, and
+    the module-wide scope stack still sees them."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import build_train_step, init_train_state
+
+    base = dataclasses.replace(get_config("olmo-1b").reduced(), n_layers=2)
+    data = DataConfig(seq_len=16, global_batch=2, vocab=base.vocab, seed=0)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    params = init_params(base, 0, device="cpu")
+    counts = {}
+    for remat, dev in ((False, "cpu"), (True, "cpu"), (True, "cuda")):
+        cfg = dataclasses.replace(base, remat=remat).with_accel(
+            "bpbs", ba=4, bx=4)
+        state = init_train_state(tree.tree_map(lambda t: t.to(dev), params))
+        step = build_train_step(cfg, opt)
+        with accel.sanitize() as san:
+            step(state, make_batch(data, 0, dev))
+        s = san.stats
+        counts[remat, dev] = (s.dispatches, s.finite_checks,
+                              s.adc_conversions)
+    assert counts[True, "cuda"] == counts[True, "cpu"]
+    # remat's replay is in the count: the layers dispatch twice
+    assert counts[True, "cpu"][0] > counts[False, "cpu"][0]

@@ -56,6 +56,7 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.tune, repro_torch.tune.tuner\n"
         "import repro_torch.launch, repro_torch.distributed\n"
         "import repro_torch.accel.shard\n"
+        "import repro_torch.analysis, repro_torch.analysis.__main__\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120,
