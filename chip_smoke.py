@@ -123,13 +123,25 @@ into ``build/`` (one ``nvcc`` per source, started together), then
   checked, the decode step's ms both ways); a NaN weight, an inf scale
   the kernel fuses and a block held back from ``PagedScheduler``'s pool
   each raising ``SanitizeError`` at its site; the 0.85 V corner's
-  mismatch counts; and ``bpbs``'s ADC counters equal to the CPU's.
+  mismatch counts; and ``bpbs``'s ADC counters equal to the CPU's;
+* counts a step (``roofline``): full-width olmo-1b's decode step at
+  B = 4 through ``Engine`` and a train step of 8 x 256 tokens under
+  ``roofline.hlo_stats.StepCounter``, the kernel's reports equal to its
+  launches, the same calls dry-run on meta counting the same, each
+  step's bound on the card's data-sheet peaks against its wall and busy
+  time; and ``python -m repro_torch.launch.dryrun`` for olmo-1b at the
+  four production shapes on the 16 x 16 recording mesh (host processes
+  on meta tensors, started before the build and read after the kernel's
+  cases, before any phase takes a host-clock time);
+* runs ``repro_torch.examples`` (``examples``): quickstart, serve_lm and
+  3 steps of train_lm on the kernel.
 
 Each phase prints one JSON line.  The card's name and power limit follow
 as ``nvidia-smi`` prints them, then the kernels line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero; so
 does a machine without a CUDA device, or a directory without the repo.
 """
+import atexit
 import collections
 import contextlib
 import dataclasses
@@ -193,6 +205,9 @@ from repro_torch.train.trainer import CrashInjected, TrainerConfig, train  # noq
 from repro_torch.tree import leaves, tree_map  # noqa: E402
 from repro_torch import tune  # noqa: E402
 from repro_torch.launch import make_serve_mesh  # noqa: E402
+from repro_torch.launch.shapes import SHAPES, cell_supported  # noqa: E402
+from repro_torch.roofline import analysis as rfa  # noqa: E402
+from repro_torch.roofline.hlo_stats import StepCounter  # noqa: E402
 
 SOURCE = "src/repro_torch/kernels/csrc/cima_mvm.cu"
 REPLACES = "src/repro/kernels/cima_mvm.py:41"
@@ -473,6 +488,11 @@ MESH_TIMEOUT = 420
 TRAIN_MESHES = (((2, 2), "fsdp"), ((1, 2), "2d"))
 TRAIN_MESH_RTOL, TRAIN_MESH_FIRST_RTOL = 5e-3, 1e-6
 MESH_PLAIN_LAYERS = 1
+# steps a mesh trains: two, one fewer than train_lm's, to keep the script
+# within its time.  The first warms up and is the step timed (t_step and
+# the idle share read a warm-up step, not a steady one); the last is
+# profiled
+MESH_TRAIN_STEPS = 2
 ELASTIC_STEPS, ELASTIC_CRASH = 6, 4
 OLMO_TREE_BYTES = 1_176_764_416 * 4                   # one float32 tree
 # ADC noise at the 0.85 V corner.  At fs = 255 (one bank of 255 rows, no
@@ -487,6 +507,8 @@ NOISE_CAL_BATCHES = 4             # calibrate_bn_stats, as the QAT CLI
 CORNER_STEPS, CORNER_BATCH, CORNER_EVAL = 60, 32, 8
 # sanitize: olmo-1b generate at B = 4, outside and then inside a scope
 SAN_BATCH, SAN_NEW = 4, 16
+# roofline: a dry-run cell's time limit (its process runs on the host)
+DRYRUN_TIMEOUT = 600
 
 
 def fail(msg: str) -> None:
@@ -4091,7 +4113,7 @@ def phase_train_mesh(lm_steps) -> int:
     """Full-width olmo-1b trained on the kernel on a 1 x 2 ("2d") and a
     2 x 2 ("fsdp") mesh of gloo ranks sharing the card (``train_mesh``:
     ``build_train_step(mesh=)``, the mesh form of train_lm's main path,
-    LM_STEPS steps of LM_BATCH x LM_SEQ from seed 0, remat on).  Every
+    MESH_TRAIN_STEPS steps of LM_BATCH x LM_SEQ from seed 0, remat on).  Every
     rank's losses within TRAIN_MESH_RTOL of train_lm's in this run (step
     1 within TRAIN_MESH_FIRST_RTOL) and equal across ranks; 225 launches
     a step a rank (113 forward, 112 remat), whatever its rows.  On 2 x 2
@@ -4138,7 +4160,7 @@ def phase_train_mesh(lm_steps) -> int:
                 split = [(s["launches_forward"], s["launches_backward_remat"])
                          for s in got["steps"]]
                 check(split == [(LAUNCHES_PER_FORWARD, LM_LAUNCHES_PER_STEP
-                                 - LAUNCHES_PER_FORWARD)] * LM_STEPS,
+                                 - LAUNCHES_PER_FORWARD)] * MESH_TRAIN_STEPS,
                       f"{what}: launches (forward, backward) {split}")
                 launches += got["launches"] + got["elastic_launches"]
                 if plain:
@@ -4157,14 +4179,14 @@ def phase_train_mesh(lm_steps) -> int:
                     step_profile=got["profile"],
                     plain_route=got.get("plain"),
                     elastic=got["elastic"]))
-            # step 1 warms up, the last is profiled
+            # the warm-up step; the last is profiled
             t_step = statistics.median(
-                s["ms"] for x in ranks for s in x["steps"][1:-1])
+                s["ms"] for x in ranks for s in x["steps"][:-1])
             emit("train_mesh", config="olmo-1b",
                  layers=get_config("olmo-1b").n_layers,
                  mesh={"data": data, "model": model}, mode=mode,
                  backend="gloo", device="cuda:0 shared by every rank",
-                 seq=LM_SEQ, batch=LM_BATCH, steps=LM_STEPS,
+                 seq=LM_SEQ, batch=LM_BATCH, steps=MESH_TRAIN_STEPS,
                  train_lm_losses=[x[0] for x in lm_steps],
                  losses=[s["loss"] for s in res[0]["steps"]],
                  loss_rel_diff_vs_train_lm=[
@@ -4175,6 +4197,7 @@ def phase_train_mesh(lm_steps) -> int:
                  plain_route_layers=MESH_PLAIN_LAYERS if plain
                  else None, equal_to_plain_route_bitwise=plain or None,
                  ms_per_step_median=t_step,
+                 timed_step="the first, a warm-up step",
                  tokens_per_s=LM_SEQ * LM_BATCH / t_step * 1e3,
                  unsharded_state_bytes=3 * OLMO_TREE_BYTES,
                  phase_s=seconds, ranks=ranks)
@@ -4214,11 +4237,12 @@ def worker_train(mesh, args) -> dict:
     policy = ShardPolicy(args["mode"])
     data_cfg = DataConfig(seq_len=LM_SEQ, global_batch=LM_BATCH,
                           vocab=cfg.vocab, seed=0)
-    batches = [make_batch(data_cfg, s, "cuda") for s in range(LM_STEPS)]
+    batches = [make_batch(data_cfg, s, "cuda")
+               for s in range(MESH_TRAIN_STEPS)]
     opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=200)
 
     def run(cfg, route=None, profiled=False):
-        """LM_STEPS steps from seed 0; with ``profiled`` the last one runs
+        """MESH_TRAIN_STEPS steps from seed 0; with ``profiled`` the last one
         under the profiler (``device_profile``): a rank's steps are tens
         of seconds, so the phase profiles its main path's last step
         rather than add one."""
@@ -4258,9 +4282,9 @@ def worker_train(mesh, args) -> dict:
                                 and k == len(batches) - 1,
                                 **step_fn.clock.steps[-1]))
         if profile is not None and profile["device_busy_ms_per_step"]:
-            # against an unprofiled step (the first warms up)
+            # against the unprofiled step, the warm-up
             profile["device_idle_share"] = \
-                1.0 - profile["device_busy_ms_per_step"] / out[1]["ms"]
+                1.0 - profile["device_busy_ms_per_step"] / out[0]["ms"]
         return holder[0], out, profile
 
     torch.cuda.reset_peak_memory_stats()
@@ -4279,7 +4303,7 @@ def worker_train(mesh, args) -> dict:
         out["steps_at_plain_depth"] = run(small)[1]
         out["plain"] = run(small, K.cima_mvm_planes_reference)[1]
         check(K.cima_mvm_planes.launches - before
-              == LM_STEPS * (MESH_PLAIN_LAYERS * 14 + 1),
+              == MESH_TRAIN_STEPS * (MESH_PLAIN_LAYERS * 14 + 1),
               "the plain route launched the kernel")
         torch.cuda.empty_cache()
     torch.use_deterministic_algorithms(False)
@@ -4299,6 +4323,283 @@ def worker_train(mesh, args) -> dict:
                                shard_policy=policy, device="cuda")[1]
     out["elastic_launches"] = K.cima_mvm_planes.launches
     return out
+
+
+# ---------------------------------------------------------------- roofline
+
+# the counts a step's card run and its meta dry run must share
+COUNT_KEYS = ("dot_flops", "dot_flops_by_dtype", "dot_bytes", "result_bytes",
+              "n_ops", "kernel_ops", "kernel_bytes", "kernel_calls",
+              "collective_bytes")
+ROOFLINE_BATCH = 4                # decode rows, serve_kernel's
+ROOFLINE_TIMED = 5                # timed decode steps (host clock)
+
+
+def counted(fn) -> dict:
+    """``fn()`` under a ``StepCounter``; its stats."""
+    with StepCounter() as c:
+        fn()
+    return c.stats()
+
+
+def same_counts(card: dict, meta: dict, what: str) -> None:
+    diff = {k: (card[k], meta[k]) for k in COUNT_KEYS + ("peak_bytes",)
+            if card[k] != meta[k]}
+    check(not diff, f"roofline {what}: card and meta counts differ {diff}")
+
+
+def step_bound(stats: dict) -> dict:
+    """A counted step's roofline on one card at the H100 SXM data-sheet
+    peaks (``roofline.analysis``): its compute and memory terms, the
+    larger, and which."""
+    c_s, m_s = rfa.compute_s(stats), rfa.memory_s(stats)
+    return dict(bound_ms=max(c_s, m_s) * 1e3, compute_ms=c_s * 1e3,
+                memory_ms=m_s * 1e3,
+                bound_by="operations" if c_s >= m_s else "bytes")
+
+
+def roofline_decode(cfg) -> tuple:
+    """(a)-(d) of one decode step at B = ROOFLINE_BATCH through ``Engine``
+    with its program: counted on the card (kernel reports against the
+    launches), dry-run on meta at the same shapes, timed."""
+    engine = Engine(init_params(cfg, 0, device="cuda"), cfg,
+                    ServeConfig(max_seq=256, max_new_tokens=16),
+                    device="cuda")
+    logits, cache = engine.prefill(serve_prompts(cfg.vocab, ROOFLINE_BATCH))
+    tok = torch.argmax(logits, -1)
+    state = [tok, cache, None]
+
+    def decode():
+        state[2], state[1] = engine.decode(state[0], state[1])
+
+    def step():
+        decode()
+        state[0] = torch.argmax(state[2], -1)
+
+    step()                                       # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    # the main path: counts at 0 just before, read just after
+    K.cima_mvm_planes.launches = 0
+    card = counted(decode)
+    state[0] = torch.argmax(state[2], -1)
+    torch.cuda.synchronize()
+    launches = K.cima_mvm_planes.launches
+    peak = torch.cuda.max_memory_allocated() - base
+    check(launches == LAUNCHES_PER_FORWARD,
+          f"roofline decode: {launches} launches")
+    check(card["kernel_calls"] == launches,
+          f"roofline decode: {card['kernel_calls']} kernel reports for "
+          f"{launches} launches")
+    ms = []
+    for _ in range(ROOFLINE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(ms)
+    profile = device_profile(step, wall, steps=3)
+    args = tensor_bytes(engine.params) + image_bytes(engine) \
+        + tensor_bytes(state[:2])
+    del engine, state, cache, logits, tok
+    torch.cuda.empty_cache()
+
+    meta_engine = Engine(init_params(cfg, 0, device="meta"), cfg,
+                         ServeConfig(max_seq=256, max_new_tokens=16),
+                         device="meta")
+    mcache = meta_engine.init_cache(ROOFLINE_BATCH)
+    mtok = torch.empty((ROOFLINE_BATCH,), dtype=torch.int64, device="meta")
+    meta_engine.decode(mtok, mcache)             # warm, as on the card
+    meta = counted(lambda: meta_engine.decode(mtok, mcache))
+    same_counts(card, meta, "decode")
+    return launches, dict(call="decode_step", batch=ROOFLINE_BATCH,
+                          max_seq=256, launches=launches, counts=card,
+                          wall_ms=wall, wall_ms_each=ms,
+                          device_busy_ms=profile["device_busy_ms_per_step"],
+                          device_idle_share=profile["device_idle_share"],
+                          max_memory_allocated_bytes_over_args=peak,
+                          counter_peak_bytes=card["peak_bytes"],
+                          argument_bytes=args)
+
+
+def roofline_train(cfg) -> tuple:
+    """(a)-(d) of one ``build_train_step`` step of LM_BATCH x LM_SEQ
+    tokens (train_lm's), on the card and on meta."""
+    data_cfg = DataConfig(seq_len=LM_SEQ, global_batch=LM_BATCH,
+                          vocab=cfg.vocab, seed=0)
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=200)
+    batch = make_batch(data_cfg, 0, "cuda")
+    holder = [init_train_state(init_params(cfg, 0, device="cuda"))]
+    step_fn = build_train_step(cfg, opt_cfg)
+
+    def step():
+        holder[0], _ = step_fn(holder[0], batch)
+
+    args = tensor_bytes(holder[0]) + tensor_bytes(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    K.cima_mvm_planes.launches = 0
+    card = counted(step)
+    torch.cuda.synchronize()
+    launches = K.cima_mvm_planes.launches
+    peak = torch.cuda.max_memory_allocated() - base
+    check(launches == LM_LAUNCHES_PER_STEP,
+          f"roofline train: {launches} launches")
+    check(card["kernel_calls"] == launches,
+          f"roofline train: {card['kernel_calls']} kernel reports for "
+          f"{launches} launches")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    profile = device_profile(step, wall, steps=1)
+    del holder, batch
+    torch.cuda.empty_cache()
+
+    mstate = init_train_state(init_params(cfg, 0, device="meta"))
+    mbatch = {"tokens": torch.empty((LM_BATCH, LM_SEQ), dtype=torch.int32,
+                                    device="meta")}
+    meta = counted(lambda: step_fn(mstate, mbatch))
+    same_counts(card, meta, "train step")
+    return launches, dict(
+        call="build_train_step", batch=LM_BATCH, seq=LM_SEQ, remat=cfg.remat,
+        launches=launches, counts=card, wall_ms=wall,
+        device_busy_ms=profile["device_busy_ms_per_step"],
+        device_idle_share=profile["device_idle_share"],
+        max_memory_allocated_bytes_over_args=peak,
+        counter_peak_bytes=card["peak_bytes"], argument_bytes=args)
+
+
+def phase_roofline():
+    """The counted roofline of full-width olmo-1b on the kernel: (a) one
+    decode step at B = 4 through ``Engine`` with its program and one
+    ``build_train_step`` step of 8 x 256 tokens under a ``StepCounter``;
+    (b) the kernel's reports equal its launches (113, 225); (c) the same
+    two calls dry-run on meta at the same shapes count the same; (d) each
+    step's bound on the card's data-sheet peaks against its host-clock
+    wall time and its device busy time (``torch.profiler``), the peak
+    device memory beside the counter's."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
+    launches = 0
+    for fn in (roofline_decode, roofline_train):
+        n, row = fn(cfg)
+        launches += n
+        b = step_bound(row["counts"])
+        row.update(b, bound_over_wall=b["bound_ms"] / row["wall_ms"],
+                   bound_over_busy=(b["bound_ms"] / row["device_busy_ms"]
+                                    if row["device_busy_ms"] else None),
+                   meta_counts_equal=True, card=smi,
+                   peaks="H100 SXM data sheet at 700 W: float32 67e12, "
+                         "bfloat16 989e12 FLOP/s, int8 1979e12 OP/s, "
+                         "3.35e12 B/s")
+        emit("roofline", config="olmo-1b", **row)
+    return launches
+
+
+def start_dryrun_cells() -> tuple:
+    """``python -m repro_torch.launch.dryrun`` for olmo-1b at the four
+    production shapes on pod1 with ``--backend kernel``, on meta: one
+    single-threaded process a cell, started together with no card
+    visible."""
+    root = Path(__file__).resolve().parent
+    out = root / "build" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    procs = {s: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "olmo-1b", "--shape", s, "--multi-pod", "no", "--backend", "kernel",
+         "--out", str(out)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env, cwd=root)
+        for s in SHAPES}
+    # a failing phase exits the script: the cells go with it
+    atexit.register(lambda: [p.kill() for p in procs.values()
+                             if p.poll() is None])
+    return out, procs, time.perf_counter()
+
+
+def finish_dryrun_cells(out: Path, procs: dict, t0: float) -> None:
+    """Wait for the cells; each supported one must end ``ok``, the rest
+    ``skipped`` as ``cell_supported`` says."""
+    cells = {}
+    for s, p in procs.items():
+        try:
+            log = p.communicate(timeout=DRYRUN_TIMEOUT)[0]
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            fail(f"roofline_dryrun: olmo-1b {s} took over {DRYRUN_TIMEOUT}s")
+        path = out / f"olmo-1b__{s}__pod1.json"
+        check(p.returncode == 0 and path.exists(),
+              f"roofline_dryrun: olmo-1b {s} exited {p.returncode}: "
+              f"{log[-2000:]}")
+        rec = json.loads(path.read_text())
+        ok, _ = cell_supported(get_config("olmo-1b"), s)
+        check(rec["status"] == ("ok" if ok else "skipped"),
+              f"roofline_dryrun: olmo-1b {s} status {rec['status']}")
+        row = rfa.roofline_row(rec)["row"]
+        cells[s] = dict(status=rec["status"], reason=rec.get("reason"),
+                        count_s=rec.get("count_s"),
+                        n_devices=rec.get("n_devices"),
+                        hlo_stats=rec.get("hlo_stats"),
+                        arg_bytes_per_device=rec.get("arg_bytes_per_device"),
+                        temp_bytes=rec.get("memory_analysis", {}).get(
+                            "temp_size_in_bytes"),
+                        roofline=row and {k: row[k] for k in (
+                            "compute_s", "memory_s", "collective_s", "link",
+                            "dominant", "useful_ratio")})
+    emit("roofline_dryrun", config="olmo-1b", mesh="pod1 (16 x 16)",
+         backend="kernel", device="meta", cells=cells,
+         wall_s=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------- examples
+
+def phase_examples() -> int:
+    """``repro_torch.examples`` on the card, as ``python -m`` runs them:
+    quickstart; serve_lm on olmo-1b (~100M) with a short queue; 3 steps
+    of train_lm on the kernel.  Each must return; train_lm must launch
+    the kernel."""
+    from repro_torch.examples import quickstart, serve_lm, train_lm
+
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    rows = {}
+    t0 = time.perf_counter()
+    quickstart.main(["--device", "cuda"])
+    rows["quickstart"] = dict(s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    K.cima_mvm_planes.launches = 0
+    results = serve_lm.main(["--arch", "olmo-1b", "--requests", "4",
+                             "--new-tokens", "8", "--slots", "2",
+                             "--device", "cuda"])
+    check(sorted(results) == [0, 1, 2, 3], f"serve_lm results {results}")
+    rows["serve_lm"] = dict(s=time.perf_counter() - t0, requests=4,
+                            tokens=sum(len(v) for v in results.values()),
+                            launches=K.cima_mvm_planes.launches)
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        t0 = time.perf_counter()
+        K.cima_mvm_planes.launches = 0
+        history = train_lm.main(["--steps", "3", "--accel", "kernel",
+                                 "--ckpt-dir", str(Path(tmp) / "ckpt"),
+                                 "--device", "cuda"])
+        launches = K.cima_mvm_planes.launches
+    check(len(history) == 3 and all(np.isfinite(h["loss"]) for h in history),
+          f"train_lm history {history}")
+    check(launches > 0, "train_lm launched no kernel")
+    rows["train_lm"] = dict(s=time.perf_counter() - t0, steps=3,
+                            losses=[h["loss"] for h in history],
+                            launches=launches)
+    emit("examples", **rows)
+    return launches
 
 
 def mesh_worker(argv) -> None:
@@ -4323,8 +4624,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     name, peaks = phase_device()
+    # the dry-run cells run on the host while nvcc builds the kernels and
+    # the kernel is held to its plain version, and are read before any
+    # phase takes a host-clock time (the build's seconds are reported,
+    # not compared)
+    cells = start_dryrun_cells()
     phase_build()
     err_cases = phase_cima_cases()
+    finish_dryrun_cells(*cells)
     rows, err_main = phase_main_shapes(peaks)
     launches = phase_serve(peaks)
     phase_serve_batcher()
@@ -4359,6 +4666,8 @@ def main():
     phase_noise_corner()
     phase_figures()
     san_launches = phase_sanitize()
+    roofline_launches = phase_roofline()
+    example_launches = phase_examples()
     # one decode step's worth of launches at B=4, from the per-shape times
     step = {k: sum(rows[(s[0], 4)][k] * s[4] for s in MAIN_SHAPES)
             for k in ("ms", "plain_ms", "bound_ms")}
@@ -4382,7 +4691,8 @@ def main():
                      + paged_launches + paged_archs_launches
                      + moe_train_launches + tune_launches
                      + mesh_launches + tuned_mesh_launches
-                     + train_mesh_launches + san_launches),
+                     + train_mesh_launches + san_launches
+                     + roofline_launches + example_launches),
         "max_abs_err": max(err_cases, err_main, cifar_err, rec_err, moe_err,
                            fr_err, mesh_err),
         "ms": step["ms"], "plain_ms": step["plain_ms"],
@@ -4425,12 +4735,15 @@ def main():
                "(reduced olmo-1b on the tuned pick's mesh, 29 a forward, "
                "8 forwards); train_mesh's ranks (full-width olmo-1b "
                "trained on 2 x 2 fsdp and 1 x 2 2d gloo meshes sharing "
-               "the card: 3 steps of 225 launches a rank, 113 forward and "
+               "the card: 2 steps of 225 launches a rank, 113 forward and "
                "112 remat, whatever its rows; the reduced trainer's 4 "
                "steps a rank crashed on 2 x 2 and 2 resumed on 1 x 2, 29 "
                "each); sanitize's (olmo-1b's generate outside and inside "
                "a scope, 113 a forward each, the planted inf scale's 2 "
                "launches, the paged batcher trace twice, 8,136 each); "
+               "roofline's counted decode step (113) and train step "
+               "(225); examples' train_lm (3 steps of the ~100M olmo-1b, "
+               "57 each); "
                "the noisy paths (noise, noise_qat, noise_corner) "
                "run bpbs and launch it 0 times",
         "mesh_decode_step_ms": {f"{d}x{m}": v

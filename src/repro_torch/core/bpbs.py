@@ -103,6 +103,13 @@ def gemm_adc_epilogue(d: torch.Tensor, nu, bank_rows, cfg: BpbsConfig,
     return signed_dot_from_popcount(p_hat, nu, cfg.coding)
 
 
+def _all_zero(t: torch.Tensor) -> bool:
+    """Is every element of ``t`` zero?  False on ``meta``, which has no
+    values (the reduction is still dispatched, as on a device)."""
+    nonzero = t.any()
+    return t.device.type != "meta" and not bool(nonzero)
+
+
 def bpbs_matmul_planes(x_q: torch.Tensor, ws: torch.Tensor,
                        cfg: BpbsConfig,
                        generator: Optional[torch.Generator] = None
@@ -130,7 +137,9 @@ def bpbs_matmul_planes(x_q: torch.Tensor, ws: torch.Tensor,
         # the chip's column-parallel layout [T*BX, nb] @ [nb, BA*M]
         x2 = xs[..., s:e, :].transpose(-1, -2).reshape(t * cfg.bx, nb)
         w2 = ws[s:e].to(torch.float32).reshape(nb, cfg.ba * m)
-        if cfg.skip_zero_planes and not bool(x2.any()):
+        # a meta tensor has no values to read: it takes the GEMM, as the
+        # reference's HLO holds it in its lax.cond
+        if cfg.skip_zero_planes and _all_zero(x2):
             d2 = x2.new_zeros((t * cfg.bx, cfg.ba * m))
         else:
             d2 = x2 @ w2

@@ -10,7 +10,11 @@
 Both sources are compiled by ``nvcc`` into ``build/`` on first use
 (:mod:`._build`) and bound with ``ctypes``.
 
-``ops.py`` holds the entry points, ``ref.py`` the oracles."""
+``ops.py`` holds the entry points, ``ref.py`` the oracles.
+
+The reference's ``kernels/_compat.py`` (a shim over the renamed Pallas
+TPU ``CompilerParams``) has no counterpart: the port has no Pallas API
+to shim."""
 from . import ops, ref
 
 __all__ = ["ops", "ref"]

@@ -15,6 +15,13 @@ and how it is laid out); this module holds
   one grouped launch, each group computed as its own 2-D product;
 * the binding: :mod:`._build` compiles the source into ``build/`` at the
   repo root on first use, and ``ctypes`` binds its plain C launcher.
+
+A ``meta`` call (the dry run, :mod:`repro_torch.launch.dryrun`) checks
+the operands as a launch does and returns the output's shape without
+values.  Inside a :class:`~repro_torch.roofline.hlo_stats.StepCounter`
+a launch and a ``meta`` call each report the kernel's int8 plane
+operations and bytes (:mod:`repro_torch.tally`); outside one they
+report nothing.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tally
 from repro_torch.core.bpbs import (BpbsConfig, gemm_adc_epilogue,
                                    input_planes, weight_planes)
 from repro_torch.core.datapath import ACTIVATIONS, saturate
@@ -285,12 +293,15 @@ def cima_mvm_planes(xs: torch.Tensor, ws: torch.Tensor, nu: torch.Tensor,
     is the 2-D call's on that group's operands, bit for bit.
 
     CUDA tensors launch the kernel (counted in ``cima_mvm_planes.launches``)
-    or raise; CPU tensors run :func:`cima_mvm_planes_reference`.  Like the
-    Pallas kernel, it draws no ADC noise (``adc_sigma_lsb > 0`` warns)."""
+    or raise; CPU tensors run :func:`cima_mvm_planes_reference`; ``meta``
+    tensors return an empty ``meta`` output.  Inside a step counter a
+    launch and a ``meta`` call report their work (:func:`_report`).
+    Like the Pallas kernel, it draws no ADC noise (``adc_sigma_lsb > 0``
+    warns)."""
     if xs.device.type == "cpu":
         return cima_mvm_planes_reference(xs, ws, nu, fs, cfg, escale, pbias,
                                          act, by_bits)
-    if xs.device.type != "cuda":
+    if xs.device.type not in ("cuda", "meta"):
         raise ValueError(f"cima_mvm: no kernel for device {xs.device}")
     _check_launch(xs, ws, nu, fs, cfg, act)
     if cfg.adc_sigma_lsb:
@@ -308,6 +319,10 @@ def cima_mvm_planes(xs: torch.Tensor, ws: torch.Tensor, nu: torch.Tensor,
         es = _epilogue_operand(escale, b, m, xs.device, groups)
     if fused and pbias is not None:
         pb = _epilogue_operand(pbias, b, m, xs.device, groups)
+    if xs.device.type == "meta":
+        if tally.ACTIVE:
+            _report(cfg, (xs, ws, nu, fs, es, pb, out))
+        return out
     es_g, pb_g = (int(t is not None and t.ndim == 3) for t in (es, pb))
     mt, tb, cs = launch_shape(b, n, m, cfg, _sm_count(xs.device.index or 0),
                               max(groups, 1))
@@ -329,10 +344,25 @@ def cima_mvm_planes(xs: torch.Tensor, ws: torch.Tensor, nu: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"cima_mvm kernel launch failed: cudaError {rc}")
     cima_mvm_planes.launches += 1
+    if tally.ACTIVE:
+        _report(cfg, (xs, ws, nu, fs, es, pb, out))
     return out
 
 
 cima_mvm_planes.launches = 0
+
+
+def _report(cfg: BpbsConfig, operands) -> None:
+    """Report one call to the open counters: ``2 * G * B * B_X * N * B_A
+    * M`` int8 plane operations (each plane pair's dot over every row of
+    every bank) and the bytes of every operand and the output, each read
+    or written once."""
+    xs, ws = operands[0], operands[1]
+    g = xs.shape[0] if xs.ndim == 4 else 1
+    b, bx, n = xs.shape[-3:]
+    tally.report_kernel(2 * g * b * bx * n * cfg.ba * ws.shape[-1],
+                        sum(t.numel() * t.element_size() for t in operands
+                            if t is not None))
 
 
 # ------------------------------------------------------------ entry points

@@ -24,7 +24,14 @@ axis first, so a dim split over ``("data", "model")`` reassembles in
 row-major block order).  Training adds the max reduction (a shared
 quantization scale, ``compress_psum``'s ``pmax``) and :meth:`ServeMesh.
 barrier`.  ``stats`` counts the collectives this rank issued and their
-bytes.
+bytes; each is also reported, by kind and axis, to every open step
+counter (:mod:`repro_torch.tally`).
+
+:func:`make_production_mesh` is the reference's production mesh, 16 x 16
+``("data", "model")`` or 2 x 16 x 16 with a leading ``"pod"`` axis, as a
+:class:`RecordingMesh`: rank 0's view of it, issuing no communication.
+The dry run (:mod:`repro_torch.launch.dryrun`) runs a step on it to
+count what rank 0 computes and sends.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from repro_torch import tally
 
 AXES = ("data", "model")
 BACKENDS = ("gloo", "nccl")
@@ -87,9 +96,14 @@ class ServeMesh:
         """The product of the sizes of ``axes`` (an axis or a tuple)."""
         return math.prod(self.size(a) for a in _axes(axes))
 
-    def _count(self, t: torch.Tensor) -> None:
+    def _count(self, t: torch.Tensor, kind: str, axis: str,
+               factor: int = 1) -> None:
+        """Count one collective over ``axis`` on operand ``t``; its result
+        is ``factor`` times the operand (an all-gather's group size)."""
+        nbytes = t.numel() * t.element_size()
         self.stats["collectives"] += 1
-        self.stats["bytes"] += t.numel() * t.element_size()
+        self.stats["bytes"] += nbytes
+        tally.report_collective(kind, axis, nbytes, nbytes * factor)
 
     def all_reduce(self, t: torch.Tensor, axis, op: str = "sum") \
             -> torch.Tensor:
@@ -109,7 +123,7 @@ class ServeMesh:
         for a in _axes(axis):
             group = self._group(a)
             if group is not None:
-                self._count(t)
+                self._count(t, "all-reduce", a)
                 dist.all_reduce(t, op=_OPS[op], group=group)
         return t
 
@@ -120,7 +134,7 @@ class ServeMesh:
             group = self._group(a)
             if group is None:
                 continue
-            self._count(t)
+            self._count(t, "all-gather", a, self.size(a))
             t = t.contiguous()
             parts = [torch.empty_like(t) for _ in range(self.size(a))]
             dist.all_gather(parts, t, group=group)
@@ -135,6 +149,68 @@ class ServeMesh:
             group = self._group(a)
             if group is not None:
                 dist.barrier(group=group)
+
+
+@dataclasses.dataclass
+class RecordingMesh(ServeMesh):
+    """Rank 0's view of a production mesh that issues no communication:
+    an all-reduce returns its operand, an all-gather the operand repeated
+    to the gathered shape.  Each collective is counted in ``stats`` and
+    reported to the open counters as :class:`ServeMesh` counts and
+    reports it.  ``pod > 1`` adds a leading ``"pod"`` axis."""
+
+    pod: int = 1
+
+    @property
+    def axis_names(self) -> tuple:
+        return ("pod",) + AXES if self.pod > 1 else AXES
+
+    @property
+    def shape(self) -> dict:
+        lead = {"pod": self.pod} if self.pod > 1 else {}
+        return {**lead, "data": self.data, "model": self.model}
+
+    @property
+    def coords(self) -> tuple:
+        return (0,) * len(self.axis_names)
+
+    def index(self, axis: str) -> int:
+        if axis not in self.axis_names:
+            raise KeyError(axis)
+        return 0
+
+    def _group(self, axis: str):
+        """The axis's name where it is wider than 1: no process group."""
+        return axis if self.size(axis) > 1 else None
+
+    def all_reduce_(self, t: torch.Tensor, axis, op: str = "sum") \
+            -> torch.Tensor:
+        if op not in _OPS:
+            raise ValueError(f"op must be one of {sorted(_OPS)}, got {op!r}")
+        for a in _axes(axis):
+            if self._group(a) is not None:
+                self._count(t, "all-reduce", a)
+        return t
+
+    def all_gather(self, t: torch.Tensor, axis, dim: int) -> torch.Tensor:
+        for a in reversed(_axes(axis)):
+            n = self.size(a)
+            if n > 1:
+                self._count(t, "all-gather", a, n)
+                t = torch.cat([t.contiguous()] * n, dim=dim)
+        return t
+
+    def barrier(self) -> None:
+        pass
+
+
+def make_production_mesh(multi_pod: bool = False) -> RecordingMesh:
+    """The production mesh as rank 0 sees it: 16 x 16 = 256 cards
+    (``data x model``), or with ``multi_pod`` 2 pods x 256 with a leading
+    ``"pod"`` axis (pure DP across the pods).  A :class:`RecordingMesh`
+    on ``meta``, the dry run's device."""
+    return RecordingMesh(data=16, model=16, pod=2 if multi_pod else 1,
+                         device=torch.device("meta"))
 
 
 def _axes(axis) -> tuple:

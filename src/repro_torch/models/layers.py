@@ -89,10 +89,18 @@ def init_embedding(gen, vocab: int, d: int, device) -> dict:
     return {"table": truncated_normal_init(gen, (vocab, d), d ** -0.5, device)}
 
 
-def embed(params: dict, tokens: torch.Tensor,
-          dtype=torch.bfloat16) -> torch.Tensor:
+def embed(params: dict, tokens: torch.Tensor, dtype=torch.bfloat16,
+          onehot: bool = False) -> torch.Tensor:
+    """Token embeddings.  ``onehot`` (``cfg.onehot_embed``) takes them as
+    the reference's perf knob does, one-hot rows times the cast table: a
+    dot of ``2 * tokens * vocab * d`` FLOPs in place of a gather, the
+    same values."""
+    table = params["table"]
+    if onehot:
+        vocab = torch.arange(table.shape[0], device=tokens.device)
+        return (tokens[..., None] == vocab).to(dtype) @ table.to(dtype)
     # gather, then cast: the same values as casting the whole table first
-    return params["table"][tokens].to(dtype)
+    return table[tokens].to(dtype)
 
 
 def unembed(params: dict, x: torch.Tensor, spec: Optional[ExecSpec] = None,

@@ -57,8 +57,12 @@ def init_params(cfg, gen: Union[torch.Generator, int] = 0, device="cuda",
                 max_seq: int = 32768) -> dict:
     """Random parameters (float32 masters) drawn from ``gen`` — a
     ``torch.Generator`` on ``device`` or an integer seed for one.
-    ``max_seq`` sizes whisper's learned decoder positions."""
-    if not isinstance(gen, torch.Generator):
+    ``max_seq`` sizes whisper's learned decoder positions.  On ``meta``
+    (no generator there) the tree has the same shapes and dtypes and no
+    values."""
+    if torch.device(device).type == "meta":
+        gen = None
+    elif not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=device).manual_seed(int(gen))
     p: dict = {
         "embed": init_embedding(gen, cfg.vocab, cfg.d_model, device),
@@ -94,7 +98,7 @@ def _embed_inputs(params, tokens, cfg, frontend_embeds, dtype):
     """Token embeddings; an early-fusion decoder's ``frontend_embeds``
     [B, F, d] replace its first F positions (the prompt must hold at
     least F tokens)."""
-    x = embed(params["embed"], tokens, dtype)
+    x = embed(params["embed"], tokens, dtype, cfg.onehot_embed)
     if cfg.frontend != "none" and not cfg.is_encdec \
             and frontend_embeds is not None:
         f = frontend_embeds.shape[1]
@@ -199,7 +203,7 @@ def forward(params, tokens: torch.Tensor, cfg, frontend_embeds=None):
     if cfg.is_encdec:
         cross_kv = _encoder_kv(params, frontend_embeds, cfg, b, dtype,
                                tokens.device)
-        x = embed(params["embed"], tokens, dtype)
+        x = embed(params["embed"], tokens, dtype, cfg.onehot_embed)
         x = x + params["dec_pos"][:s][None].to(dtype)
         x, _ = _decoder_with_cross(params, x, cfg, positions, cross_kv,
                                    None, None, dtype)
@@ -315,7 +319,7 @@ def prefill(params, tokens: torch.Tensor, cfg, s_max: Optional[int] = None,
         if cfg.is_encdec:
             cross_kv = _encoder_kv(params, frontend_embeds, cfg, b, dtype,
                                    tokens.device)
-            x = embed(params["embed"], tokens, dtype)
+            x = embed(params["embed"], tokens, dtype, cfg.onehot_embed)
             pos_emb = (params["dec_pos"][positions] if pad_mask is not None
                        else params["dec_pos"][:s][None])
             x = x + pos_emb.to(dtype)
@@ -341,7 +345,7 @@ def decode_step(params, token: torch.Tensor, cache: DecodeCache, cfg):
     pos = torch.as_tensor(cache.pos, dtype=torch.int64, device=token.device)
     if pos.ndim == 0:
         pos = pos.expand(b)
-    x = embed(params["embed"], token[:, None], dtype)
+    x = embed(params["embed"], token[:, None], dtype, cfg.onehot_embed)
     if cfg.is_encdec:
         x = x + params["dec_pos"][pos][:, None].to(dtype)
         x, layers = _decoder_with_cross(params, x, cfg, pos[:, None],
@@ -376,7 +380,7 @@ def prefill_resume(params, tokens: torch.Tensor, cfg, cache: DecodeCache):
     if pos.ndim == 0:
         pos = pos.expand(b)
     positions = pos[:, None] + torch.arange(s, device=tokens.device)[None, :]
-    x = embed(params["embed"], tokens, dtype)
+    x = embed(params["embed"], tokens, dtype, cfg.onehot_embed)
     x, layers, _ = tfm.apply_stack(params["stack"], x, cfg, positions,
                                    cache.layers, cache_pos=pos, dtype=dtype)
     x = norm(params["final_norm"], x[:, -1:], cfg.norm)

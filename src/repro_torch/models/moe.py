@@ -87,8 +87,10 @@ def moe_ffn(params, x: torch.Tensor, cfg, dtype=torch.bfloat16):
 
     # load-balancing auxiliary loss (Switch-style)
     me = probs.mean(0)
-    ce = torch.nn.functional.one_hot(gate_idx, e).to(torch.float32).sum(1) \
-        .mean(0)
+    # one-hot by comparison: F.one_hot reads the indices' range to the
+    # host on the CPU and runs other ops on each device
+    one_hot = gate_idx[..., None] == torch.arange(e, device=dev)
+    ce = one_hot.to(torch.float32).sum(1).mean(0)
     aux = e * torch.sum(me * ce)
 
     cap = capacity(t, cfg)

@@ -57,6 +57,11 @@ def test_port_imports_with_jax_and_repro_blocked():
         "import repro_torch.launch, repro_torch.distributed\n"
         "import repro_torch.accel.shard\n"
         "import repro_torch.analysis, repro_torch.analysis.__main__\n"
+        "import repro_torch.launch.shapes, repro_torch.launch.dryrun\n"
+        "import repro_torch.tally\n"
+        "import repro_torch.roofline.hlo_stats, repro_torch.roofline.analysis\n"
+        "import repro_torch.examples.quickstart, repro_torch.examples.serve_lm\n"
+        "import repro_torch.examples.train_lm\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120,

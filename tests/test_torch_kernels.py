@@ -10,6 +10,8 @@ and the transcendental activations (silu, tanh-gelu) may round ``exp``/
 itself is held to the plain version on the card by
 ``tests/test_torch_cuda.py``.
 """
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -157,10 +159,18 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_wrapper_raises_on_a_device_without_a_kernel():
+    """Neither CPU (the plain version) nor CUDA (the kernel) nor meta (a
+    dry run's shapes): the wrapper raises.  A stand-in operand names the
+    device, as this torch has no other device to put a tensor on."""
     xs, ws, nu, fs, tc = _planes()
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="no kernel"):
-        K.cima_mvm_planes(xs.to("meta"), ws.to("meta"), nu.to("meta"),
-                          fs.to("meta"), tc)
+        K.cima_mvm_planes(other, ws, nu, fs, tc)
+    # meta returns the output's shape and no values
+    out = K.cima_mvm_planes(xs.to("meta"), ws.to("meta"), nu.to("meta"),
+                            fs.to("meta"), tc)
+    assert out.device.type == "meta" and out.dtype == torch.float32
+    assert tuple(out.shape) == (xs.shape[0], ws.shape[-1])
 
 
 def test_cpu_tensors_run_the_plain_version_without_launching():

@@ -367,6 +367,61 @@ def task_quant(args) -> dict:
     return out
 
 
+def roofline_runs(mesh, args, device: str = "cpu") -> dict:
+    """Counted steps on ``mesh`` (a real rank's or a
+    :class:`~repro_torch.launch.mesh.RecordingMesh`): a decode step of the
+    ``args["serve"]`` config served from its program (each rank its tile,
+    its rows of the batch), and one ``"fsdp"`` train step of the
+    ``args["train"]`` config.  Each maps to (the counter's stats, the
+    collectives and bytes ``mesh.stats`` counted in the step)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.roofline.hlo_stats import StepCounter
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import build_train_step
+    from repro_torch.tree import tree_map
+
+    def counted(fn):
+        s0 = dict(mesh.stats)
+        with StepCounter() as c:
+            fn()
+        return c.stats(), {k: mesh.stats[k] - s0[k] for k in s0}
+
+    out = {}
+    cfg, params = args["serve"]
+    params = tree_map(lambda t: t.to(device), params)
+    engine = Engine(params, cfg, ServeConfig(max_seq=32, mesh=mesh),
+                    device=device)
+    b = args["batch"]
+    rows = engine.data_rows(b)
+    cache = engine.init_cache(b)
+    tok = torch.as_tensor(args["tokens"][:, 0]).to(device)[rows]
+
+    def decode():
+        with engine.local_rows(rows):
+            engine.decode(tok, cache)
+
+    out["decode"] = counted(decode)
+    cfg, params = args["train"]
+    policy = shd.ShardPolicy("fsdp")
+    state = init_train_state(tree_map(lambda t: t.to(device), params))
+    specs = shd.state_specs(state, mesh, policy)
+    step = build_train_step(cfg, args["opt"], mesh=mesh, shard_policy=policy,
+                            specs=specs)
+    local = shd.shard_tree(state, specs, mesh)
+    batch = {"tokens": torch.as_tensor(args["tokens"]).to(device)}
+    out["train"] = counted(lambda: step(local, batch))
+    return out
+
+
+def task_roofline(args) -> dict:
+    """:func:`roofline_runs` on the 2 x 2 mesh of the job."""
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    mesh = make_serve_mesh(2, 2, backend="gloo", device="cpu")
+    return roofline_runs(mesh, args)
+
+
 def _trainer_runs(t: dict, meshes: dict) -> dict:
     """``train(mesh=)`` on 2 x 2: uninterrupted, then crashed at
     ``crash`` and resumed; the crash's checkpoints copied before the
