@@ -414,10 +414,11 @@ PAGED_POOL_BLOCKS = 4
 PAGED_PRIORITIES = tuple(range(len(BATCH_PROMPTS)))[::-1]
 PAGED_CHUNK = 16
 # the reference's traffic benchmark (benchmarks/accel_bench.py::
-# run_poisson_traffic): 16 requests, prompt lengths and budgets drawn from
-# the sizes with default_rng(0), exponential gaps of mean 0.05 s
+# run_poisson_traffic), cut from its 16 requests to 8 for the script's
+# time (train_moe_mesh took the room): prompt lengths and budgets drawn
+# from the sizes with default_rng(0), exponential gaps of mean 0.05 s
 POISSON_SIZES = (8, 32, 128)
-POISSON_REQUESTS, POISSON_GAP_S = 16, 0.05
+POISSON_REQUESTS, POISSON_GAP_S = 8, 0.05
 # serve_paged_archs: the other cache layouts, (depth cut or None for
 # whole, launches a forward, paged leaves): mamba2 has none, 3 layers of
 # recurrentgemma (rec, rec, attn) page one KV pair beside the LRU states
@@ -477,11 +478,17 @@ MESH_SHARDS = (2, 4)
 MESH_ROWS = (4, 128)
 MESH_SERVE = ((1, 2), (2, 2))
 MESH_TIMEOUT = 420
-# sharded training (train_mesh): full-width olmo-1b as train_lm trains it
-# on (data, model) meshes of gloo ranks sharing the card, each mesh in
-# its ShardPolicy mode; losses held to train_lm's of the same run (the
-# reference's own invariant and tolerance, and step 1 at the cost of the
-# global loss's summation order); the 2 x 2 mesh again with the kernel
+# serve_mesh and train_mesh run olmo-1b at MESH_LAYERS of its 16 layers,
+# cut for the script's time: gloo moves the whole tree through the host,
+# and every layer takes the same tiles, collectives and launches
+MESH_LAYERS = 8
+MESH_LAUNCHES_PER_FORWARD = MESH_LAYERS * 7 + 1                   # 57
+# sharded training (train_mesh): olmo-1b at published widths and
+# MESH_LAYERS layers, as train_lm trains it, on (data, model) meshes of
+# gloo ranks sharing the card, each mesh in its ShardPolicy mode; losses
+# held to the unsharded step's on the same batches (the reference's own
+# invariant and tolerance, and step 1 at the cost of the global loss's
+# summation order); the 2 x 2 mesh again with the kernel
 # routed to its plain version, and on the kernel, at MESH_PLAIN_LAYERS
 # layers (gloo's transfers of the whole tree set a step's time);
 # the reduced trainer crashed on 2 x 2 and resumed on 1 x 2 and 1 x 1
@@ -494,7 +501,15 @@ MESH_PLAIN_LAYERS = 1
 # profiled
 MESH_TRAIN_STEPS = 2
 ELASTIC_STEPS, ELASTIC_CRASH = 6, 4
-OLMO_TREE_BYTES = 1_176_764_416 * 4                   # one float32 tree
+# MoE training on a mesh (train_moe_mesh): full-width deepseek-v2-lite at
+# the fewest layers that hold a routed block (first_k_dense + 1), trained
+# on a 2 x 2 "2d" mesh of gloo ranks sharing the card with train_moe's
+# batches (MESH_TRAIN_STEPS of them), optimizer and remat (off): the rows
+# gathered over "data", 32 of the 64 experts a rank.  Step 1's loss and
+# aux within TRAIN_MESH_FIRST_RTOL of the unsharded port step on the same
+# global batch, step 2's loss within TRAIN_MESH_RTOL; the first step
+# warms up and is timed, the second is profiled
+MOE_MESH, MOE_MESH_MODE = (2, 2), "2d"
 # ADC noise at the 0.85 V corner.  At fs = 255 (one bank of 255 rows, no
 # adaptive range) the clean ADC is exact and a code moves by
 # e = round(sigma z): P(e = +-1) = erfc(0.5 / (sigma sqrt 2)) = 0.09558,
@@ -2817,8 +2832,7 @@ def phase_train_lm():
 
 
 def train_lm():
-    """Returns the main path's launches and its per-step losses and
-    gradient norms."""
+    """Returns the main path's launches."""
     cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
     data_cfg = DataConfig(seq_len=LM_SEQ, global_batch=LM_BATCH,
                           vocab=cfg.vocab, seed=0)
@@ -2874,7 +2888,7 @@ def train_lm():
          forward_ms=t_fwd, backward_ms=t_bwd, step_profile=profile,
          max_memory_allocated_bytes=peak, device_memory_bytes=total_mem)
     torch.cuda.empty_cache()
-    return launches, [(s["loss"], s["grad_norm"]) for s in steps]
+    return launches
 
 
 def phase_trainer_resume():
@@ -3875,8 +3889,16 @@ def serve_prompts(vocab: int, batch: int = 4, prompt: int = 32):
                          device="cuda")
 
 
+def mesh_olmo():
+    """olmo-1b at published widths and MESH_LAYERS layers on the kernel
+    (the mesh phases' config)."""
+    return dataclasses.replace(
+        get_config("olmo-1b").with_accel("kernel", ba=4, bx=4),
+        n_layers=MESH_LAYERS)
+
+
 def phase_serve_mesh() -> tuple:
-    """Full-width olmo-1b through the kernel on a 1 x 2 and a 2 x 2 mesh
+    """olmo-1b (``mesh_olmo``) through the kernel on a 1 x 2 and a 2 x 2 mesh
     of gloo ranks sharing the card (``serve_mesh``): each rank's tiles,
     ``Engine.generate`` of 4 prompts x 32 tokens with 16 new, every rank's
     tokens equal, and equal to the sharded plain route's (the kernel
@@ -3888,7 +3910,7 @@ def phase_serve_mesh() -> tuple:
     tile bytes, peak memory.  On 2 x 2, ``PagedScheduler`` on the batcher
     trace at bank_n = 256: streams equal the unsharded batcher's.  Returns
     (launches of the ranks' main paths, each mesh's median decode ms)."""
-    cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
+    cfg = mesh_olmo()
     scfg = ServeConfig(max_new_tokens=16, **PAGED)
     cb = ContinuousBatcher(init_params(cfg, 0, device="cuda"), cfg, scfg,
                            BATCH_SLOTS, device="cuda")
@@ -3928,7 +3950,7 @@ def phase_serve_mesh() -> tuple:
             check(torch.equal(got["logits_digital_int"].cuda(),
                               want["logits_digital_int"]),
                   f"{what}: digital_int logits differ from unsharded")
-            check(got["launches"] == LAUNCHES_PER_FORWARD * 16,
+            check(got["launches"] == MESH_LAUNCHES_PER_FORWARD * 16,
                   f"{what}: {got['launches']} launches in 16 forwards")
             launches += got["launches"]
             if paged:
@@ -3956,6 +3978,7 @@ def phase_serve_mesh() -> tuple:
         step[(data, model)] = statistics.median(
             x["decode_ms_per_step"] for x in ranks)
         emit("serve_mesh", config="olmo-1b", layers=cfg.n_layers,
+             published_depth=get_config("olmo-1b").n_layers,
              mesh={"data": data, "model": model}, backend="gloo",
              device="cuda:0 shared by every rank", prompts=4, prompt=32,
              new_tokens=16, phase_s=seconds, whole_image_bytes=whole_bytes,
@@ -4011,7 +4034,7 @@ def phase_serve_tuned_mesh(tuned) -> int:
 
 def worker_serve(mesh, args) -> dict:
     """One rank of ``serve_mesh``."""
-    cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
+    cfg = mesh_olmo()
     scfg = ServeConfig(max_new_tokens=16, mesh=mesh, **PAGED)
     params = init_params(cfg, 0, device="cuda")
     if args["reqs"] is not None:
@@ -4109,14 +4132,15 @@ def elastic_setup(root: Path):
     return cfg, data_cfg, opt_cfg, tcfg
 
 
-def phase_train_mesh(lm_steps) -> int:
-    """Full-width olmo-1b trained on the kernel on a 1 x 2 ("2d") and a
-    2 x 2 ("fsdp") mesh of gloo ranks sharing the card (``train_mesh``:
+def phase_train_mesh() -> int:
+    """olmo-1b (``mesh_olmo``) trained on the kernel on a 1 x 2 ("2d") and
+    a 2 x 2 ("fsdp") mesh of gloo ranks sharing the card (``train_mesh``:
     ``build_train_step(mesh=)``, the mesh form of train_lm's main path,
-    MESH_TRAIN_STEPS steps of LM_BATCH x LM_SEQ from seed 0, remat on).  Every
-    rank's losses within TRAIN_MESH_RTOL of train_lm's in this run (step
-    1 within TRAIN_MESH_FIRST_RTOL) and equal across ranks; 225 launches
-    a step a rank (113 forward, 112 remat), whatever its rows.  On 2 x 2
+    MESH_TRAIN_STEPS steps of LM_BATCH x LM_SEQ from seed 0, remat on).
+    First the unsharded steps on the same batches in this process
+    (``lm_run``); every rank's losses within TRAIN_MESH_RTOL of them (step
+    1 within TRAIN_MESH_FIRST_RTOL) and equal across ranks; 113 launches
+    a step a rank (57 forward, 56 remat), whatever its rows.  On 2 x 2
     the steps again with the kernel routed to its plain version: losses
     and gradient norms bitwise.  The reduced trainer (``train(mesh=)``)
     crashed at ELASTIC_CRASH on 2 x 2 and resumed from its checkpoint
@@ -4128,6 +4152,12 @@ def phase_train_mesh(lm_steps) -> int:
     root = Path(__file__).resolve().parent / "build"
     root.mkdir(exist_ok=True)
     launches = 0
+    cfg = mesh_olmo()
+    tree_bytes = 4 * counting.param_count(cfg)        # one float32 tree
+    _, flat = lm_run(cfg, mesh_batches(cfg), mesh_opt())
+    lm_steps = [(s["loss"], s["grad_norm"]) for s in flat]
+    per_step = (MESH_LAUNCHES_PER_FORWARD,
+                MESH_LAUNCHES_PER_FORWARD - 1)        # remat: all but unembed
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=root) as tmp:
         tmp = Path(tmp)
@@ -4155,12 +4185,11 @@ def phase_train_mesh(lm_steps) -> int:
                     rtol = TRAIN_MESH_FIRST_RTOL if k == 0 \
                         else TRAIN_MESH_RTOL
                     check(abs(s["loss"] - want) <= rtol * abs(want),
-                          f"{what}: step {k} loss {s['loss']} vs train_lm "
+                          f"{what}: step {k} loss {s['loss']} vs unsharded "
                           f"{want} (rtol {rtol})")
                 split = [(s["launches_forward"], s["launches_backward_remat"])
                          for s in got["steps"]]
-                check(split == [(LAUNCHES_PER_FORWARD, LM_LAUNCHES_PER_STEP
-                                 - LAUNCHES_PER_FORWARD)] * MESH_TRAIN_STEPS,
+                check(split == [per_step] * MESH_TRAIN_STEPS,
                       f"{what}: launches (forward, backward) {split}")
                 launches += got["launches"] + got["elastic_launches"]
                 if plain:
@@ -4174,7 +4203,7 @@ def phase_train_mesh(lm_steps) -> int:
                     launches=got["launches"],
                     state_bytes=got["state_bytes"],
                     state_bytes_over_unsharded=got["state_bytes"]
-                    / (3 * OLMO_TREE_BYTES),
+                    / (3 * tree_bytes),
                     max_memory_allocated_bytes=got["peak_bytes"],
                     step_profile=got["profile"],
                     plain_route=got.get("plain"),
@@ -4182,24 +4211,24 @@ def phase_train_mesh(lm_steps) -> int:
             # the warm-up step; the last is profiled
             t_step = statistics.median(
                 s["ms"] for x in ranks for s in x["steps"][:-1])
-            emit("train_mesh", config="olmo-1b",
-                 layers=get_config("olmo-1b").n_layers,
+            emit("train_mesh", config="olmo-1b", layers=cfg.n_layers,
+                 published_depth=get_config("olmo-1b").n_layers,
                  mesh={"data": data, "model": model}, mode=mode,
                  backend="gloo", device="cuda:0 shared by every rank",
                  seq=LM_SEQ, batch=LM_BATCH, steps=MESH_TRAIN_STEPS,
-                 train_lm_losses=[x[0] for x in lm_steps],
+                 unsharded_losses=[x[0] for x in lm_steps],
                  losses=[s["loss"] for s in res[0]["steps"]],
-                 loss_rel_diff_vs_train_lm=[
+                 loss_rel_diff_vs_unsharded=[
                      abs(s["loss"] - w[0]) / abs(w[0])
                      for s, w in zip(res[0]["steps"], lm_steps)],
                  grad_norms=[s["grad_norm"] for s in res[0]["steps"]],
-                 train_lm_grad_norms=[x[1] for x in lm_steps],
+                 unsharded_grad_norms=[x[1] for x in lm_steps],
                  plain_route_layers=MESH_PLAIN_LAYERS if plain
                  else None, equal_to_plain_route_bitwise=plain or None,
                  ms_per_step_median=t_step,
                  timed_step="the first, a warm-up step",
                  tokens_per_s=LM_SEQ * LM_BATCH / t_step * 1e3,
-                 unsharded_state_bytes=3 * OLMO_TREE_BYTES,
+                 unsharded_state_bytes=3 * tree_bytes,
                  phase_s=seconds, ranks=ranks)
         cks = ckpt_lib.list_checkpoints(str(tmp / "crash_1x1"))
         check(cks and cks[-1][0] == ELASTIC_CRASH,
@@ -4230,16 +4259,26 @@ def phase_train_mesh(lm_steps) -> int:
     return launches
 
 
+def mesh_batches(cfg) -> list:
+    """The mesh training phases' global batches: train_lm's first
+    MESH_TRAIN_STEPS."""
+    data_cfg = DataConfig(seq_len=LM_SEQ, global_batch=LM_BATCH,
+                          vocab=cfg.vocab, seed=0)
+    return [make_batch(data_cfg, s, "cuda") for s in range(MESH_TRAIN_STEPS)]
+
+
+def mesh_opt() -> AdamWConfig:
+    """train_lm's optimizer."""
+    return AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=200)
+
+
 def worker_train(mesh, args) -> dict:
     """One rank of ``train_mesh``."""
     torch.use_deterministic_algorithms(True)
-    cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
+    cfg = mesh_olmo()
     policy = ShardPolicy(args["mode"])
-    data_cfg = DataConfig(seq_len=LM_SEQ, global_batch=LM_BATCH,
-                          vocab=cfg.vocab, seed=0)
-    batches = [make_batch(data_cfg, s, "cuda")
-               for s in range(MESH_TRAIN_STEPS)]
-    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=200)
+    batches = mesh_batches(cfg)
+    opt_cfg = mesh_opt()
 
     def run(cfg, route=None, profiled=False):
         """MESH_TRAIN_STEPS steps from seed 0; with ``profiled`` the last one
@@ -4323,6 +4362,194 @@ def worker_train(mesh, args) -> dict:
                                shard_policy=policy, device="cuda")[1]
     out["elastic_launches"] = K.cima_mvm_planes.launches
     return out
+
+
+def moe_mesh_cfg():
+    """``train_moe_mesh``'s config: deepseek-v2-lite at published widths
+    and first_k_dense + 1 layers on the kernel, remat off."""
+    base = get_config("deepseek-v2-lite-16b")
+    return dataclasses.replace(base.with_accel("kernel", ba=4, bx=4),
+                               n_layers=base.first_k_dense + 1, remat=False)
+
+
+def phase_train_moe_mesh() -> int:
+    """deepseek-v2-lite-16b trained on the kernel on a 2 x 2 "2d" mesh of
+    gloo ranks sharing the card (``train_moe_mesh``: ``build_train_step(
+    mesh=)`` with routed experts, MESH_TRAIN_STEPS steps of LM_BATCH x
+    LM_SEQ from seed 0, published widths at 2 of 27 layers): each MoE
+    block routes, drops and scores its aux over the global batch's 2,048
+    tokens and a rank computes its 32 of the 64 experts.  First the
+    unsharded port step on the same global batches in this process; then
+    every rank's step-1 loss and aux within TRAIN_MESH_FIRST_RTOL of it,
+    step 2's loss within TRAIN_MESH_RTOL, losses equal across ranks, the
+    forward's launches a step (2-D and grouped, none in the backward, as
+    train_moe counts them) and the rank's grouped launch (32 experts at
+    the step's capacity rows) bitwise against the plain version on its
+    own arguments.  Per rank: ms a step by phase, collectives and bytes by
+    phase, peak memory, idle share."""
+    cfg = moe_mesh_cfg()
+    batches, opt_cfg = mesh_batches(cfg), mesh_opt()
+    want_2d, want_grouped = moe_train_forward_launches(cfg)
+    torch.cuda.empty_cache()
+    # twice: the second run is the unsharded step's own spread (the MoE
+    # block's bf16 scatter-adds are not deterministic on the card)
+    runs = []
+    for _ in range(2):
+        state = init_train_state(init_params(cfg, 0, device="cuda"))
+        step_fn = build_train_step(cfg, opt_cfg)
+        runs.append([])
+        for b in batches:
+            state, m = step_fn(state, b)
+            runs[-1].append({k: float(m[k])
+                             for k in ("loss", "aux", "grad_norm")})
+        del state, step_fn
+        torch.cuda.empty_cache()
+    flat = runs[0]
+
+    def rel(got, want):
+        return {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+
+    (data, model), mode = MOE_MESH, MOE_MESH_MODE
+    t0 = time.perf_counter()
+    res = spawn_mesh("train_moe", data, model, {})
+    seconds = time.perf_counter() - t0
+    launches, ranks = 0, []
+    for r, got in enumerate(res):
+        what = f"train_moe_mesh {data}x{model} rank {r}"
+        steps = got["steps"]
+        check([s["loss"] for s in steps]
+              == [s["loss"] for s in res[0]["steps"]],
+              f"{what}: losses differ from rank 0's")
+        for k, (s, want) in enumerate(zip(steps, flat)):
+            rtol = TRAIN_MESH_FIRST_RTOL if k == 0 else TRAIN_MESH_RTOL
+            for key in ("loss", "aux") if k == 0 else ("loss",):
+                check(abs(s[key] - want[key]) <= rtol * abs(want[key]),
+                      f"{what}: step {k} {key} {s[key]} vs unsharded "
+                      f"{want[key]} (rtol {rtol})")
+            split = (s["launches_2d"], s["launches_grouped"],
+                     s["launches_backward"])
+            check(split == (want_2d, want_grouped, 0),
+                  f"{what}: step {k} launches (2-D, grouped, backward) "
+                  f"{split}")
+        g = got["grouped"]
+        check(g["equal_to_plain_version_bitwise"]
+              and g["shape"][0] == cfg.n_experts // model,
+              f"{what}: grouped launch {g['shape']} against the plain "
+              f"version (max abs err {g['max_abs_err']})")
+        launches += got["launches"]
+        ranks.append(dict(rank=r, coords=got["coords"], steps=steps,
+                          launches=got["launches"],
+                          max_memory_allocated_bytes=got["peak_bytes"],
+                          step_profile=got["profile"], grouped=g))
+    emit("train_moe_mesh", config="deepseek-v2-lite-16b",
+         layers=cfg.n_layers,
+         published_depth=get_config("deepseek-v2-lite-16b").n_layers,
+         mesh={"data": data, "model": model}, mode=mode, backend="gloo",
+         device="cuda:0 shared by every rank", seq=LM_SEQ, batch=LM_BATCH,
+         remat=cfg.remat, steps=MESH_TRAIN_STEPS,
+         experts_per_rank=cfg.n_experts // model,
+         capacity_rows=moe_capacity(LM_SEQ * LM_BATCH, cfg),
+         unsharded=flat, losses=[s["loss"] for s in res[0]["steps"]],
+         aux=[s["aux"] for s in res[0]["steps"]],
+         grad_norms=[s["grad_norm"] for s in res[0]["steps"]],
+         rel_diff_vs_unsharded=[rel(s, w) for s, w in
+                                zip(res[0]["steps"], flat)],
+         unsharded_again_rel_diff=[rel(s, w) for s, w in
+                                   zip(runs[1], flat)],
+         ms_per_step_median=statistics.median(
+             x["steps"][0]["ms"] for x in ranks),
+         timed_step="the first, a warm-up step",
+         launches_per_step_per_rank=want_2d + want_grouped,
+         phase_s=seconds, ranks=ranks)
+    return launches
+
+
+def worker_train_moe(mesh, args) -> dict:
+    """One rank of ``train_moe_mesh``."""
+    cfg = moe_mesh_cfg()
+    batches, opt_cfg = mesh_batches(cfg), mesh_opt()
+    policy = ShardPolicy(MOE_MESH_MODE)
+    params = init_params(cfg, 0, device="cuda")
+    specs = state_specs(state_template(params), mesh, policy)
+    holder = [init_train_state(shard_tree(params, specs.params, mesh))]
+    del params
+    torch.cuda.empty_cache()
+    step_fn = build_train_step(cfg, opt_cfg, mesh=mesh, shard_policy=policy,
+                               specs=specs)
+    # the kernel's wrapper counts on whatever the module's name holds: this
+    # one splits the launches by kind and keeps the first grouped one
+    launch, kinds, grouped = K.cima_mvm_planes, {"2d": 0, "grouped": 0}, []
+
+    def counted(*a):
+        out = launch(*a)
+        kind = "grouped" if a[0].ndim == 4 else "2d"
+        kinds[kind] += 1
+        if kind == "grouped" and not grouped:
+            grouped.append((a, out.clone()))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    out_steps, profile = [], None
+    # the main path: counts at 0 just before, read just after
+    counted.launches = 0
+    K.cima_mvm_planes = counted
+    try:
+        with backward_marks(train_step, "loss_fn") as marks:
+            for k, b in enumerate(batches):
+                k0 = dict(kinds)
+                t0 = time.perf_counter()
+                metrics = []
+
+                def one(b=b):
+                    holder[0], m = step_fn(holder[0], b)
+                    metrics.append(m)
+
+                if k == len(batches) - 1:
+                    profile = device_profile(one, 1.0, steps=1)
+                else:
+                    one()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                m = metrics[0]
+                out_steps.append(dict(
+                    ms=ms, loss=float(m["loss"]), aux=float(m["aux"]),
+                    grad_norm=float(m["grad_norm"]),
+                    launches_2d=kinds["2d"] - k0["2d"],
+                    launches_grouped=kinds["grouped"] - k0["grouped"],
+                    launches_backward=counted.launches - marks[-1],
+                    profiled=k == len(batches) - 1,
+                    **step_fn.clock.steps[-1]))
+    finally:
+        K.cima_mvm_planes = launch
+    launches = counted.launches
+    peak = torch.cuda.max_memory_allocated()
+    if profile is not None and profile["device_busy_ms_per_step"]:
+        # against the unprofiled step, the warm-up
+        profile["device_idle_share"] = \
+            1.0 - profile["device_busy_ms_per_step"] / out_steps[0]["ms"]
+    del holder
+    torch.cuda.empty_cache()
+    # the rank's grouped launch against the plain version on its arguments
+    a, got = grouped[0]
+    ref = plain_in_column_blocks(*a)
+    name = torch.cuda.get_device_name(0)
+    peaks = CARDS["pcie" if "pcie" in name.lower() else "sxm"]
+    g, c, n, m = a[0].shape[0], a[0].shape[1], a[0].shape[-1], a[1].shape[-1]
+    bound, by, nbytes, ops = grouped_bound_ms(g, c, n, m, a[4],
+                                              a[5] is not None, peaks)
+    # timing launches, not the main path's: not counted
+    n_before = K.cima_mvm_planes.launches
+    ms = device_ms(lambda i: K.cima_mvm_planes(*a))
+    K.cima_mvm_planes.launches = n_before
+    plain = median_ms(lambda i: plain_in_column_blocks(*a), 3, warmup=1)
+    return dict(coords=mesh.coords, steps=out_steps, launches=launches,
+                peak_bytes=peak, profile=profile,
+                grouped=dict(shape=[g, c, n, m],
+                             equal_to_plain_version_bitwise=bool(
+                                 torch.equal(got, ref)),
+                             max_abs_err=float((got - ref).abs().max()),
+                             ms=ms, plain_ms=plain, bound_ms=bound,
+                             bound_by=by, bytes=nbytes, ops=ops))
 
 
 # ---------------------------------------------------------------- roofline
@@ -4614,7 +4841,8 @@ def mesh_worker(argv) -> None:
                            rank=int(rank), world_size=int(world))
     args = torch.load(tmp / "args.pt", weights_only=False)
     out = {"serve": worker_serve, "tuned": worker_tuned,
-           "train": worker_train}[kind](mesh, args)
+           "train": worker_train,
+           "train_moe": worker_train_moe}[kind](mesh, args)
     torch.save(out, tmp / f"rank{rank}.pt")
     torch.distributed.destroy_process_group()
 
@@ -4653,14 +4881,15 @@ def main():
     cifar_rows, cifar_launches, cifar_err = phase_cifar(peaks)
     phase_serve_energy()
     qat_rows, qat_launches = phase_train_cifar()
-    lm_launches, lm_steps = phase_train_lm()
+    lm_launches = phase_train_lm()
     trainer_launches = phase_trainer_resume()
     moe_train_launches = phase_train_moe()
     tune_launches, tuned = phase_tune()
     mesh_err, mesh_rows = phase_mesh_shapes(peaks)
     mesh_launches, mesh_step = phase_serve_mesh()
     tuned_mesh_launches = phase_serve_tuned_mesh(tuned)
-    train_mesh_launches = phase_train_mesh(lm_steps)
+    train_mesh_launches = phase_train_mesh()
+    moe_mesh_launches = phase_train_moe_mesh()
     phase_noise()
     phase_noise_qat()
     phase_noise_corner()
@@ -4691,7 +4920,8 @@ def main():
                      + paged_launches + paged_archs_launches
                      + moe_train_launches + tune_launches
                      + mesh_launches + tuned_mesh_launches
-                     + train_mesh_launches + san_launches
+                     + train_mesh_launches + moe_mesh_launches
+                     + san_launches
                      + roofline_launches + example_launches),
         "max_abs_err": max(err_cases, err_main, cifar_err, rec_err, moe_err,
                            fr_err, mesh_err),
@@ -4728,17 +4958,22 @@ def main():
                "traced decode steps of reduced and full-width olmo-1b "
                "(29 and 113) with their SQNR probes (one launch each) "
                "and the tuned 1 x 1 point served for 8 forwards; "
-               "serve_mesh's ranks (full-width olmo-1b on 1 x 2 and 2 x 2 "
-               "gloo meshes sharing the card: each rank's 16-forward "
-               "generate, 113 tile launches a forward, and the 2 x 2 "
-               "ranks' PagedScheduler runs) and serve_tuned_mesh's ranks "
-               "(reduced olmo-1b on the tuned pick's mesh, 29 a forward, "
-               "8 forwards); train_mesh's ranks (full-width olmo-1b "
-               "trained on 2 x 2 fsdp and 1 x 2 2d gloo meshes sharing "
-               "the card: 2 steps of 225 launches a rank, 113 forward and "
-               "112 remat, whatever its rows; the reduced trainer's 4 "
+               "serve_mesh's ranks (olmo-1b at 8 of 16 layers on 1 x 2 "
+               "and 2 x 2 gloo meshes sharing the card: each rank's "
+               "16-forward generate, 57 tile launches a forward, and the "
+               "2 x 2 ranks' PagedScheduler runs) and serve_tuned_mesh's "
+               "ranks (reduced olmo-1b on the tuned pick's mesh, 29 a "
+               "forward, 8 forwards); train_mesh's ranks (olmo-1b at 8 of "
+               "16 layers trained on 2 x 2 fsdp and 1 x 2 2d gloo meshes "
+               "sharing the card: 2 steps of 113 launches a rank, 57 "
+               "forward and 56 remat, whatever its rows; the reduced "
+               "trainer's 4 "
                "steps a rank crashed on 2 x 2 and 2 resumed on 1 x 2, 29 "
-               "each); sanitize's (olmo-1b's generate outside and inside "
+               "each); train_moe_mesh's ranks (deepseek-v2-lite-16b at 2 "
+               "of 27 layers trained on a 2 x 2 2d gloo mesh sharing the "
+               "card: 2 steps of 20 launches a rank, 17 2-D and 3 grouped "
+               "over the rank's 32 experts, all in the forward); "
+               "sanitize's (olmo-1b's generate outside and inside "
                "a scope, 113 a forward each, the planted inf scale's 2 "
                "launches, the paged batcher trace twice, 8,136 each); "
                "roofline's counted decode step (113) and train step "

@@ -47,8 +47,8 @@ from typing import Any, Iterator, Optional
 import torch
 
 from repro_torch.core import energy as E
-from repro_torch.core.bpbs import weight_planes
 from repro_torch.core.quant import Coding, quantize
+from repro_torch.kernels.cima_mvm import int8_planes
 
 # Backends whose weight side is the shared integer grid of core.quant: a
 # compiled image is valid for ANY of them, which is what lets
@@ -166,22 +166,6 @@ def partition_for(tag: str, n: int, m: int, shards: int) -> Optional[str]:
     return "row" if n % shards == 0 else None
 
 
-# output columns decomposed into planes at a time: the float32 planes of
-# a whole 4,096 x 256,000 unembed would take 17 GB at once
-PLANE_COLUMNS = 8192
-
-
-def _int8_planes(q: torch.Tensor, cfg) -> torch.Tensor:
-    """``weight_planes(q)`` as int8 [N, B_A, M], a block of PLANE_COLUMNS
-    columns at a time (the decomposition is elementwise: same bits)."""
-    n, m = q.shape
-    out = torch.empty((n, cfg.ba, m), dtype=torch.int8, device=q.device)
-    for c in range(0, m, PLANE_COLUMNS):
-        out[:, :, c:c + PLANE_COLUMNS] = weight_planes(
-            q[:, c:c + PLANE_COLUMNS], cfg).permute(0, 2, 1)
-    return out
-
-
 def tile_bounds(size: int, devices: int, tile: int) -> tuple:
     """``(start, stop)`` of tile ``tile`` of ``size`` split ``devices``
     ways."""
@@ -227,7 +211,7 @@ def _compile_image(w: torch.Tensor, spec, path: str, shards: int = 1,
         qw = quantize(wi.to(torch.float32), spec.ba, spec.coding,
                       axis=1 if spec.per_channel else None)
         q = qw.q[rows, cols]
-        ws[i] = _int8_planes(q, cfg)
+        ws[i] = int8_planes(q, cfg)
         wq[i] = q
         scale = qw.scale
         if spec.per_channel and partition == "col":

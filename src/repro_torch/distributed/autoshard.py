@@ -14,19 +14,40 @@ axis is manual and dispatch runs nothing sharded inside; with
 serving engine's decode), so a partitioned matmul splits nothing more
 over ``"data"``.
 
-The reference's ``cs`` activation constraints have no counterpart: the
-port keeps activations replicated over the model axis, so there is
-nothing to constrain.
+The reference's ``cs`` activation constraints: the port keeps
+activations replicated over the model axis, so outside the MoE block
+there is nothing to constrain.  The MoE block's two (the dispatch buffer
+and the expert outputs sharded on their expert axis over ``"tp"``) are
+carried into a training step on a mesh by :func:`gather`, a
+differentiable all-gather whose backward follows what the gathered axes
+mean for the step:
+
+* over the dp axes, whose ranks hold different rows of the global batch
+  and so different losses, the gradient is summed over the axes and
+  this rank's block kept (a reduce-scatter): each rank's block then
+  carries every rank's loss;
+* over an axis whose ranks compute the same rows downstream (``"model"``
+  in mode ``"2d"``), each rank already holds the whole gradient: its
+  block is kept, with no sum (a sum would count it ``model`` times).
+
+:func:`sum_grad` is the dual of the second: the identity on a tensor
+every rank of an axis holds whole, feeding work the ranks split (the
+experts on ``"model"``), whose backward sums the ranks' partial
+gradients.
 
 :func:`global_batch` is the training step's scope, the reference's
 ``jit``-with-shardings form: this rank holds its block of the global
 batch over the policy's dp axes, and batch-wide statistics are the
 global batch's.  :func:`batch_stats` hands them the reductions (a
 per-tensor input scale's amax, the XNOR 1-bit mean, the loss's token
-count).  It is distinct from ``manual("data")``, the serving engine's
-``shard_map`` form, where each data shard quantizes its own rows.  The
-scope is held module-wide, not per thread: a remat layer's replay runs
-in autograd's device thread and must see the statistics the forward saw.
+count); :func:`train_mesh` the scope itself (the mesh, the policy, the
+dp axes), also where the dp axes are one rank wide; :func:`local_stats`
+turns the reductions off for a block whose operands are already the
+global batch's.  It is distinct from ``manual("data")``, the serving
+engine's ``shard_map`` form, where each data shard quantizes its own
+rows.  The scope is held module-wide, not per thread: a remat layer's
+replay runs in autograd's device thread and must see the statistics and
+issue the collectives the forward did.
 """
 from __future__ import annotations
 
@@ -96,19 +117,29 @@ def in_manual(axis: Optional[str] = None) -> bool:
 
 
 class BatchStats(NamedTuple):
-    """Reductions of a batch statistic over the ranks that hold the rest
-    of the global batch: ``axes`` of ``mesh``, ``size`` ranks in all,
-    each holding an equal block of rows."""
+    """A :func:`global_batch` scope: the ranks that hold the rest of the
+    global batch (``axes`` of ``mesh``, the ``policy``'s dp axes, ``size``
+    ranks in all, each holding an equal block of rows) and the
+    reductions of a batch statistic over them."""
 
     mesh: object
     axes: tuple
     size: int
+    policy: object = None
 
     def max(self, t: torch.Tensor) -> torch.Tensor:
         return self.mesh.all_reduce(t, self.axes, op="max")
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         return self.mesh.all_reduce(t, self.axes)
+
+    def dp_index(self) -> int:
+        """This rank's block of the global batch (row-major over the dp
+        axes, as ``batch_specs`` cuts it)."""
+        idx = 0
+        for a in self.axes:
+            idx = idx * self.mesh.size(a) + self.mesh.index(a)
+        return idx
 
 
 @contextlib.contextmanager
@@ -117,16 +148,97 @@ def global_batch(mesh, policy=None) -> Iterator[None]:
     ``policy``'s dp axes of ``mesh`` and batch statistics are global."""
     from .sharding import resolve_policy
 
-    axes = resolve_policy(policy).dp_axes(mesh)
-    size = mesh.size_of(axes)
-    _GLOBAL_BATCH.append(BatchStats(mesh, axes, size) if size > 1 else None)
+    policy = resolve_policy(policy)
+    axes = policy.dp_axes(mesh)
+    _GLOBAL_BATCH.append(BatchStats(mesh, axes, mesh.size_of(axes), policy))
     try:
         yield
     finally:
         _GLOBAL_BATCH.pop()
 
 
-def batch_stats() -> Optional[BatchStats]:
-    """The innermost :func:`global_batch` scope's reductions; None outside
-    one, or where the dp axes hold the whole batch on every rank."""
+@contextlib.contextmanager
+def local_stats() -> Iterator[None]:
+    """Scope in which batch statistics are the operands' own (no
+    :func:`global_batch` reduction): a block whose inputs every rank
+    already holds for the whole global batch."""
+    _GLOBAL_BATCH.append(None)
+    try:
+        yield
+    finally:
+        _GLOBAL_BATCH.pop()
+
+
+def train_mesh() -> Optional[BatchStats]:
+    """The innermost :func:`global_batch` scope; None outside one (or
+    inside :func:`local_stats`)."""
     return _GLOBAL_BATCH[-1] if _GLOBAL_BATCH else None
+
+
+def batch_stats() -> Optional[BatchStats]:
+    """The innermost :func:`global_batch` scope where its batch
+    statistics need reducing; None outside one, inside
+    :func:`local_stats`, or where the dp axes hold the whole batch on
+    every rank."""
+    scope = train_mesh()
+    return scope if scope is not None and scope.size > 1 else None
+
+
+class _Gather(torch.autograd.Function):
+    """:meth:`ServeMesh.all_gather` whose backward reduce-scatters over
+    ``summed`` axes and keeps this rank's block over the others."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim, summed):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.summed = mesh, axes, dim, summed
+        return mesh.all_gather(t, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim = ctx.mesh, ctx.dim
+        for a in ctx.axes:               # outermost first: row-major blocks
+            if a in ctx.summed:
+                g = mesh.reduce_scatter(g, a, dim)
+            else:
+                size = g.shape[dim] // mesh.size(a)
+                g = g.narrow(dim, mesh.index(a) * size, size)
+        return g, None, None, None, None
+
+
+def gather(t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """This rank's ``t`` and the other ranks' of ``axes`` (an axis or a
+    tuple) joined on ``dim`` in mesh order, inside a :func:`global_batch`
+    scope, differentiably: the backward sums the gradient over the
+    scope's dp axes among ``axes`` and keeps this rank's block over each
+    (see the module docstring)."""
+    scope = train_mesh()
+    if scope is None:
+        raise RuntimeError("gather runs inside a global_batch scope")
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if scope.mesh.size_of(axes) == 1:
+        return t
+    summed = tuple(a for a in axes if a in scope.axes)
+    return _Gather.apply(t, scope.mesh, axes, dim, summed)
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g, ctx.axes), None, None
+
+
+def sum_grad(t: torch.Tensor, axes) -> torch.Tensor:
+    """``t``, whose gradient is summed over ``axes`` in the backward: a
+    tensor every rank of ``axes`` holds whole and feeds a part of the
+    work they split (inside a :func:`global_batch` scope)."""
+    scope = train_mesh()
+    if scope is None:
+        raise RuntimeError("sum_grad runs inside a global_batch scope")
+    if scope.mesh.size_of(axes) == 1:
+        return t
+    return _SumGrad.apply(t, scope.mesh, axes)

@@ -21,7 +21,9 @@ Layout conventions (DESIGN.md §6):
 The serving engine applies the image rules (each rank compiles only its
 tile) and the ``"data"`` entries of the cache rules (each data shard
 holds its batch rows); activations, and so the weights and caches
-outside the images, stay whole on the model axis in the port.
+outside the images, stay whole on the model axis in the port.  A
+training step on a mesh computes the experts of its
+:func:`expert_block` (EP on ``"model"`` in mode ``"2d"``).
 """
 from __future__ import annotations
 
@@ -243,6 +245,34 @@ def _param_rule(path: str, shape, policy: ShardPolicy) -> list:
     else:
         trail = [[]] * min(nd, 1)                      # 1-D/scalars replicate
     return [[]] * (nd - len(trail)) + trail
+
+
+def expert_block(shape, mesh, policy: Optional[ShardPolicy] = None) \
+        -> tuple:
+    """``(axes, first, count)``: the experts a rank computes in a training
+    step on ``mesh``, for an expert leaf of ``shape`` ([E, in, out] or
+    stacked [..., E, in, out]).  Its E axis's spec under
+    :func:`param_specs` (``"model"`` in mode ``"2d"``) names ``axes``,
+    and the rank computes its block of the E experts on them, the slice
+    the step keeps of the leaf's gradient.  Where that spec does not
+    split E (E not divisible, a ``pick_spec`` fallback) or splits it over
+    dp axes (mode ``"fsdp"``: every rank holds other rows), ``axes`` is
+    empty and the rank computes all E."""
+    pol = resolve_policy(policy)
+    shape = tuple(shape)
+    spec = pick_spec(shape, mesh, _param_rule("['w_gate']", shape, pol))
+    e_dim = len(shape) - 3
+    cand = spec[e_dim] if len(spec) > e_dim else None
+    axes = () if cand is None else \
+        ((cand,) if isinstance(cand, str) else tuple(cand))
+    e = shape[e_dim]
+    if not axes or any(a in pol.dp_axes(mesh) for a in axes):
+        return (), 0, e
+    count = e // axis_size(mesh, axes)
+    idx = 0
+    for a in axes:
+        idx = idx * int(dict(mesh.shape)[a]) + mesh.index(a)
+    return axes, idx * count, count
 
 
 # ------------------------------------------------- compiled weight images

@@ -103,12 +103,37 @@ def bank_full_scales(n: int, cfg: BpbsConfig,
     return _bank_sizes(int(n), int(cfg.bank_n), torch.device(device))
 
 
+# weight elements decomposed into float32 planes at a time: the planes
+# of deepseek-v2-lite's 2,048 x 102,400 lm_head (or a rank's 32 experts)
+# would take 3.4 GB (1.5 GB) at once, three copies deep, and a
+# 4,096 x 256,000 unembed's 17 GB
+PLANE_ELEMENTS = 2048 * 8192
+
+
+def int8_planes(w_q: torch.Tensor, cfg: BpbsConfig) -> torch.Tensor:
+    """The weight bit planes of ``w_q`` [..., N, M] as int8 [..., N, BA,
+    M]; a weight of more than PLANE_ELEMENTS elements is decomposed a
+    block of output columns at a time (elementwise: the same bits)."""
+    m = w_q.shape[-1]
+    cols = max(1, PLANE_ELEMENTS * m // max(w_q.numel(), 1))
+    if cols >= m:
+        return weight_planes(w_q, cfg).transpose(-1, -2).to(
+            torch.int8).contiguous()
+    ws = torch.empty(w_q.shape[:-1] + (cfg.ba, m), dtype=torch.int8,
+                     device=w_q.device)
+    for c in range(0, m, cols):
+        ws[..., c:c + cols] = weight_planes(w_q[..., c:c + cols],
+                                            cfg).transpose(-1, -2)
+    return ws
+
+
 def prepare_weights(w_q: torch.Tensor, cfg: BpbsConfig):
-    """Weight bit planes ``ws`` [N, BA, M] int8 (the layout a compiled
-    :class:`~repro_torch.accel.program.CimaImage` stores; [G, N, BA, M]
-    for grouped ``w_q`` [G, N, M]) and the bank full scales."""
-    ws = weight_planes(w_q, cfg).transpose(-1, -2).to(torch.int8).contiguous()
-    return ws, bank_full_scales(w_q.shape[-2], cfg, w_q.device)
+    """Weight bit planes ``ws`` [N, BA, M] int8 (:func:`int8_planes`, the
+    layout a compiled :class:`~repro_torch.accel.program.CimaImage`
+    stores; [G, N, BA, M] for grouped ``w_q`` [G, N, M]) and the bank
+    full scales."""
+    return int8_planes(w_q, cfg), bank_full_scales(w_q.shape[-2], cfg,
+                                                   w_q.device)
 
 
 # -------------------------------------------------------- the plain version

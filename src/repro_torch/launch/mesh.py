@@ -22,7 +22,9 @@ A collective names one mesh axis or a tuple of them; over a tuple it
 runs axis by axis (reductions in the tuple's order, gathers innermost
 axis first, so a dim split over ``("data", "model")`` reassembles in
 row-major block order).  Training adds the max reduction (a shared
-quantization scale, ``compress_psum``'s ``pmax``) and :meth:`ServeMesh.
+quantization scale, ``compress_psum``'s ``pmax``), :meth:`ServeMesh.
+reduce_scatter` (the backward of a gather over rows that differ by rank,
+:func:`repro_torch.distributed.autoshard.gather`) and :meth:`ServeMesh.
 barrier`.  ``stats`` counts the collectives this rank issued and their
 bytes; each is also reported, by kind and axis, to every open step
 counter (:mod:`repro_torch.tally`).
@@ -97,13 +99,14 @@ class ServeMesh:
         return math.prod(self.size(a) for a in _axes(axes))
 
     def _count(self, t: torch.Tensor, kind: str, axis: str,
-               factor: int = 1) -> None:
+               factor: float = 1) -> None:
         """Count one collective over ``axis`` on operand ``t``; its result
-        is ``factor`` times the operand (an all-gather's group size)."""
+        is ``factor`` times the operand (an all-gather's group size, a
+        reduce-scatter's reciprocal)."""
         nbytes = t.numel() * t.element_size()
         self.stats["collectives"] += 1
         self.stats["bytes"] += nbytes
-        tally.report_collective(kind, axis, nbytes, nbytes * factor)
+        tally.report_collective(kind, axis, nbytes, int(nbytes * factor))
 
     def all_reduce(self, t: torch.Tensor, axis, op: str = "sum") \
             -> torch.Tensor:
@@ -141,6 +144,40 @@ class ServeMesh:
             t = torch.cat(parts, dim=dim)
         return t
 
+    def reduce_scatter(self, t: torch.Tensor, axis, dim: int) \
+            -> torch.Tensor:
+        """The sum of ``t`` over ``axis`` cut on ``dim`` into the axes'
+        blocks, this rank's block (over a tuple, row-major over its
+        axes: the inverse of :meth:`all_gather`'s order).  nccl reduces
+        and scatters in one collective; gloo has none, so there it is an
+        all-reduce followed by this rank's block, counted as the
+        all-reduce it is."""
+        for a in _axes(axis):
+            if self._group(a) is None:
+                continue
+            n = self.size(a)
+            if t.shape[dim] % n:
+                raise ValueError(f"reduce_scatter: dim {dim} of size "
+                                 f"{t.shape[dim]} does not split over "
+                                 f"{a!r} ({n} ranks)")
+            if self.backend == "nccl":
+                t = self._reduce_scatter(t, a, dim)
+            else:
+                size = t.shape[dim] // n
+                t = self.all_reduce(t, a).narrow(dim, self.index(a) * size,
+                                                 size)
+        return t
+
+    def _reduce_scatter(self, t: torch.Tensor, axis: str, dim: int) \
+            -> torch.Tensor:
+        """One nccl reduce-scatter over ``axis`` on ``dim``."""
+        n = self.size(axis)
+        x = t.movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+        self._count(x, "reduce-scatter", axis, 1 / n)
+        dist.reduce_scatter_tensor(out, x, group=self._group(axis))
+        return out.movedim(0, dim)
+
     def barrier(self) -> None:
         """Wait for every rank of the mesh (a barrier on each axis's
         group: a rank leaves the second only after every rank reached
@@ -157,7 +194,8 @@ class RecordingMesh(ServeMesh):
     an all-reduce returns its operand, an all-gather the operand repeated
     to the gathered shape.  Each collective is counted in ``stats`` and
     reported to the open counters as :class:`ServeMesh` counts and
-    reports it.  ``pod > 1`` adds a leading ``"pod"`` axis."""
+    reports it; a reduce-scatter takes the form ``backend`` gives it.
+    ``pod > 1`` adds a leading ``"pod"`` axis."""
 
     pod: int = 1
 
@@ -200,6 +238,12 @@ class RecordingMesh(ServeMesh):
                 t = torch.cat([t.contiguous()] * n, dim=dim)
         return t
 
+    def _reduce_scatter(self, t: torch.Tensor, axis: str, dim: int) \
+            -> torch.Tensor:
+        n = self.size(axis)
+        self._count(t, "reduce-scatter", axis, 1 / n)
+        return t.narrow(dim, 0, t.shape[dim] // n)
+
     def barrier(self) -> None:
         pass
 
@@ -208,9 +252,9 @@ def make_production_mesh(multi_pod: bool = False) -> RecordingMesh:
     """The production mesh as rank 0 sees it: 16 x 16 = 256 cards
     (``data x model``), or with ``multi_pod`` 2 pods x 256 with a leading
     ``"pod"`` axis (pure DP across the pods).  A :class:`RecordingMesh`
-    on ``meta``, the dry run's device."""
+    on ``meta``, the dry run's device, for ``nccl`` (one card a rank)."""
     return RecordingMesh(data=16, model=16, pod=2 if multi_pod else 1,
-                         device=torch.device("meta"))
+                         backend="nccl", device=torch.device("meta"))
 
 
 def _axes(axis) -> tuple:

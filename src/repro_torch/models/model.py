@@ -226,7 +226,7 @@ def loss_fn(params, batch: dict, cfg):
     training step on a mesh (:func:`~repro_torch.distributed.autoshard.
     global_batch`) ``batch`` is this rank's rows: the count and the
     metrics are the global batch's, and the loss returned is this rank's
-    share of the global one."""
+    share of the global one (the aux over the dp size)."""
     tokens = batch["tokens"]
     logits, aux = forward(params, tokens, cfg,
                           frontend_embeds=batch.get("frontend_embeds"))
@@ -250,13 +250,15 @@ def loss_fn(params, batch: dict, cfg):
         loss = ce + 0.01 * aux
         return loss, {"loss": loss, "ce": ce, "aux": aux, "tokens": denom}
     # a rank's rows of the global batch: its nll sum over the global
-    # count, so the ranks' gradients sum to the global loss's (no config
-    # with routed experts trains on a mesh: aux is 0)
+    # count, so the ranks' gradients sum to the global loss's.  The MoE
+    # aux is the global batch's on every rank (models/moe.py), so each
+    # adds its share: the dp ranks' shares sum to it once
     denom = torch.clamp_min(stats.sum(mask.sum()), 1.0)
     part = (nll * mask).sum() / denom
     ce = stats.sum(part.detach())
-    return part + 0.01 * aux, {"loss": ce + 0.01 * aux, "ce": ce,
-                               "aux": aux, "tokens": denom}
+    return part + 0.01 * aux / stats.size, {"loss": ce + 0.01 * aux,
+                                            "ce": ce, "aux": aux,
+                                            "tokens": denom}
 
 
 # ---------------------------------------------------------------- serving

@@ -25,9 +25,13 @@ step under ``jit`` with state shardings does:
    rank's slices of params, mu and nu.
 
 In mode ``"2d"`` the model-axis ranks compute the same rows (no tensor-
-parallel compute in training yet).  Configs with routed experts do not
-train on a mesh: their capacity, dispatch and aux loss span the global
-token count (:data:`MOE_ON_MESH`).
+parallel compute in training yet), but for the routed experts: a MoE
+block gathers its rows over the dp axes, routes, drops and scores the
+aux loss over the global tokens, and each rank computes its block of
+the experts on ``"model"`` (:func:`~repro_torch.models.moe.moe_ffn`),
+so an expert leaf's gradient is whole on its own slice only, the slice
+step 3 keeps.  Each microbatch's MoE runs over that microbatch's global
+tokens, as the reference's accumulation does.
 """
 from __future__ import annotations
 
@@ -49,10 +53,6 @@ from repro_torch.tree import leaves, tree_map, unflatten
 from .state import TrainState
 
 METRICS = ("loss", "ce", "aux", "tokens")
-MOE_ON_MESH = (
-    "training a config with routed experts on a mesh is not ported: its "
-    "expert capacity, sort-based dispatch and Switch aux loss run over the "
-    "global token count (ROADMAP.md §1, item 4f)")
 
 
 def value_and_grad(fn: Callable, params, *args):
@@ -170,8 +170,6 @@ def _build_mesh_step(cfg, opt_cfg, comp_cfg, microbatches, mesh, policy,
     if specs is None:
         raise ValueError("a train step on a mesh needs the state's specs "
                          "(distributed.state_specs of the full state)")
-    if cfg.moe:
-        raise NotImplementedError(MOE_ON_MESH)
     dp = shd.dp_axes(mesh, policy)
     dp_size = mesh.size_of(dp)
     clock = StepClock(mesh)

@@ -31,7 +31,7 @@ from repro_torch.serve.host import host_sync
 
 from . import checkpoint as ckpt_lib
 from .state import init_train_state, state_template
-from .step import MOE_ON_MESH, build_train_step
+from .step import build_train_step
 
 
 @dataclasses.dataclass
@@ -77,8 +77,6 @@ def train(cfg, data_cfg: DataConfig, opt_cfg: AdamWConfig,
 
     if mesh is None and state_shardings is not None:
         raise ValueError("state_shardings needs the mesh they shard over")
-    if mesh is not None and cfg.moe:
-        raise NotImplementedError(MOE_ON_MESH)
     log = log_fn or (lambda s: print(s, flush=True))
     if mesh is not None and mesh.rank != 0:
         log = lambda s: None                            # noqa: E731

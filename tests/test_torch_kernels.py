@@ -110,6 +110,26 @@ def test_cima_mvm_from_planes_equals_on_the_fly():
                        tops.cima_mvm(xt, wt, tc))
 
 
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("coding", [Coding.AND, Coding.XNOR])
+def test_weight_planes_in_column_blocks_are_the_same_bits(monkeypatch,
+                                                          coding, grouped):
+    """A weight over PLANE_ELEMENTS is decomposed a block of output columns
+    at a time (37 columns here, a ragged last block), a grouped one too:
+    the same int8 planes as the whole weight at once."""
+    tc = TCfg(ba=4, bx=4, coding=coding)
+    lo, hi = int_range(4, coding)
+    step = 2 if coding == Coding.XNOR else 1            # the coding's grid
+    shape = (3, 64, 100) if grouped else (64, 100)
+    w = torch.from_numpy(step * np.random.default_rng(2).integers(
+        lo // step, hi // step + 1, shape).astype(np.float32))
+    whole, fs = K.prepare_weights(w, tc)
+    monkeypatch.setattr(K, "PLANE_ELEMENTS", 37 * w.numel() // 100)
+    blocks, fs_b = K.prepare_weights(w, tc)
+    assert blocks.dtype == torch.int8 and blocks.is_contiguous()
+    assert torch.equal(blocks, whole) and torch.equal(fs_b, fs)
+
+
 def test_cima_mvm_leading_batch_dims():
     x, w, _, tc = _both(CASES[0], batch=6)
     xt = torch.from_numpy(x).reshape(2, 3, -1)

@@ -26,6 +26,7 @@ from repro_torch import accel as taccel
 from repro_torch.accel import program as tprogram
 from repro_torch.configs import get_config as tget
 from repro_torch.convert import params_from_jax
+from repro_torch.kernels import cima_mvm as K
 from repro_torch.models import decode_step as tdecode
 from repro_torch.models import forward as tforward
 from repro_torch.models import prefill as tprefill
@@ -384,7 +385,7 @@ def test_image_planes_in_column_blocks_are_the_same_bits(ref, monkeypatch):
     w = ref[3]["embed"]["table"].T
     qw = tprogram.quantize(w, spec.ba, spec.coding, axis=1)
     whole = weight_planes(qw.q, spec.bpbs()).permute(0, 2, 1).to(torch.int8)
-    monkeypatch.setattr(tprogram, "PLANE_COLUMNS", 37)
+    monkeypatch.setattr(K, "PLANE_ELEMENTS", 37 * w.shape[0])
     assert w.shape[1] % 37
     img = tprogram._compile_image(w, spec, "embed")
     assert torch.equal(img.ws, whole)

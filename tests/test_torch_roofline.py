@@ -25,13 +25,15 @@
   ranks (``tests/torch_mesh.py::task_roofline``) rank 0's collectives
   (count and bytes, by kind and by axis) and its ``ServeMesh.stats``
   equal the recording mesh's on ``meta``, for a decode step on ``bpbs``
-  served from a program and one ``"fsdp"`` train step.
+  served from a program, one ``"fsdp"`` train step and one ``"2d"``
+  train step of reduced deepseek-v2-lite (the MoE blocks' gathers).
 * ``roofline_row`` picks the reference's dominant term and useful ratio
   on one synthetic record; its times differ from the reference's only by
   the ratio of the constants.
 * The CLI: one cell of ``python -m repro_torch.launch.dryrun`` ends
   ``ok`` with 256 devices and counted dots (the reference's
-  ``test_dryrun_cell_end_to_end``).
+  ``test_dryrun_cell_end_to_end``), and deepseek-v2-lite's train_4k
+  cell ends ``ok`` with its MoE blocks' collectives.
 """
 import dataclasses
 import functools
@@ -61,7 +63,9 @@ from repro_torch import models as tmodels
 from repro_torch.configs import ALL_ARCHS
 from repro_torch.configs import get_config as tget
 from repro_torch.launch import shapes as tshapes
-from repro_torch.launch.mesh import RecordingMesh, make_production_mesh
+from repro_torch.distributed import sharding as tshd
+from repro_torch.launch.mesh import (RecordingMesh, ServeMesh,
+                                     make_production_mesh)
 from repro_torch.optim.adamw import AdamWConfig as TAdamW
 from repro_torch.roofline import analysis as tanalysis
 from repro_torch.roofline.hlo_stats import StepCounter
@@ -310,23 +314,36 @@ def test_kernel_on_meta_accounts_for_the_plane_gemms(arch):
 def test_recording_mesh_equals_real_ranks(tmp_path):
     scfg = tget("olmo-1b").reduced().with_accel("bpbs", ba=4, bx=4)
     tcfg = tget("olmo-1b").reduced()
+    mcfg = tget("deepseek-v2-lite-16b").reduced()
     args = dict(serve=(scfg, tmodels.init_params(scfg, 0, device="cpu",
                                                  max_seq=32)),
                 train=(tcfg, tmodels.init_params(tcfg, 1, device="cpu",
                                                  max_seq=32)),
+                train_moe=(mcfg, tmodels.init_params(mcfg, 1, device="cpu",
+                                                     max_seq=32)),
                 opt=TAdamW(), batch=4,
                 tokens=_tokens(tcfg, (4, 8)).astype(np.int32))
     real = tm.spawn("roofline", 4, tmp_path, args)[0]
     rec = tm.roofline_runs(RecordingMesh(data=2, model=2,
                                          device=torch.device("meta")),
                            args, device="meta")
-    for call in ("decode", "train"):
+    for call in ("decode", "train", "train_moe"):
         (r_stats, r_mesh), (m_stats, m_mesh) = real[call], rec[call]
         assert r_mesh["collectives"] > 0
         assert m_mesh == r_mesh, call
         for k in ("collectives", "collectives_by_axis", "collective_bytes",
                   "dot_flops", "dot_bytes"):
             assert m_stats[k] == r_stats[k], (call, k)
+    # beside the parameters' gathers (a sharded axis a leaf), two a MoE
+    # block: its rows over "data", its expert outputs over "model"
+    params = args["train_moe"][1]
+    specs = tshd.state_specs(tinit_state(params), ServeMesh(2, 2),
+                             tshd.ShardPolicy("2d"))
+    gathers = sum(len(tshd.sharded_axes(s))
+                  for s in tshd.spec_leaves(params, specs.params))
+    n_moe = sum(k == "moe" for k in mcfg.pattern())
+    assert rec["train_moe"][0]["collectives"]["all-gather"]["count"] == \
+        gathers + 2 * n_moe
 
 
 # ---------------------------------------------------------- the roofline
@@ -398,15 +415,23 @@ def test_dryrun_cell_end_to_end(tmp_path):
     assert rows[0]["row"]["dominant"] in ("compute", "memory", "collective")
 
 
-def test_moe_train_cell_is_an_error_record(tmp_path):
+def test_moe_train_cell_counts(tmp_path):
+    """deepseek-v2-lite's train_4k cell on pod1: counted, with the MoE
+    blocks' gathers over "data" (the rows) and "model" (the expert
+    outputs) among its collectives and the backward's reduce-scatters
+    of the rows."""
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
          "deepseek-v2-lite-16b", "--shape", "train_4k", "--out",
-         str(tmp_path)], capture_output=True, text=True, timeout=120,
+         str(tmp_path)], capture_output=True, text=True, timeout=300,
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    assert r.returncode == 1
+    assert r.returncode == 0, r.stderr[-2000:]
     rec = json.loads((tmp_path / "deepseek-v2-lite-16b__train_4k__pod1.json")
                      .read_text())
-    assert rec["status"] == "error"
-    assert "routed experts on a mesh is not ported" in rec["error"]
+    assert rec["status"] == "ok"
+    hs = rec["hlo_stats"]
+    assert rec["collectives"]["total_bytes"] == hs["collective_bytes"]
+    assert rec["collectives"]["all-gather"]["count"] > 0
+    assert rec["collectives"]["reduce-scatter"]["count"] > 0
+    assert {"data", "model"} <= set(rec["collectives"]["by_axis"])
     assert all(a in ALL_ARCHS for a in tshapes.TRAIN_MICROBATCHES)

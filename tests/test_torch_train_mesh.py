@@ -2,24 +2,30 @@
 ``compress_psum`` on a ``data x model`` mesh of spawned ``gloo`` ranks,
 against the port unsharded and the JAX package.
 
-Reduced olmo-1b and mamba2-130m (the reference's ``init_params``
-converted key for key) on ``bpbs`` without noise, 8 x 8 tokens a step
-from a seed.  One group of 8 CPU ranks (``tests/torch_mesh.py::
-task_train``) runs every case on its 1 x 2, 2 x 2 and 2 x 4 meshes
-(data x model) in modes ``"2d"`` and ``"fsdp"``; the reference's
-single-device step runs in this process, its ``compress_psum`` under
-``shard_map`` in a subprocess with 4 forced host devices, both while
-the ranks run.  Held:
+Reduced olmo-1b, mamba2-130m and deepseek-v2-lite-16b (the reference's
+``init_params`` converted key for key) on ``bpbs`` without noise, 8 x 8
+tokens a step from a seed.  One group of 8 CPU ranks (``tests/
+torch_mesh.py::task_train``) runs every case on its 1 x 2, 2 x 2 and
+2 x 4 meshes (data x model) in modes ``"2d"`` and ``"fsdp"``; the
+reference's single-device step runs in this process, its
+``compress_psum`` under ``shard_map`` in a subprocess with 4 forced host
+devices, both while the ranks run.  deepseek's MoE blocks route, drop
+and score the aux loss over the global batch's tokens and, in ``"2d"``,
+split the experts over "model" (``models/moe.py``); it also runs one
+step at capacity factor 0.5 (drops that a per-rank capacity would place
+elsewhere) and one with remat on.  Held:
 
 * ``state_specs`` equals the reference's leaf for leaf, as tuples, on a
-  ``jax.sharding.AbstractMesh`` (deepseek-v2-lite too: specs only);
+  ``jax.sharding.AbstractMesh``;
 * ``compress_psum`` over ``("data",)`` and ``("data", "model")`` equals
   the reference's, rtol 1e-6;
 * step 1: each rank's logits on its rows bitwise the unsharded rows (the
   per-tensor input scale is the global batch's: without the dp-axis
-  reduction every row moves), the loss within rtol 1e-6, the gradient
-  summed over the dp axes within rtol 1e-5 of each leaf's largest
-  magnitude, mu and nu as this rank's slices of the unsharded state
+  reduction every row moves), the loss and the aux metric within rtol
+  1e-6, the MoE dispatches' drops bitwise, the gradient summed over the
+  dp axes (an expert leaf's blocks from the ranks that compute them)
+  within rtol 1e-5 of each leaf's largest magnitude, mu and nu as this
+  rank's slices of the unsharded state
   (same rtol) and the parameters as well, each element allowed twice
   the learning rate where AdamW's normalized update of a gradient
   element near zero takes its sign from the summation order (as
@@ -33,7 +39,11 @@ the ranks run.  Held:
 * ``train(mesh=)``: a crash and resume on 2 x 2 lands on the
   uninterrupted final loss bitwise, the 2 x 2 checkpoint (full leaves)
   resumes on 1 x 2 and on one process within 5e-3;
-* configs with routed experts refuse a mesh.
+* ``autoshard.gather``'s backward sums over the dp axes and keeps the
+  block over "model" in "2d", ``sum_grad``'s sums over "model", each
+  with its count of collectives; ``expert_block`` is the E block of the
+  expert leaves' ``state_specs``; a reduce-scatter takes its backend's
+  form.
 """
 import dataclasses
 import json
@@ -60,11 +70,13 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.quant import Coding, quantize
 from repro_torch.data import pipeline as tdata
 from repro_torch.distributed import sharding as tshd
-from repro_torch.launch.mesh import ServeMesh
+from repro_torch.launch.mesh import RecordingMesh, ServeMesh
 from repro_torch.models import forward as tforward
+from repro_torch.models import moe as tmoe
 from repro_torch.models import loss_fn as tloss
 from repro_torch.optim import adamw as tadamw
 from repro_torch.optim import compression as tcomp
+from repro_torch.roofline.hlo_stats import StepCounter
 from repro_torch.train import checkpoint as tckpt
 from repro_torch.train.state import init_train_state as tinit_state
 from repro_torch.train.step import build_train_step as tbuild_step
@@ -76,12 +88,23 @@ SPEC = dict(ba=4, bx=4)
 SHAPES = [(1, 2), (1, 4), (2, 2), (2, 4)]
 MODES = ["2d", "fsdp"]
 COMP = tcomp.CompressionConfig(bits=8)
-# (mesh, mode, config, steps, compression)
+MOE = "deepseek-v2-lite-16b"
+# variants of the MoE config: (name, fields replaced)
+MOE_TIGHT, MOE_REMAT = MOE + "/capacity0.5", MOE + "/remat"
+VARIANTS = {MOE_TIGHT: dict(moe_capacity_factor=0.5),
+            MOE_REMAT: dict(remat=True)}
+# (mesh, mode, config, steps, compression); the compression case last
 CASES = ([(m, mode, "olmo-1b", 3, None) for m in [(1, 2), (2, 2), (2, 4)]
           for mode in MODES]
-         + [((2, 2), "fsdp", "mamba2-130m", 3, None),
+         + [((2, 2), "fsdp", "mamba2-130m", 3, None)]
+         + [(m, mode, MOE, 3, None)
+            for m, mode in [((1, 2), "2d"), ((2, 2), "2d"), ((2, 2), "fsdp")]]
+         + [((2, 2), "2d", MOE_TIGHT, 1, None),
+            ((2, 2), "2d", MOE_REMAT, 1, None),
             ((2, 2), "2d", "olmo-1b", 2, COMP)])
 STEP_CASES = [c for c in CASES if c[4] is None]
+THREE_STEP_CASES = [c for c in STEP_CASES if c[3] == 3]
+MOE_CASES = [c for c in STEP_CASES if c[2].startswith(MOE)]
 PSUM_AXES = [("data",), ("data", "model")]
 PSUM_BITS = [8, 4]
 TRAINER = dict(total=6, crash=4, mode="fsdp")
@@ -140,12 +163,16 @@ def _psum_inputs() -> list:
 @pytest.fixture(scope="module")
 def setup():
     out = {}
-    for name in ("olmo-1b", "mamba2-130m"):
+    for name in ("olmo-1b", "mamba2-130m", MOE):
         jc = jget(name).reduced().with_accel("bpbs", **SPEC)
         pj = jinit(jc, jax.random.PRNGKey(0), max_seq=64)
         tc = tget(name).reduced().with_accel("bpbs", **SPEC)
         out[name] = (jc, pj, tc,
                      params_from_jax(jax.tree.map(np.asarray, pj), "cpu"))
+    for name, fields in VARIANTS.items():
+        jc, pj, tc, pt = out[MOE]
+        out[name] = (dataclasses.replace(jc, **fields), pj,
+                     dataclasses.replace(tc, **fields), pt)
     return out
 
 
@@ -154,15 +181,16 @@ def _unsharded(tc, params, steps: int, comp=None) -> dict:
     batch, then ``steps`` steps' losses and states."""
     data = _data(tc)
     batch = tdata.make_batch(data, 0, "cpu")
-    with torch.no_grad():
+    with torch.no_grad(), tm.recorded_dispatch() as dispatches:
         logits = tforward(params, batch["tokens"], tc)[0]
     (_, m), grads = value_and_grad(lambda p: tloss(p, batch, tc), params)
     state = tinit_state(params, comp is not None)
     step = tbuild_step(tc, _opt(), comp)
-    out = dict(logits=logits, grad=grads, loss0=float(m["loss"]), steps=[])
+    out = dict(logits=logits, grad=grads, loss0=float(m["loss"]),
+               aux0=float(m["aux"]), dispatches=dispatches, steps=[])
     for s in range(steps):
         state, m = step(state, tdata.make_batch(data, s, "cpu"))
-        out["steps"].append(dict(loss=float(m["loss"]),
+        out["steps"].append(dict(loss=float(m["loss"]), aux=float(m["aux"]),
                                  grad_norm=float(m["grad_norm"]),
                                  state=state))
     return out
@@ -206,8 +234,10 @@ def runs(setup, tmp_path_factory):
         torch.set_num_threads(2)
         flat, jref = {}, {}
         for name, (jc, pj, tcfg, pt) in setup.items():
-            flat[name] = _unsharded(tcfg, pt, 3)
-            jref[name] = _reference_losses(jc, pj, 3)
+            steps = max(c[3] for c in CASES if c[2] == name)
+            flat[name] = _unsharded(tcfg, pt, steps)
+            if steps == 3:
+                jref[name] = _reference_losses(jc, pj, 3)
         flat["comp"] = _unsharded(tc, setup["olmo-1b"][3], 2, COMP)
         ranks = wait()
     finally:
@@ -331,6 +361,13 @@ def test_step_one_on_mesh_matches_unsharded(runs, case):
                                    rtol=1e-6)
         np.testing.assert_allclose(res["steps"][0]["loss"],
                                    flat["steps"][0]["loss"], rtol=1e-6)
+        for got, want in ((float(res["aux0"]), flat["aux0"]),
+                          (res["steps"][0]["aux"], flat["steps"][0]["aux"])):
+            np.testing.assert_allclose(got, want, rtol=1e-6)
+        assert len(res["dispatches"]) == len(flat["dispatches"])
+        for (gi, keep), (gi_want, keep_want) in zip(res["dispatches"],
+                                                    flat["dispatches"]):
+            assert torch.equal(gi, gi_want) and torch.equal(keep, keep_want)
         for (name, g), want in zip(leaves_with_path(res["grad"]),
                                    leaves(flat["grad"])):
             _close(g, want)
@@ -354,7 +391,7 @@ def test_step_one_on_mesh_matches_unsharded(runs, case):
     _shared_blocks_equal(results, case)
 
 
-@pytest.mark.parametrize("case", STEP_CASES, ids=str)
+@pytest.mark.parametrize("case", THREE_STEP_CASES, ids=str)
 def test_three_steps_match_unsharded_and_reference(runs, case):
     flat = [s["loss"] for s in runs["flat"][case[2]]["steps"]]
     ref = runs["jref"][case[2]]
@@ -367,6 +404,110 @@ def test_three_steps_match_unsharded_and_reference(runs, case):
             [s["grad_norm"] for s in runs["flat"][case[2]]["steps"]],
             rtol=LOSS_RTOL)
         assert [s["tokens"] for s in res["steps"]] == [8.0 * 7] * 3
+
+
+def test_moe_case_routes_every_block_and_the_tight_one_drops(runs):
+    """Every MoE case dispatched once a MoE layer over the 64 global
+    tokens; at capacity factor 0.5 tokens drop on both data blocks, and
+    a per-rank capacity and dispatch (what a rank's own ``moe_ffn``
+    would run) would keep another set."""
+    n_moe = sum(k == "moe" for k in tget(MOE).reduced().pattern())
+    for case in MOE_CASES:
+        for res in _rank_results(runs, case):
+            assert len(res["dispatches"]) == n_moe, case
+            assert all(gi.shape[0] == 64 for gi, _ in res["dispatches"])
+    cfg = dataclasses.replace(tget(MOE).reduced(), **VARIANTS[MOE_TIGHT])
+    k = cfg.experts_per_tok
+    differ = 0
+    for gate_idx, keep in runs["flat"][MOE_TIGHT]["dispatches"]:
+        dropped = (~keep).nonzero()[:, 0] // k          # token ids
+        assert set((dropped // 32).tolist()) == {0, 1}
+        local = []
+        for block in (gate_idx[:32], gate_idx[32:]):
+            order, _, _, kept, _ = tmoe.dispatch(
+                block, cfg.n_experts, tmoe.capacity(32, cfg))
+            in_tokens = torch.empty_like(kept)
+            in_tokens[order] = kept
+            local.append(in_tokens)
+        differ += int(not torch.equal(torch.cat(local), keep))
+    assert differ > 0
+
+
+@pytest.mark.parametrize("mode,axes,fn", [
+    ("2d", ("data",), "gather"), ("2d", ("model",), "gather"),
+    ("fsdp", ("data", "model"), "gather"), ("2d", ("model",), "sum_grad")])
+def test_gather_backward_follows_what_the_axes_mean(runs, mode, axes, fn):
+    """On 2 x 2, rank (d, m) = 2 d + m holds ``[[rank, 1]]`` and scores
+    ``(y * w).sum()`` with ``w`` = arange times (rank + 1).  Over the dp
+    axes the gradient is the sum of the ranks' ``w`` blocks at this
+    rank's block (a reduce-scatter: on gloo an all-reduce), over "model"
+    in "2d" this rank's own ``w`` block (no collective); ``sum_grad``
+    sums ``w`` over "model"."""
+    for r, res in enumerate(runs["ranks"][:4]):
+        y, grad, count = res["gather"][(mode, axes, fn)]
+        d, m = divmod(r, 2)
+        group = {("data",): [m, 2 + m], ("model",): [2 * d, 2 * d + 1],
+                 ("data", "model"): [0, 1, 2, 3]}[axes]
+        if fn == "sum_grad":
+            assert torch.equal(y, torch.tensor([[float(r), 1.0]]))
+            want = torch.tensor([[0.0, 1.0]]) * sum(q + 1 for q in group)
+            assert torch.equal(grad, want) and count == 1
+            continue
+        assert torch.equal(y, torch.tensor([[float(q), 1.0]
+                                            for q in group]))
+        block = group.index(r)
+        row = torch.tensor([[2.0 * block, 2.0 * block + 1]])
+        summed = mode == "fsdp" or axes == ("data",)
+        scale = sum(q + 1 for q in group) if summed else r + 1
+        assert torch.equal(grad, row * scale), (mode, axes, r)
+        assert count == len(axes) * (2 if summed else 1)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2), (2, 4), (1, 3)])
+def test_expert_block_is_the_state_specs_slice(shape, mode):
+    """A rank's experts are the E block of its slice of the expert leaves
+    under ``state_specs`` where their E axis is not a dp axis ("2d"),
+    else every expert: at E = 8 on 1 x 3 the spec falls back."""
+    from repro_torch.models import init_params
+
+    state = tinit_state(init_params(tget(MOE).reduced(), 0, "meta"))
+    path = ("stack", "scanned", "u0", "moe", "w_gate")
+    leaf = state.params
+    for k in path:
+        leaf = leaf[k]
+    policy = tshd.ShardPolicy(mode)
+    for rank in range(shape[0] * shape[1]):
+        mesh = ServeMesh(*shape, rank=rank)
+        spec = tshd.state_specs(state, mesh, policy).params
+        for k in path:
+            spec = spec[k]
+        axes, lo, n = tshd.expert_block(leaf.shape, mesh, policy)
+        if mode == "2d" and shape[1] in (2, 4):
+            assert spec[1] == "model" and axes == ("model",)
+            ids = tshd.local_slice(torch.arange(8), ("model",), mesh)
+            assert list(range(lo, lo + n)) == ids.tolist()
+        else:
+            assert (axes, lo, n) == ((), 0, 8)
+
+
+@pytest.mark.parametrize("backend,kind", [("nccl", "reduce-scatter"),
+                                          ("gloo", "all-reduce"),
+                                          (None, "all-reduce")])
+def test_reduce_scatter_takes_its_backends_form(backend, kind):
+    """On the recording mesh: nccl's one reduce-scatter an axis, anything
+    else an all-reduce and this rank's block; counted as what runs."""
+    mesh = RecordingMesh(data=2, model=4, backend=backend,
+                         device=torch.device("meta"))
+    t = torch.empty((8, 3), device="meta")
+    with StepCounter() as c:
+        out = mesh.reduce_scatter(t, ("data", "model"), 0)
+    assert out.shape == (1, 3)
+    hs = c.stats()
+    assert hs["collectives"][kind]["count"] == 2
+    assert hs["collectives_by_axis"]["data"] == {"count": 1, "bytes": 96}
+    assert hs["collectives_by_axis"]["model"] == {"count": 1, "bytes": 48}
+    assert mesh.stats == {"collectives": 2, "bytes": 144}
 
 
 def test_mesh_step_clock_counts_its_collectives(runs):
@@ -513,17 +654,12 @@ def test_quantize_across_blocks_is_the_whole_tensors_grid(coding, bits):
 
 # -------------------------------------------------------------- refusals
 
-def test_routed_experts_refuse_a_training_mesh(tmp_path):
-    tc = tget("deepseek-v2-lite-16b").reduced()
+def test_sharded_arguments_without_their_mesh_refuse(tmp_path):
+    tc = tget("olmo-1b").reduced()
     tcfg = TrainerConfig(total_steps=1, ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="4f"):
-        train(tc, _data(tc), _opt(), tcfg, mesh=ServeMesh(1, 2),
-              device="cpu")
-    with pytest.raises(NotImplementedError, match="4f"):
-        tbuild_step(tc, _opt(), mesh=ServeMesh(1, 2), specs=())
     with pytest.raises(ValueError, match="mesh"):
-        train(tget("olmo-1b").reduced(), _data(tc), _opt(), tcfg,
-              state_shardings=(), device="cpu")
+        train(tc, _data(tc), _opt(), tcfg, state_shardings=(),
+              device="cpu")
     with pytest.raises(ValueError, match="mesh"):
         tcomp.compress_psum({"a": torch.ones(2)}, {"a": torch.zeros(2)},
                             ("data",))

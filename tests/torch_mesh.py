@@ -12,6 +12,7 @@ tensors, arrays and plain values.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -240,13 +241,58 @@ def _train_meshes(world: int, shapes, device: str = "cpu") -> dict:
             for d, m in shapes if d * m <= world}
 
 
+@contextlib.contextmanager
+def recorded_dispatch():
+    """Yields a list that gets ``(gate_idx, keep)`` of every MoE dispatch
+    run in the scope, ``keep`` in token order (assignment ``t * k + j``
+    is token t's j-th expert)."""
+    from repro_torch.models import moe
+
+    seen, dispatch = [], moe.dispatch
+
+    def recording(gate_idx, e, cap):
+        out = dispatch(gate_idx, e, cap)
+        order, keep = out[0], out[3]
+        in_tokens = torch.empty_like(keep)
+        in_tokens[order] = keep
+        seen.append((gate_idx.detach().clone(), in_tokens))
+        return out
+
+    moe.dispatch = recording
+    try:
+        yield seen
+    finally:
+        moe.dispatch = dispatch
+
+
+def expert_grads_whole(grads, mesh, policy):
+    """``grads`` with each expert leaf's blocks gathered from the ranks
+    that compute them (:func:`~repro_torch.distributed.sharding.
+    expert_block`): in mode ``"2d"`` a rank's expert gradient is whole on
+    its own experts only, and zero on the others."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.tree import leaves_with_path, unflatten
+
+    out = []
+    for name, g in leaves_with_path(grads):
+        if any(f"['{k}']" in name for k in ("w_gate", "w_up", "w_down")):
+            axes, lo, n = shd.expert_block(g.shape, mesh, policy)
+            if axes:
+                g = mesh.all_gather(g.narrow(g.ndim - 3, lo, n), axes,
+                                    g.ndim - 3)
+        out.append(g)
+    return unflatten(grads, out)
+
+
 def train_case(cfg, params, mesh, mode: str, data_cfg, opt_cfg, steps: int,
                comp_cfg=None, device: str = "cpu") -> dict:
     """``steps`` mesh train steps of ``params`` on ``mesh`` in ``mode``:
-    per step the loss, gradient norm and this rank's state; before the
-    first, this rank's rows (global row ids) with their logits and the
-    gradient summed over the dp axes, both at ``params``, and this
-    rank's slices of the compressed reduced gradient and error
+    per step the loss, aux, gradient norm and this rank's state; before
+    the first, this rank's rows (global row ids) with their logits (and
+    the MoE dispatches of that forward, :func:`recorded_dispatch`), the
+    loss's metrics and the gradient summed over the dp axes (expert
+    leaves whole, :func:`expert_grads_whole`), both at ``params``, and
+    this rank's slices of the compressed reduced gradient and error
     (``compress_sharded``) next to the full reduced gradient and error
     they slice."""
     from repro_torch.data.pipeline import make_batch
@@ -268,14 +314,16 @@ def train_case(cfg, params, mesh, mode: str, data_cfg, opt_cfg, steps: int,
     ids = shd.local_slice(torch.arange(b), bspec, mesh)
     mine = {k: shd.local_slice(v, bspec, mesh) for k, v in batch.items()}
     dp = policy.dp_axes(mesh)
-    with torch.no_grad(), autoshard.global_batch(mesh, policy):
+    with torch.no_grad(), autoshard.global_batch(mesh, policy), \
+            recorded_dispatch() as dispatches:
         logits = forward(params, mine["tokens"], cfg)[0]
     with autoshard.global_batch(mesh, policy):
         (_, metrics), grads = value_and_grad(
             lambda p: loss_fn(p, mine, cfg), params)
-    grads = tree_map(lambda g: mesh.all_reduce(g, dp), grads)
-    out = dict(rows=ids, logits=logits, grad=grads,
-               loss0=metrics["loss"], specs=specs)
+    grads = expert_grads_whole(tree_map(lambda g: mesh.all_reduce(g, dp),
+                                        grads), mesh, policy)
+    out = dict(rows=ids, logits=logits, grad=grads, dispatches=dispatches,
+               loss0=metrics["loss"], aux0=metrics["aux"], specs=specs)
     if comp_cfg is not None:
         err = tree_map(lambda g: 0.01 * g.flip(-1), grads)
         out["comp_full"] = (grads, err)
@@ -290,6 +338,7 @@ def train_case(cfg, params, mesh, mode: str, data_cfg, opt_cfg, steps: int,
     for s in range(steps):
         st, m = step(st, make_batch(data_cfg, s, device))
         out["steps"].append(dict(loss=float(m["loss"]),
+                                 aux=float(m["aux"]),
                                  grad_norm=float(m["grad_norm"]),
                                  tokens=float(m["tokens"]), state=st))
     out["clock"] = step.clock.steps
@@ -320,6 +369,7 @@ def task_train(args) -> dict:
                               device)
     mesh = meshes.get((2, 2))
     if mesh is not None and "psum" in args:
+        out["gather"] = _gather_checks(mesh)
         t = torch.tensor([[float(mesh.rank), -float(mesh.rank)]])
         s0 = dict(mesh.stats)
         out["collectives"] = dict(
@@ -338,6 +388,33 @@ def task_train(args) -> dict:
                                                           mesh=mesh)
     if "trainer" in args:
         out["trainer"] = _trainer_runs(args["trainer"], meshes)
+    return out
+
+
+def _gather_checks(mesh) -> dict:
+    """On 2 x 2: ``autoshard.gather`` of this rank's ``[[rank, 1]]`` over
+    "data" and over "model" in mode "2d" and over both in "fsdp", and
+    ``sum_grad`` over "model", each differentiated through ``(y * w)
+    .sum()`` with ``w`` = 0, 1, 2, ... times (rank + 1): the result, the
+    gradient and the collectives the forward and backward issued."""
+    from repro_torch.distributed import autoshard
+    from repro_torch.distributed.sharding import ShardPolicy
+
+    out = {}
+    cases = [("2d", ("data",), "gather"), ("2d", ("model",), "gather"),
+             ("fsdp", ("data", "model"), "gather"),
+             ("2d", ("model",), "sum_grad")]
+    for mode, axes, fn in cases:
+        with autoshard.global_batch(mesh, ShardPolicy(mode)):
+            t = torch.tensor([[float(mesh.rank), 1.0]], requires_grad=True)
+            c0 = mesh.stats["collectives"]
+            y = (autoshard.gather(t, axes, 0) if fn == "gather"
+                 else autoshard.sum_grad(t, axes))
+            w = torch.arange(y.numel(), dtype=torch.float32).reshape(
+                y.shape) * (mesh.rank + 1)
+            (y * w).sum().backward()
+            out[(mode, axes, fn)] = (y.detach(), t.grad,
+                                     mesh.stats["collectives"] - c0)
     return out
 
 
@@ -373,7 +450,8 @@ def roofline_runs(mesh, args, device: str = "cpu") -> dict:
     ``args["serve"]`` config served from its program (each rank its tile,
     its rows of the batch), and one ``"fsdp"`` train step of the
     ``args["train"]`` config.  Each maps to (the counter's stats, the
-    collectives and bytes ``mesh.stats`` counted in the step)."""
+    collectives and bytes ``mesh.stats`` counted in the step), and with
+    ``args["train_moe"]`` one ``"2d"`` train step of that MoE config."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.roofline.hlo_stats import StepCounter
     from repro_torch.serve import Engine, ServeConfig
@@ -411,6 +489,15 @@ def roofline_runs(mesh, args, device: str = "cpu") -> dict:
     local = shd.shard_tree(state, specs, mesh)
     batch = {"tokens": torch.as_tensor(args["tokens"]).to(device)}
     out["train"] = counted(lambda: step(local, batch))
+    if "train_moe" in args:
+        cfg, params = args["train_moe"]
+        policy = shd.ShardPolicy("2d")
+        state = init_train_state(tree_map(lambda t: t.to(device), params))
+        specs = shd.state_specs(state, mesh, policy)
+        step = build_train_step(cfg, args["opt"], mesh=mesh,
+                                shard_policy=policy, specs=specs)
+        local = shd.shard_tree(state, specs, mesh)
+        out["train_moe"] = counted(lambda: step(local, batch))
     return out
 
 
