@@ -111,9 +111,14 @@ into ``build/`` (one ``nvcc`` per source, started together), then
   banks to the whole launch, each tile timed beside its bound
   (``mesh_shapes``); serves full-width olmo-1b on 1 x 2 and 2 x 2 meshes
   of gloo ranks sharing the card, each rank running the kernel on its
-  tiles, tokens equal on every rank and to the sharded plain route's,
-  and at whole-bank tiles to the unsharded run's, with ``PagedScheduler``
-  on the 2 x 2 mesh (``serve_mesh``); and serves the reduced tune pick
+  tiles and attention on its own heads (its kv heads in every cache, no
+  q/k/v gathers), tokens equal on every rank and to the sharded plain
+  route's, and at whole-bank tiles to the unsharded run's, with
+  ``PagedScheduler`` on the 2 x 2 mesh (``serve_mesh``), and
+  recurrentgemma-9b's MQA layer in the reference's "g" mode on 1 x 2,
+  tokens equal to the unsharded run's and to the sharded plain route's
+  (``serve_mesh_mqa``); and serves
+  the reduced tune pick
   through ``ServeConfig.from_tuned`` on its 2 x 4 mesh, tokens equal to
   the 1 x 1 route's (``serve_tuned_mesh``).  The ranks are this script
   run as ``--mesh-worker``; they load the kernels the parent built;
@@ -189,7 +194,9 @@ from repro_torch.models.cnn import (cnn_forward, cnn_loss, init_cnn,  # noqa: E4
                                     update_bn_stats)
 from repro_torch.models.moe import capacity as moe_capacity  # noqa: E402
 from repro_torch.models.ssm import SSMState  # noqa: E402
+from repro_torch.models.attention import KVCache, head_split  # noqa: E402
 from repro_torch.models.transformer import stack_layout  # noqa: E402
+from repro_torch.serve import kv as paged_kv  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
 from repro_torch.optim.qat import calibrate_bn_stats, noise_aware  # noqa: E402
 from repro_torch.serve import (ContinuousBatcher, Engine, PagedScheduler,  # noqa: E402
@@ -414,11 +421,12 @@ PAGED_POOL_BLOCKS = 4
 PAGED_PRIORITIES = tuple(range(len(BATCH_PROMPTS)))[::-1]
 PAGED_CHUNK = 16
 # the reference's traffic benchmark (benchmarks/accel_bench.py::
-# run_poisson_traffic), cut from its 16 requests to 8 for the script's
-# time (train_moe_mesh took the room): prompt lengths and budgets drawn
-# from the sizes with default_rng(0), exponential gaps of mean 0.05 s
+# run_poisson_traffic), cut from its 16 requests to 6 for the script's
+# time (train_moe_mesh and serve_mesh_mqa took the room; 6 still queue
+# on the 4 slots): prompt lengths and budgets drawn from the sizes with
+# default_rng(0), exponential gaps of mean 0.05 s
 POISSON_SIZES = (8, 32, 128)
-POISSON_REQUESTS, POISSON_GAP_S = 8, 0.05
+POISSON_REQUESTS, POISSON_GAP_S = 6, 0.05
 # serve_paged_archs: the other cache layouts, (depth cut or None for
 # whole, launches a forward, paged leaves): mamba2 has none, 3 layers of
 # recurrentgemma (rec, rec, attn) page one KV pair beside the LRU states
@@ -483,6 +491,18 @@ MESH_TIMEOUT = 420
 # and every layer takes the same tiles, collectives and launches
 MESH_LAYERS = 8
 MESH_LAUNCHES_PER_FORWARD = MESH_LAYERS * 7 + 1                   # 57
+# a head-local decode step's model-axis collectives a rank: per layer the
+# gathers of mlp.gate and mlp.up, the all-reduce (sum) of wo and mlp.down
+# and the all-reduce (max) of wo's input scale; the unembed's gather
+MESH_DECODE_COLLECTIVES = MESH_LAYERS * 5 + 1                     # 41
+# serve_mesh_mqa: recurrentgemma-9b (MQA: 16 heads, 1 kv head, so the
+# reference's "g" mode on a 2-way model axis) at published widths and the
+# fewest layers that hold its local-attention block, one (rec, rec, attn)
+# unit of its 38 layers, on a 1 x 2 mesh: 4 prompts x 32 tokens, 8 new,
+# whole banks per row tile; 20 launches a forward as serve_paged_archs
+# counts them (rec 2 x 3, attn 4, mlp 3 x 3, unembed 1)
+MQA_LAYERS, MQA_NEW, MQA_MESH = 3, 8, (1, 2)
+MQA_LAUNCHES_PER_FORWARD = 20
 # sharded training (train_mesh): olmo-1b at published widths and
 # MESH_LAYERS layers, as train_lm trains it, on (data, model) meshes of
 # gloo ranks sharing the card, each mesh in its ShardPolicy mode; losses
@@ -3897,19 +3917,84 @@ def mesh_olmo():
         n_layers=MESH_LAYERS)
 
 
+def decode_counts(engine, prompts) -> dict:
+    """One traced decode step on this rank's rows of ``prompts`` after
+    their prefill: each record's ``(tag, partition)``, and the collectives
+    the mesh reported by ``"kind/axis/op"`` (``StepCounter.
+    collectives_by_op``: count, and bytes the larger of operand and
+    result)."""
+    rows = engine.data_rows(prompts.shape[0])
+    with engine.local_rows(rows):
+        logits, cache = engine.prefill(
+            prompts if rows is None else prompts[rows])
+        with accel.trace() as records, StepCounter() as counter:
+            engine.decode(torch.argmax(logits, -1), cache)
+    return dict(records=[(r.tag, r.partition) for r in records],
+                by_kind={"/".join(filter(None, key)): dict(v)
+                         for key, v in counter.collectives_by_op.items()})
+
+
+def reckoned_collectives(records, local) -> dict:
+    """A decode step's model-axis collectives by ``"kind/axis/op"``,
+    reckoned from its records: a column tile's gather but for the
+    head-local ones (``local``), a row tile's sum, and one ``max`` of
+    ``wo``'s input scale where attention ran on the rank's heads."""
+    want = collections.Counter()
+    for tag, part in records:
+        if part == "col" and tag not in local:
+            want["all-gather/model"] += 1
+        elif part == "row":
+            want["all-reduce/model/sum"] += 1
+            if tag == "attn.o" and local:
+                want["all-reduce/model/max"] += 1
+    return dict(want)
+
+
+def head_local(engine, batch: int) -> dict:
+    """This rank's attention mode (the reference's ``"kv"`` or ``"g"``
+    where attention runs on the rank's heads, else ``"whole"``), the
+    projections whose column tiles stay on the rank, and the kv-head
+    dims found in its decode cache of ``batch`` rows."""
+    with engine._scope():
+        split = head_split(engine.cfg)
+    mode = split.mode if split is not None else "whole"
+    heads = {int(c.k.shape[-2]) for c in
+             tree_leaves_of(engine.init_cache(batch).layers, KVCache)}
+    return dict(mode=mode, kv_heads=sorted(heads),
+                local={"kv": ("attn.q", "attn.k", "attn.v"),
+                       "g": ("attn.q",)}.get(mode, ()))
+
+
+def tree_leaves_of(tree, kind) -> list:
+    """The ``kind`` nodes (a NamedTuple cache type) of a cache tree."""
+    if isinstance(tree, kind):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves_of(t, kind)]
+    return []
+
+
 def phase_serve_mesh() -> tuple:
     """olmo-1b (``mesh_olmo``) through the kernel on a 1 x 2 and a 2 x 2 mesh
-    of gloo ranks sharing the card (``serve_mesh``): each rank's tiles,
-    ``Engine.generate`` of 4 prompts x 32 tokens with 16 new, every rank's
-    tokens equal, and equal to the sharded plain route's (the kernel
-    routed to its plain version); at bank_n = 256 (whole banks per row
-    tile) tokens equal to the unsharded kernel route's and prefill logits
-    within FUSED_TOL; ``digital_int`` prefill logits bitwise unsharded;
-    agreement with the unsharded default-bank run reported.  Per rank:
-    launches a forward, decode ms a step, collectives and bytes a step,
-    tile bytes, peak memory.  On 2 x 2, ``PagedScheduler`` on the batcher
-    trace at bank_n = 256: streams equal the unsharded batcher's.  Returns
-    (launches of the ranks' main paths, each mesh's median decode ms)."""
+    of gloo ranks sharing the card (``serve_mesh``), attention on each
+    rank's own heads (the reference's "kv" mode: 8 of the 16 kv heads a
+    rank): each rank's tiles, ``Engine.generate`` of 4 prompts x 32
+    tokens with 16 new, every rank's tokens equal, and equal to the
+    sharded plain route's (the kernel routed to its plain version); at
+    bank_n = 256 (whole banks per row tile) tokens equal to the unsharded
+    kernel route's and prefill logits within FUSED_TOL; ``digital_int``
+    prefill logits bitwise unsharded; agreement with the unsharded
+    default-bank run reported.  Per rank: launches a forward, decode ms a
+    step, collectives and bytes a step (by kind: MESH_DECODE_COLLECTIVES,
+    no gather of q, k or v, as the step's records reckon them), the
+    attention mode and the cache's kv heads, tile bytes, KV cache bytes
+    (1/model of the unsharded cache of its rows), peak memory.  On 2 x 2, ``PagedScheduler`` on the batcher trace at bank_n =
+    256: streams equal the unsharded batcher's, pool bytes 1/model of the
+    unsharded pool's.  Then ``serve_mesh_mqa`` (:func:`serve_mesh_mqa`).
+    Returns (launches of the ranks' main paths, each mesh's median decode
+    ms)."""
     cfg = mesh_olmo()
     scfg = ServeConfig(max_new_tokens=16, **PAGED)
     cb = ContinuousBatcher(init_params(cfg, 0, device="cuda"), cfg, scfg,
@@ -3927,6 +4012,12 @@ def phase_serve_mesh() -> tuple:
     with accel.override(bank_n=256):
         want["streams"], _, _ = drive(cb, reqs)
     whole_bytes = image_bytes(engine)
+    # the unsharded caches a rank's are held to: the decode cache of the
+    # prompts' rows and the paged pool of the batcher's slots
+    whole_cache = tensor_bytes(engine.init_cache(prompts.shape[0]).layers)
+    whole_pool = tensor_bytes(paged_kv.init_paged_cache(
+        paged_kv.build_layout(cfg, BATCH_SLOTS, scfg.max_seq,
+                              scfg.kv_block_size), device="meta").pools)
     torch.cuda.empty_cache()
     launches, step = 0, {}
     for data, model in MESH_SERVE:
@@ -3953,9 +4044,31 @@ def phase_serve_mesh() -> tuple:
             check(got["launches"] == MESH_LAUNCHES_PER_FORWARD * 16,
                   f"{what}: {got['launches']} launches in 16 forwards")
             launches += got["launches"]
+            # attention on the rank's heads: its kv heads' cache, and a
+            # decode step's collectives as its records reckon them (no
+            # gathers of q, k or v, one max of wo's input scale a layer)
+            heads = got["head_local"]
+            check(heads["mode"] == "kv"
+                  and heads["kv_heads"] == [cfg.n_kv_heads // model],
+                  f"{what}: attention {heads}")
+            rows_cache = whole_cache // data
+            check(got["kv_cache_bytes"] * model == rows_cache,
+                  f"{what}: KV cache {got['kv_cache_bytes']} B, unsharded "
+                  f"{rows_cache} B for its rows")
+            kinds = got["decode"]["by_kind"]
+            counts = {k: v["count"] for k, v in kinds.items()}
+            check(got["decode_collectives"] == MESH_DECODE_COLLECTIVES
+                  and sum(counts.values()) == MESH_DECODE_COLLECTIVES
+                  and counts == reckoned_collectives(
+                      got["decode"]["records"], heads["local"])
+                  and counts["all-reduce/model/max"] == MESH_LAYERS,
+                  f"{what}: a decode step's collectives {kinds}")
             if paged:
                 check(got["paged"]["cima_mvm_launches"] > 0,
                       f"{what}: paged run launched nothing")
+                check(got["paged"]["pool_bytes"] * model == whole_pool,
+                      f"{what}: pool {got['paged']['pool_bytes']} B, "
+                      f"unsharded {whole_pool} B")
                 launches += got["paged"]["cima_mvm_launches"]
                 with accel.override(bank_n=256):
                     same = same_streams(engine, reqs, want["streams"],
@@ -3969,7 +4082,13 @@ def phase_serve_mesh() -> tuple:
                 decode_launches_per_step=got["decode_launches"],
                 collectives_per_step=got["decode_collectives"],
                 collective_bytes_per_step=got["decode_bytes"],
+                collectives_per_step_by_kind=kinds,
                 collectives_generate=got["collectives"],
+                attention_mode=heads["mode"],
+                kv_heads=heads["kv_heads"],
+                kv_cache_bytes=got["kv_cache_bytes"],
+                kv_cache_over_unsharded_rows=(got["kv_cache_bytes"]
+                                              / rows_cache),
                 tile_bytes=got["image_bytes"],
                 tile_bytes_over_whole=got["image_bytes"] / whole_bytes,
                 max_memory_allocated_bytes=got["peak_bytes"],
@@ -3991,10 +4110,89 @@ def phase_serve_mesh() -> tuple:
              default_bank_logits_max_abs_diff=float(
                  (res[0]["logits"].cuda() - want["logits"]).abs().max()),
              logits_max_abs=float(want["logits"].abs().max()),
-             tokens_total=int(want["tokens"].size), ranks=ranks)
+             tokens_total=int(want["tokens"].size),
+             kv_cache_bytes_unsharded=whole_cache,
+             pool_bytes_unsharded=whole_pool, ranks=ranks)
     del cb, engine
     torch.cuda.empty_cache()
-    return launches, step
+    return launches + serve_mesh_mqa(), step
+
+
+def mesh_recurrentgemma():
+    """recurrentgemma-9b at published widths and MQA_LAYERS layers on the
+    kernel (``serve_mesh_mqa``'s config)."""
+    return dataclasses.replace(
+        get_config("recurrentgemma-9b").with_accel("kernel", ba=4, bx=4),
+        n_layers=MQA_LAYERS)
+
+
+def serve_mesh_mqa() -> int:
+    """``serve_mesh_mqa``: recurrentgemma-9b (``mesh_recurrentgemma``) on
+    a 1 x 2 mesh of gloo ranks sharing the card, its local-attention
+    layer in the reference's "g" mode (each rank its 8 q heads against
+    the one kv head; the cache whole).  ``Engine.generate`` of 4 prompts
+    x 32 tokens, MQA_NEW new, at bank_n = 256 (whole banks per row
+    tile): every rank's tokens equal the unsharded kernel route's and
+    the sharded plain route's (the kernel routed to its plain version,
+    on this path's tiles).  Per rank: launches, the attention mode and
+    the cache's kv heads, cache bytes (KV and LRU state, whole), a
+    decode step's collectives by kind (no gather of q, as the step's
+    records reckon them).  Returns the ranks' main-path launches."""
+    cfg = mesh_recurrentgemma()
+    check(cfg.pattern() == ("rec", "rec", "attn"), f"pattern {cfg.pattern()}")
+    scfg = ServeConfig(max_new_tokens=MQA_NEW)
+    engine = Engine(init_params(cfg, 0, device="cuda"), cfg, scfg,
+                    device="cuda")
+    prompts = serve_prompts(cfg.vocab)
+    with accel.override(bank_n=256):
+        want = engine.generate(prompts)
+    whole_cache = tensor_bytes(engine.init_cache(prompts.shape[0]).layers)
+    depth = published_depth_bytes(engine)
+    del engine
+    torch.cuda.empty_cache()
+    data, model = MQA_MESH
+    t0 = time.perf_counter()
+    res = spawn_mesh("serve_mqa", data, model, dict(prompts=prompts.cpu()))
+    seconds = time.perf_counter() - t0
+    launches, ranks = 0, []
+    for r, got in enumerate(res):
+        what = f"serve_mesh_mqa {data}x{model} rank {r}"
+        check(np.array_equal(got["tokens"], want),
+              f"{what}: bank_n 256 tokens differ from unsharded")
+        check(np.array_equal(got["tokens"], got["tokens_plain"]),
+              f"{what}: tokens differ from the sharded plain route's")
+        check(got["launches"] == MQA_LAUNCHES_PER_FORWARD * MQA_NEW,
+              f"{what}: {got['launches']} launches in {MQA_NEW} forwards")
+        heads = got["head_local"]
+        check(heads["mode"] == "g" and heads["kv_heads"] == [cfg.n_kv_heads],
+              f"{what}: attention {heads}")
+        check(got["cache_bytes"] == whole_cache,
+              f"{what}: a g-mode cache of {got['cache_bytes']} B")
+        kinds = got["decode"]["by_kind"]
+        counts = {k: v["count"] for k, v in kinds.items()}
+        check(counts == reckoned_collectives(got["decode"]["records"],
+                                             heads["local"])
+              and counts["all-reduce/model/max"] == 1,
+              f"{what}: a decode step's collectives {kinds}")
+        launches += got["launches"]
+        ranks.append(dict(rank=r, coords=got["coords"],
+                          launches_generate=got["launches"],
+                          attention_mode=heads["mode"],
+                          kv_heads=heads["kv_heads"],
+                          cache_bytes=got["cache_bytes"],
+                          collectives_per_step_by_kind=kinds,
+                          generate_s=got["generate_s"],
+                          tile_bytes=got["image_bytes"],
+                          max_memory_allocated_bytes=got["peak_bytes"]))
+    emit("serve_mesh_mqa", config="recurrentgemma-9b", layers=MQA_LAYERS,
+         published_depth=depth, pattern=list(cfg.pattern()),
+         mesh={"data": data, "model": model}, backend="gloo",
+         device="cuda:0 shared by every rank", prompts=4, prompt=32,
+         new_tokens=MQA_NEW, bank_n=256, phase_s=seconds,
+         tokens_equal_unsharded=True, tokens_equal_plain_route=True,
+         cache_bytes_unsharded=whole_cache,
+         ranks=ranks)
+    return launches
 
 
 def phase_serve_tuned_mesh(tuned) -> int:
@@ -4045,7 +4243,10 @@ def worker_serve(mesh, args) -> dict:
     del params
     torch.cuda.empty_cache()
     prompts = args["prompts"].to("cuda")
-    out = dict(coords=mesh.coords, image_bytes=image_bytes(engine))
+    out = dict(coords=mesh.coords, image_bytes=image_bytes(engine),
+               head_local=head_local(engine, prompts.shape[0]),
+               kv_cache_bytes=tensor_bytes(
+                   engine.init_cache(prompts.shape[0]).layers))
 
     # the main path: counts at 0 just before, read just after
     K.cima_mvm_planes.launches = 0
@@ -4087,6 +4288,7 @@ def worker_serve(mesh, args) -> dict:
     out["decode_ms"] = statistics.median(times) * 1e3
     out["decode_launches"], out["decode_collectives"], out["decode_bytes"] = \
         counts[-1]
+    out["decode"] = decode_counts(engine, prompts)
     if args["reqs"] is not None:
         rids = [server.submit(p, max_new_tokens=m) for p, m in args["reqs"]]
         K.cima_mvm_planes.launches = 0
@@ -4095,8 +4297,34 @@ def worker_serve(mesh, args) -> dict:
             results = server.run()
         out["paged"] = dict(seconds=time.perf_counter() - t0,
                             cima_mvm_launches=K.cima_mvm_planes.launches,
+                            pool_bytes=tensor_bytes(server.paged.pools),
                             **server.stats)
         out["streams"] = [results[r] for r in rids]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def worker_serve_mqa(mesh, args) -> dict:
+    """One rank of ``serve_mesh_mqa``."""
+    cfg = mesh_recurrentgemma()
+    engine = Engine(init_params(cfg, 0, device="cuda"), cfg,
+                    ServeConfig(max_new_tokens=MQA_NEW, mesh=mesh))
+    torch.cuda.empty_cache()
+    prompts = args["prompts"].to("cuda")
+    out = dict(coords=mesh.coords, image_bytes=image_bytes(engine),
+               head_local=head_local(engine, prompts.shape[0]),
+               cache_bytes=tensor_bytes(
+                   engine.init_cache(prompts.shape[0]).layers))
+    with accel.override(bank_n=256):           # whole banks per row tile
+        # the main path: counts at 0 just before, read just after
+        K.cima_mvm_planes.launches = 0
+        t0 = time.perf_counter()
+        out["tokens"] = engine.generate(prompts)
+        out["generate_s"] = time.perf_counter() - t0
+        out["launches"] = K.cima_mvm_planes.launches
+        with routed_launches(K.cima_mvm_planes_reference, keep=False):
+            out["tokens_plain"] = engine.generate(prompts)
+        out["decode"] = decode_counts(engine, prompts)
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     return out
 
@@ -4840,7 +5068,8 @@ def mesh_worker(argv) -> None:
                            init_method=f"file://{tmp / 'store'}",
                            rank=int(rank), world_size=int(world))
     args = torch.load(tmp / "args.pt", weights_only=False)
-    out = {"serve": worker_serve, "tuned": worker_tuned,
+    out = {"serve": worker_serve, "serve_mqa": worker_serve_mqa,
+           "tuned": worker_tuned,
            "train": worker_train,
            "train_moe": worker_train_moe}[kind](mesh, args)
     torch.save(out, tmp / f"rank{rank}.pt")
@@ -4959,9 +5188,12 @@ def main():
                "(29 and 113) with their SQNR probes (one launch each) "
                "and the tuned 1 x 1 point served for 8 forwards; "
                "serve_mesh's ranks (olmo-1b at 8 of 16 layers on 1 x 2 "
-               "and 2 x 2 gloo meshes sharing the card: each rank's "
-               "16-forward generate, 57 tile launches a forward, and the "
-               "2 x 2 ranks' PagedScheduler runs) and serve_tuned_mesh's "
+               "and 2 x 2 gloo meshes sharing the card, attention on each "
+               "rank's heads: each rank's 16-forward generate, 57 tile "
+               "launches a forward, and the 2 x 2 ranks' PagedScheduler "
+               "runs; serve_mesh_mqa's recurrentgemma-9b at 3 of 38 "
+               "layers on 1 x 2, 20 a forward, 8 forwards a rank) and "
+               "serve_tuned_mesh's "
                "ranks (reduced olmo-1b on the tuned pick's mesh, 29 a "
                "forward, 8 forwards); train_mesh's ranks (olmo-1b at 8 of "
                "16 layers trained on 2 x 2 fsdp and 1 x 2 2d gloo meshes "

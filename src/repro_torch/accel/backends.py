@@ -34,14 +34,26 @@ from .registry import register_backend
 from .spec import ExecSpec
 
 
-def quantize_input(x: torch.Tensor, spec: ExecSpec) -> QTensor:
+def quantize_input(x: torch.Tensor, spec: ExecSpec,
+                   split=None) -> QTensor:
     """Quantize the dynamic input onto the spec's grid (int8 values);
     ``spec.x_per_row`` keeps one scale per input row.  The 8-bit XNOR
     grid reaches +128, which the int8 cast saturates to 127 as XLA's
     float-to-int conversion does (a torch cast would wrap it to -128).
     Inside a training step on a mesh
     (:func:`~repro_torch.distributed.autoshard.global_batch`) a
-    per-tensor scale is the global batch's."""
+    per-tensor scale is the global batch's.  ``split`` (a
+    :func:`~repro_torch.distributed.autoshard.model_block`) says ``x``
+    is this rank's block of every row: the per-row or per-tensor amax is
+    then reduced with ``max`` over its ranks, so the grid is the whole
+    input's bit for bit.  The XNOR 1-bit scale is a mean, whose sum over
+    blocks would change its bits: it refuses a split."""
+    if split is not None:
+        if Coding(spec.coding) == Coding.XNOR and spec.bx == 1:
+            raise ValueError("an XNOR 1-bit input scale is a mean: a split "
+                             "input cannot reproduce its bits")
+        return _int8(quantize(x, spec.bx, spec.coding,
+                              per_row=spec.x_per_row, across=split))
     return _int8(quantize(x, spec.bx, spec.coding, per_row=spec.x_per_row,
                           across=None if spec.x_per_row else batch_stats()))
 

@@ -100,22 +100,29 @@ def _measured_planes(spec: ExecSpec, x: torch.Tensor) \
 
 
 def _record_mvm(spec: ExecSpec, x: torch.Tensor, w: torch.Tensor,
-                image=None, post=None) -> None:
+                image=None, post=None, local: Optional[str] = None) \
+        -> None:
     """One :class:`MvmRecord` into every open trace.  Outside a trace it
     does nothing: the measurements read counts back to the host, and the
     serving path must not pay for them.  A grouped call records one
     group's shape and rows (the caller's :func:`~repro_torch.accel.
     context.vmapped` scales them) and measures no sparsity, as the
-    reference sees tracers under ``vmap``."""
+    reference sees tracers under ``vmap``.  A local row input
+    (``local="row"``) holds only the rank's N range: its record keeps
+    the logical shape and calls and measures no sparsity either, since
+    measuring the whole input would take a collective that only the
+    ranks inside a trace issue."""
     if not tracing():
         return
     grouped = w.ndim == 3
+    unmeasured = grouped or local == "row"
     streamed = image is not None and not image.resident
     overlap = streamed and image.overlap
     # the first streamed load of a pass has no compute to hide behind;
     # checked against the innermost trace before this record lands
     prologue = 1 if (overlap and not streamed_load_seen()) else 0
-    skipped, total = (None, None) if grouped else _measured_planes(spec, x)
+    skipped, total = ((None, None) if unmeasured
+                      else _measured_planes(spec, x))
     calls = int(math.prod(x.shape[int(grouped):-1]))
     from repro_torch.distributed.autoshard import in_manual, mesh_axis_size
 
@@ -136,7 +143,7 @@ def _record_mvm(spec: ExecSpec, x: torch.Tensor, w: torch.Tensor,
         data_shards=(max(image.data_shards, 1) if image is not None
                      else 1),
         post_ops=post.n_ops() if post is not None else 0,
-        sparsity=None if grouped else _measured_sparsity(spec, x),
+        sparsity=None if unmeasured else _measured_sparsity(spec, x),
         planes_skipped=skipped,
         planes_total=total))
 
@@ -162,14 +169,44 @@ def _shard_mesh(image):
     return mesh
 
 
-def _sharded(image, mesh):
+def _sharded(image, mesh, local=None):
     """A backend-shaped call of the mesh-partitioned program path."""
     from .shard import sharded_program_matmul
 
     def fn(x, w, spec, ctx):
         return sharded_program_matmul(x, spec, image, mesh,
-                                      generator=ctx.generator, post=ctx.post)
+                                      generator=ctx.generator, post=ctx.post,
+                                      local=local)
     return fn
+
+
+def _check_width(x: torch.Tensor, w: torch.Tensor, image, mesh,
+                 local: Optional[str]) -> None:
+    """A local form runs only as its image's tile on the image's mesh,
+    and only outside autograd; the input is ``n / devices`` wide in the
+    local row form and ``n`` wide everywhere else."""
+    n = int(w.shape[-2])
+    if local is not None:
+        if local not in ("col", "row"):
+            raise ValueError(f"local must be 'col', 'row' or None, got "
+                             f"{local!r}")
+        if mesh is None or image.partition != local or w.ndim != 2:
+            raise ValueError(
+                f"local={local!r} needs a 2-D call on a {local!r}-"
+                f"partitioned image under its mesh; got image "
+                f"{getattr(image, 'path', None)!r} partition "
+                f"{getattr(image, 'partition', None)!r}"
+                f"{'' if mesh is not None else ' and no matching mesh'}")
+        if _records_grad(x, w):
+            raise ValueError(f"local={local!r} runs under inference only")
+        if local == "row":
+            n //= image.devices
+    if int(x.shape[-1]) != n:
+        raise ValueError(
+            f"input width {int(x.shape[-1])} against a weight of "
+            f"{int(w.shape[-2])} rows: " + (
+                f"the local row form takes this rank's {n}" if local == "row"
+                else "an input of n / devices runs only as local='row'"))
 
 
 def _run(fn, x, w, spec: ExecSpec, ctx: ExecContext) -> torch.Tensor:
@@ -218,7 +255,7 @@ def _records_grad(*ts) -> bool:
 
 def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
            ctx: Optional[ExecContext] = None, *, dtype=None, image=None,
-           post=None) -> torch.Tensor:
+           post=None, local: Optional[str] = None) -> torch.Tensor:
     """``x @ w`` under ``spec``'s execution backend.
 
     * ``spec=None`` means *digital by design*: a plain GEMM at ``dtype``
@@ -241,7 +278,13 @@ def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
     * A partitioned ``image`` under a matching ambient mesh
       (:func:`~repro_torch.distributed.autoshard.use_mesh`) runs as this
       rank's tile (:mod:`repro_torch.accel.shard`); the one record is
-      logical, written before the sharded body.
+      logical, written before the sharded body (a local row call's
+      measures no sparsity: :func:`_record_mvm`).  ``local="col"`` keeps
+      a column tile's output on the rank (``[..., m / devices]``);
+      ``local="row"`` takes ``x`` as the rank's N range of a row tile
+      (``[..., n / devices]``), whose scale is reduced over the model
+      axis (:mod:`repro_torch.accel.shard`).  Any other call with an
+      input of ``n / devices`` raises.
     * Grouped: ``w`` [G, N, M] and ``x`` [G, ..., N] (``image`` stacked
       [G, ...], ``post`` shared by the groups) -> [G, ..., M], equal to a
       loop of 2-D calls over the groups.  A digital spec differentiates
@@ -263,9 +306,10 @@ def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
     if image is not None and not image_matches(image, spec, w):
         image = None
     mesh = _shard_mesh(image)
-    _record_mvm(spec, x, w, image, post)
+    _check_width(x, w, image, mesh, local)
+    _record_mvm(spec, x, w, image, post, local)
     # a partitioned image on its mesh runs as this rank's tile
-    fn = (_sharded(image, mesh) if mesh is not None
+    fn = (_sharded(image, mesh, local) if mesh is not None
           else get_backend(spec.backend))
     if ctx is None:
         ctx = ExecContext(generator=next_noise_generator(x.device))

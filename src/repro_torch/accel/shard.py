@@ -24,6 +24,18 @@ Input quantization is global: the per-tensor or per-row scale is
 computed from the whole activation on every rank identically, before any
 split, so sharding never changes the operand grid.
 
+Two local forms serve attention on the rank's own heads
+(``models.attention.head_split``), asked for by ``local``:
+
+* ``"col"``: the column tile's output stays on the rank (no model-axis
+  gather): the rank's heads of q, k or v.
+* ``"row"``: the input already is the rank's N range (its heads of the
+  attention output), so nothing is sliced; the per-row (or per-tensor)
+  amax of that block is reduced with ``max`` over the model group before
+  the grid is set, so the grid is still the whole input's.  One
+  all-reduce of a scale takes the place of the three gathers of q, k
+  and v.
+
 The ``"data"`` axis composes orthogonally: when it is wider than 1 and
 divides the activation's leading (batch) dim, each data shard computes
 its slice of the rows (after quantization) and the rows are gathered
@@ -57,7 +69,7 @@ import torch
 from repro_torch.core.bpbs import (bpbs_matmul_planes,
                                    bpbs_matmul_planes_reference)
 from repro_torch.core.quant import QTensor
-from repro_torch.distributed.autoshard import in_manual
+from repro_torch.distributed.autoshard import in_manual, model_block
 
 from .backends import apply_post, kernel_from_planes, quantize_input, rescale
 from .context import fold_seed
@@ -119,6 +131,13 @@ def _local_operand(a, part: str, m: int, mesh, lead, rows: int):
     return a
 
 
+def rank_columns(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's block of ``t``'s last dim over the model axis: an
+    operand added to a local column tile's output (a linear bias)."""
+    lo, hi = tile_bounds(t.shape[-1], mesh.size("model"), mesh.index("model"))
+    return t[..., lo:hi]
+
+
 def _rank_generator(generator, mesh, lead):
     """The rank's own noise generator: the dispatch's seed folded with the
     model index and, where data shards hold different rows, the data
@@ -133,12 +152,16 @@ def _rank_generator(generator, mesh, lead):
 
 def sharded_program_matmul(x: torch.Tensor, spec, image, mesh,
                            generator: Optional[torch.Generator] = None,
-                           post=None) -> torch.Tensor:
+                           post=None,
+                           local: Optional[str] = None) -> torch.Tensor:
     """``x @ w`` from a partitioned compiled image, one tile per rank.
 
     ``image.partition`` is ``"col"`` or ``"row"`` and
     ``mesh.shape["model"] == image.devices`` (the dispatcher checks).
     Returns float32, the same contract as the on-the-fly backends.
+    ``local`` (the image's partition, or None) selects the local form:
+    a ``"col"`` tile's columns stay on the rank, a ``"row"`` tile takes
+    ``x`` as the rank's N range.
 
     ``post`` (a :class:`~repro_torch.core.datapath.Postreduce`) runs where
     the chip applies it: column tiles rescale and post-reduce their own
@@ -152,7 +175,13 @@ def sharded_program_matmul(x: torch.Tensor, spec, image, mesh,
         raise ValueError(
             f"backend {spec.backend!r} has no sharded execution path; "
             f"mesh-partitioned images support {', '.join(SHARD_BACKENDS)}")
-    qx = quantize_input(x, spec)       # the global grid, before any split
+    if local not in (None, part):
+        raise ValueError(f"image {image.path!r} is a {part!r} tile: no "
+                         f"local {local!r} form")
+    # the global grid: before any split, or over a local row input's
+    # blocks by the max of their amax
+    qx = quantize_input(x, spec, split=model_block(mesh)
+                        if local == "row" else None)
     lead = _data_axis(mesh, qx.q.shape)
     rows = int(qx.q.shape[0]) if qx.q.ndim >= 2 else 0
     q, xsc = qx.q, qx.scale
@@ -161,7 +190,7 @@ def sharded_program_matmul(x: torch.Tensor, spec, image, mesh,
         xsc = _local_operand(xsc, "row", 0, mesh, lead, rows)
     ws, wq, wsc = _image_tile(image, mesh)
     m = image.m
-    if part == "row":
+    if part == "row" and local is None:
         lo, hi = tile_bounds(image.n, image.devices, mesh.index("model"))
         q = q[..., lo:hi]
     if post is not None:
@@ -190,7 +219,7 @@ def sharded_program_matmul(x: torch.Tensor, spec, image, mesh,
         y = mesh.all_reduce(y, "model")
     if not (spec.backend == "kernel" and part == "col"):
         y = apply_post(rescale(y, xsc, wsc, spec), post, spec)
-    if part == "col":
+    if part == "col" and local is None:
         y = mesh.all_gather(y, "model", dim=-1)
     if lead is not None:
         y = mesh.all_gather(y, "data", dim=0)

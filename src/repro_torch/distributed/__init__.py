@@ -3,8 +3,9 @@
 global-batch scope."""
 from .autoshard import (BatchStats, batch_stats, gather, get_mesh,
                         get_shard_policy, global_batch, in_manual,
-                        local_stats, manual, mesh_axis_size, set_mesh,
-                        sum_grad, train_mesh, use_mesh)
+                        local_stats, manual, mesh_axis_size, mesh_tiles,
+                        model_block, set_mesh, sum_grad, train_mesh,
+                        use_mesh)
 from .sharding import (ShardPolicy, batch_specs, cache_specs, expert_block,
                        gather_leaf, local_slice, param_specs, pick_spec,
                        shard_tree, state_specs, unshard_tree)
@@ -15,5 +16,6 @@ __all__ = [
     "unshard_tree", "pick_spec", "get_mesh", "get_shard_policy",
     "in_manual", "manual", "mesh_axis_size", "set_mesh", "use_mesh",
     "global_batch", "batch_stats", "BatchStats", "train_mesh",
-    "local_stats", "gather", "sum_grad", "expert_block",
+    "local_stats", "gather", "sum_grad", "expert_block", "mesh_tiles",
+    "model_block",
 ]

@@ -14,13 +14,24 @@ axis is manual and dispatch runs nothing sharded inside; with
 serving engine's decode), so a partitioned matmul splits nothing more
 over ``"data"``.
 
-The reference's ``cs`` activation constraints: the port keeps
-activations replicated over the model axis, so outside the MoE block
-there is nothing to constrain.  The MoE block's two (the dispatch buffer
-and the expert outputs sharded on their expert axis over ``"tp"``) are
-carried into a training step on a mesh by :func:`gather`, a
-differentiable all-gather whose backward follows what the gathered axes
-mean for the step:
+The reference's ``cs`` activation constraints.  Its attention puts the
+heads of q, k and v on ``"tp"``; the port's counterpart is explicit.
+:func:`use_mesh` also carries the partitions of the program the ranks
+run (``tiles``: the serving engine's compiled images, a policy tag to
+``"col"`` or ``"row"``, read by :func:`mesh_tiles`), from which
+``models.attention.head_split`` decides, as the reference's
+``_attn_tp_mode`` does, whether an attention layer runs on the rank's
+own heads; the layer then asks :func:`repro_torch.accel.matmul` for the
+two local forms by argument (``local="col"``: the column tile's output
+stays on the rank; ``local="row"``: the input already is the rank's N
+range, its row statistic reduced over ``"model"`` by
+:func:`model_block`).  Every other activation stays whole on the model
+axis.  A training step's :func:`global_batch` scope carries no tiles, so
+the mesh form of training is untouched by them.  The MoE block's two
+constraints (the dispatch buffer and the expert outputs sharded on their
+expert axis over ``"tp"``) are carried into a training step on a mesh
+by :func:`gather`, a differentiable all-gather whose backward follows
+what the gathered axes mean for the step:
 
 * over the dp axes, whose ranks hold different rows of the global batch
   and so different losses, the gradient is summed over the axes and
@@ -89,13 +100,26 @@ def get_shard_policy():
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, policy=None) -> Iterator[None]:
-    prev, prev_pol = get_mesh(), getattr(_STATE, "policy", None)
+def use_mesh(mesh, policy=None, tiles=None) -> Iterator[None]:
+    """Scope of the ambient mesh and policy; ``tiles`` (a policy tag to
+    the partition of its compiled image on this mesh) names the tiles
+    the ranks hold, where the code in scope runs a partitioned program
+    (the serving engine)."""
+    prev = get_mesh(), getattr(_STATE, "policy", None), mesh_tiles()
     set_mesh(mesh, policy)
+    _STATE.tiles = dict(tiles or {})
     try:
         yield
     finally:
-        set_mesh(prev, prev_pol)
+        set_mesh(*prev[:2])
+        _STATE.tiles = prev[2]
+
+
+def mesh_tiles() -> dict:
+    """The innermost :func:`use_mesh` scope's tiles: a policy tag to
+    ``"col"`` or ``"row"``; empty outside one, or where the scope runs no
+    partitioned program."""
+    return getattr(_STATE, "tiles", {})
 
 
 @contextlib.contextmanager
@@ -140,6 +164,13 @@ class BatchStats(NamedTuple):
         for a in self.axes:
             idx = idx * self.mesh.size(a) + self.mesh.index(a)
         return idx
+
+
+def model_block(mesh) -> BatchStats:
+    """The reductions of a statistic over the ``"model"`` ranks of
+    ``mesh``, each of which holds an equal block of the operand's last
+    dim (a local row tile's input): its amax is the whole row's."""
+    return BatchStats(mesh, ("model",), mesh.size("model"))
 
 
 @contextlib.contextmanager

@@ -20,10 +20,13 @@ Layout conventions (DESIGN.md §6):
 
 The serving engine applies the image rules (each rank compiles only its
 tile) and the ``"data"`` entries of the cache rules (each data shard
-holds its batch rows); activations, and so the weights and caches
-outside the images, stay whole on the model axis in the port.  A
-training step on a mesh computes the experts of its
-:func:`expert_block` (EP on ``"model"`` in mode ``"2d"``).
+holds its batch rows).  Its KV caches split over ``"model"`` on the kv
+heads where attention runs on the rank's own heads
+(``models.attention.head_split``, the reference's ``"kv"`` mode);
+other activations, and the weights and caches outside the images, stay
+whole on the model axis.  A training step on a mesh computes the
+experts of its :func:`expert_block` (EP on ``"model"`` in mode
+``"2d"``).
 """
 from __future__ import annotations
 
@@ -442,7 +445,15 @@ def cache_specs(cache, mesh, batch_size: int,
     LRU/SSM states).  ``batch_size == 1`` (an admission prefill's slot
     cache) is deterministic: the first size-1 dim is the batch dim and is
     kept off the model axis, so a slot cache gets the live cache's
-    non-batch layout."""
+    non-batch layout.
+
+    This is the reference's rule ("model" on the largest divisible
+    non-batch dim: the sequence dim of olmo-1b's [16, B, 32768, 16, 128]
+    decode_32k leaves).
+    The live layout the serving engine holds is another where attention
+    runs on the rank's heads: "model" on the kv-head dim (the
+    reference's own attention constraints put the kv heads on "tp", and
+    XLA reshards between the two)."""
     return _map_with_path(
         lambda _p, leaf: cache_spec(leaf.shape, mesh, batch_size, policy),
         cache)

@@ -17,7 +17,10 @@ form of the cell's entry point under a
   and the arch's ``TRAIN_MICROBATCHES``, on rank 0's slices of the state;
 * prefill and decode: :class:`~repro_torch.serve.engine.Engine` on the
   mesh, as it serves (each rank its tile of every compiled image on the
-  quantizing backends, its rows of the batch and the cache).
+  quantizing backends, its rows of the batch and the cache, and where
+  attention runs on the rank's own heads, ``models.attention.
+  head_split``, its heads of q, k, v and the KV cache; the ``max`` of
+  each ``wo`` input's row scale is counted as an all-reduce).
 
 Each cell writes ``<out>/<arch>__<shape>__<pod1|pod2>.json`` with the
 reference's keys: ``status``, ``hlo_stats`` (the counter's counts, per
@@ -28,9 +31,10 @@ operand and its result, as the reference takes them),
 handed), ``n_devices``, ``memory_analysis.temp_size_in_bytes`` (the
 counter's peak of bytes allocated in the step beyond its arguments) and
 ``count_s``, the cell's wall seconds (set-up and the counted run).
-Where the port replicates what XLA would shard (heads on the model
-axis, 2-D training compute) the counts say so: they are the port's, not
-the reference's.
+Where the port replicates what XLA would shard (the heads of
+attention in the reference's ``"sq"`` and ``"d"`` modes, MLA, SSM and
+RG-LRU heads, 2-D training compute) the counts say so: they are the
+port's, not the reference's.
 A cell that raises is written with ``status: "error"``, as the
 reference writes one; :func:`repro_torch.roofline.analysis.main` renders
 the table.
@@ -84,8 +88,9 @@ PERF_FLAGS = ("attn_scan_remat", "onehot_embed", "attn_bf16_probs")
 def _parse_opts(opts: str, cfg):
     """``--opt`` knobs: ``mb``, the config's :data:`PERF_FLAGS` and
     ``policy``.  The reference's ``sp_residual`` raises: its sequence-
-    parallel residual is a sharding constraint, and the port's
-    activations stay replicated on the mesh (no counts would change)."""
+    parallel residual turns the row all-reduce into a reduce-scatter
+    once the layers around it run locally, which in training waits for
+    tensor-parallel compute (ROADMAP 4k, after 4g)."""
     from repro_torch.distributed.sharding import ShardPolicy
 
     mb, policy, kw = None, None, {}
@@ -99,7 +104,8 @@ def _parse_opts(opts: str, cfg):
             policy = ShardPolicy(v)
         elif k == "sp_residual":
             raise ValueError("opt sp_residual: the port's models run no "
-                             "sequence-parallel residual")
+                             "sequence-parallel residual yet (ROADMAP 4k, "
+                             "after tensor-parallel training, 4g)")
         else:
             raise ValueError(f"unknown opt {k}")
     return (dataclasses.replace(cfg, **kw) if kw else cfg), mb, policy

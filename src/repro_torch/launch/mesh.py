@@ -99,14 +99,15 @@ class ServeMesh:
         return math.prod(self.size(a) for a in _axes(axes))
 
     def _count(self, t: torch.Tensor, kind: str, axis: str,
-               factor: float = 1) -> None:
+               factor: float = 1, op: Optional[str] = None) -> None:
         """Count one collective over ``axis`` on operand ``t``; its result
         is ``factor`` times the operand (an all-gather's group size, a
-        reduce-scatter's reciprocal)."""
+        reduce-scatter's reciprocal); ``op`` is a reduction's."""
         nbytes = t.numel() * t.element_size()
         self.stats["collectives"] += 1
         self.stats["bytes"] += nbytes
-        tally.report_collective(kind, axis, nbytes, int(nbytes * factor))
+        tally.report_collective(kind, axis, nbytes, int(nbytes * factor),
+                                op)
 
     def all_reduce(self, t: torch.Tensor, axis, op: str = "sum") \
             -> torch.Tensor:
@@ -126,7 +127,7 @@ class ServeMesh:
         for a in _axes(axis):
             group = self._group(a)
             if group is not None:
-                self._count(t, "all-reduce", a)
+                self._count(t, "all-reduce", a, op=op)
                 dist.all_reduce(t, op=_OPS[op], group=group)
         return t
 
@@ -174,7 +175,7 @@ class ServeMesh:
         n = self.size(axis)
         x = t.movedim(dim, 0).contiguous()
         out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
-        self._count(x, "reduce-scatter", axis, 1 / n)
+        self._count(x, "reduce-scatter", axis, 1 / n, "sum")
         dist.reduce_scatter_tensor(out, x, group=self._group(axis))
         return out.movedim(0, dim)
 
@@ -227,7 +228,7 @@ class RecordingMesh(ServeMesh):
             raise ValueError(f"op must be one of {sorted(_OPS)}, got {op!r}")
         for a in _axes(axis):
             if self._group(a) is not None:
-                self._count(t, "all-reduce", a)
+                self._count(t, "all-reduce", a, op=op)
         return t
 
     def all_gather(self, t: torch.Tensor, axis, dim: int) -> torch.Tensor:
@@ -241,7 +242,7 @@ class RecordingMesh(ServeMesh):
     def _reduce_scatter(self, t: torch.Tensor, axis: str, dim: int) \
             -> torch.Tensor:
         n = self.size(axis)
-        self._count(t, "reduce-scatter", axis, 1 / n)
+        self._count(t, "reduce-scatter", axis, 1 / n, "sum")
         return t.narrow(dim, 0, t.shape[dim] // n)
 
     def barrier(self) -> None:

@@ -13,17 +13,123 @@ KV caches (and MLA's latent caches) are updated IN PLACE (the reference
 returns fresh arrays): a prefill writes its keys into the cache it is
 given, a decode step writes one slot per row, and both return that same
 cache.
+
+On a serving mesh MHA/GQA attention runs on the rank's own heads where
+the reference's rule (:func:`attn_tp_mode`) puts the model axis on the
+kv heads (``"kv"``) or the GQA group (``"g"``) and the layer's q/k/v
+images are column tiles and its ``wo`` image a row tile
+(:func:`head_split`): q (and in ``"kv"`` k, v and the KV cache) hold the
+rank's heads, attention runs on them alone, and ``wo``'s row tile takes
+the rank's slice of the attention output as its input.  The tiles and
+the input grid are the ones the whole-activation mesh path uses, so the
+results are the same.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.accel.context import current_override
+from repro_torch.accel.shard import SHARD_BACKENDS
+from repro_torch.core.quant import Coding
+from repro_torch.distributed.autoshard import (get_mesh, get_shard_policy,
+                                               in_manual, mesh_tiles,
+                                               train_mesh)
+
 from .layers import apply_rope, init_linear, linear
 
 DEFAULT_CHUNK = 512
+
+
+def attn_tp_mode(kv: int, g: int, sq: int, d: int) -> str:
+    """Where the ambient mesh's model axis goes inside attention, by the
+    reference's divisibility priority (``_attn_tp_mode``): kv heads
+    (``"kv"``), the GQA group (``"g"``), the query sequence (``"sq"``),
+    the head dim (``"d"``); ``"none"`` without a model axis wider than 1
+    or under an fsdp policy."""
+    mesh = get_mesh()
+    if mesh is None or "model" not in mesh.axis_names \
+            or get_shard_policy().is_fsdp:
+        return "none"
+    m = int(dict(mesh.shape)["model"])
+    if m <= 1:
+        return "none"
+    for mode, size in (("kv", kv), ("g", g), ("sq", sq), ("d", d)):
+        if size % m == 0:
+            return mode
+    return "none"
+
+
+class HeadSplit(NamedTuple):
+    """The heads one rank of the model axis computes."""
+
+    mode: str       # "kv" or "g"
+    h: int          # its q heads, global [q0, q0 + h)
+    kv: int         # the kv heads it holds: its own in "kv", all in "g"
+    q0: int
+    g: int          # the model's GQA group (q heads a kv head serves)
+
+
+# the projections of a head-local layer and the tile each runs as
+_LOCAL_TILES = {"kv": {"attn.q": "col", "attn.k": "col", "attn.v": "col",
+                       "attn.o": "row"},
+                "g": {"attn.q": "col", "attn.o": "row"}}
+
+
+def head_split(cfg) -> Optional[HeadSplit]:
+    """This rank's heads when an MHA/GQA layer runs head-local on the
+    ambient mesh, else None (the layer runs whole, as off a mesh).
+
+    Head-local needs :func:`attn_tp_mode` ``"kv"`` or ``"g"`` (no
+    training step's scope, the model axis not manual), the program's q
+    (and in ``"kv"`` k, v) images as column tiles and ``wo``'s as a row
+    tile on this mesh (:func:`~repro_torch.distributed.autoshard.
+    mesh_tiles`), their specs on a backend with a sharded path, and an
+    amax input statistic for ``wo``: the XNOR 1-bit scale is a mean,
+    which a split input would sum in another order."""
+    mesh = get_mesh()
+    if cfg.mla or mesh is None or train_mesh() is not None \
+            or in_manual("model"):
+        return None
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    mode = attn_tp_mode(kv, h // kv, 1, cfg.hd)
+    if mode not in _LOCAL_TILES:
+        return None
+    tiles = mesh_tiles()
+    need = _LOCAL_TILES[mode]
+    if any(tiles.get(tag) != part for tag, part in need.items()):
+        return None
+    sp, ov = cfg.policy.resolver("attn"), current_override()
+    specs = {tag: dataclasses.replace(sp(tag), **ov) for tag in need}
+    if any(s.backend not in SHARD_BACKENDS for s in specs.values()):
+        return None
+    o = specs["attn.o"]
+    if Coding(o.coding) == Coding.XNOR and o.bx == 1:
+        return None
+    m, k = mesh.size("model"), mesh.index("model")
+    # a column tile is whole heads only where the heads divide the axis
+    assert h % m == 0, (h, m)
+    assert mode == "g" or kv % m == 0, (kv, m)
+    return HeadSplit(mode, h // m, kv // m if mode == "kv" else kv,
+                     k * (h // m), h // kv)
+
+
+def _rank_kv(t: torch.Tensor, split: Optional[HeadSplit]) -> torch.Tensor:
+    """The kv heads of ``t`` [B, S, KV, D] that the rank's q heads read,
+    in the layout :func:`sdpa` groups.  ``t`` itself but in mode ``"g"``,
+    where it holds every kv head: then the one kv head every local head
+    maps to (``j // g``), else one per local q head."""
+    if split is None or split.mode != "g":
+        return t
+    first = split.q0 // split.g
+    last = (split.q0 + split.h - 1) // split.g
+    if first == last:
+        return t[:, :, first:first + 1]
+    idx = torch.arange(split.q0, split.q0 + split.h, device=t.device)
+    return t.index_select(2, torch.div(idx, split.g, rounding_mode="floor"))
 
 
 class KVCache(NamedTuple):
@@ -193,11 +299,20 @@ def init_attention(gen, cfg, device, lead: tuple = ()) -> dict:
     }
 
 
+def kv_cache_heads(cfg) -> int:
+    """The kv heads a rank's cache holds: its own in a head-local ``"kv"``
+    layer (:func:`head_split`), all of them otherwise."""
+    split = head_split(cfg)
+    return split.kv if split is not None else cfg.n_kv_heads
+
+
 def init_kv_cache(cfg, batch: int, s_max: int, dtype, device,
                   lead: tuple = ()) -> KVCache:
-    """Windowed layers get a ring cache of the window length."""
+    """Windowed layers get a ring cache of the window length.  On a
+    serving mesh a head-local ``"kv"`` layer's cache holds the rank's kv
+    heads."""
     length = min(s_max, cfg.attn_window) if cfg.attn_window else s_max
-    shape = lead + (batch, length, cfg.n_kv_heads, cfg.hd)
+    shape = lead + (batch, length, kv_cache_heads(cfg), cfg.hd)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
@@ -211,13 +326,31 @@ def attention(params, x, cfg, positions, cache: Optional[KVCache] = None,
     ``pad_mask`` ([B, S] bool, True = real token; prefill only) admits
     LEFT-padded prompts: ``positions`` are then the per-row true positions
     [B, S], padded keys are hidden, and the cache is written left-aligned.
+
+    Head-local on a serving mesh (:func:`head_split`): q holds the rank's
+    heads, k, v and the cache the rank's kv heads in ``"kv"`` (all of
+    them in ``"g"``, each local head reading its ``j // g``), and the
+    rank's slice of the output goes to ``wo``'s row tile.
     """
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    split = head_split(cfg)
+    q_local = kv_local = None
+    if split is not None:
+        h, q_local = split.h, "col"
+        if split.mode == "kv":
+            kv, kv_local = split.kv, "col"
+    if cache is not None and cache.k.shape[-2] != kv:
+        raise ValueError(
+            f"a cache of {cache.k.shape[-2]} kv heads for a layer of {kv} "
+            f"on this rank: make the cache in the scope that serves it")
     sp = cfg.policy.resolver("attn")
-    q = linear(params["wq"], x, sp("attn.q"), dtype).reshape(b, s, h, hd)
-    k = linear(params["wk"], x, sp("attn.k"), dtype).reshape(b, s, kv, hd)
-    v = linear(params["wv"], x, sp("attn.v"), dtype).reshape(b, s, kv, hd)
+    q = linear(params["wq"], x, sp("attn.q"), dtype,
+               local=q_local).reshape(b, s, h, hd)
+    k = linear(params["wk"], x, sp("attn.k"), dtype,
+               local=kv_local).reshape(b, s, kv, hd)
+    v = linear(params["wv"], x, sp("attn.v"), dtype,
+               local=kv_local).reshape(b, s, kv, hd)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -227,9 +360,10 @@ def attention(params, x, cfg, positions, cache: Optional[KVCache] = None,
         if pad_mask is not None:
             q_pos = positions
             kv_pos = torch.where(pad_mask, positions, -1)
-        o = sdpa(q, k, v, causal=cfg.causal, window=cfg.attn_window,
-                 q_offset=0, dtype=dtype, kv_positions=kv_pos,
-                 q_positions=q_pos, scan_remat=cfg.attn_scan_remat,
+        o = sdpa(q, _rank_kv(k, split), _rank_kv(v, split), causal=cfg.causal,
+                 window=cfg.attn_window, q_offset=0, dtype=dtype,
+                 kv_positions=kv_pos, q_positions=q_pos,
+                 scan_remat=cfg.attn_scan_remat,
                  bf16_probs=cfg.attn_bf16_probs)
         if cache is not None:   # prefill: fill the (possibly ring) cache
             length = cache.k.shape[1]
@@ -259,9 +393,11 @@ def attention(params, x, cfg, positions, cache: Optional[KVCache] = None,
         cache.k[rows, slot] = k.to(cache.k.dtype)
         cache.v[rows, slot] = v.to(cache.v.dtype)
         kv_pos = ring_slot_positions(length, cp + (s - 1))    # [B, L]
-        o = sdpa(q, cache.k, cache.v, causal=True, window=cfg.attn_window,
-                 dtype=dtype, kv_positions=kv_pos, q_positions=offs)
-    out = linear(params["wo"], o.reshape(b, s, h * hd), sp("attn.o"), dtype)
+        o = sdpa(q, _rank_kv(cache.k, split), _rank_kv(cache.v, split),
+                 causal=True, window=cfg.attn_window, dtype=dtype,
+                 kv_positions=kv_pos, q_positions=offs)
+    out = linear(params["wo"], o.reshape(b, s, h * hd), sp("attn.o"), dtype,
+                 local="row" if split is not None else None)
     return out, cache
 
 

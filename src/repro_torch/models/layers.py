@@ -15,6 +15,8 @@ from typing import Optional
 import torch
 
 from repro_torch.accel import ExecSpec, Postreduce, matmul as accel_matmul
+from repro_torch.accel.shard import rank_columns
+from repro_torch.distributed.autoshard import get_mesh
 from repro_torch.core.datapath import ACTIVATIONS
 
 
@@ -39,12 +41,14 @@ def init_linear(gen, d_in: int, d_out: int, device, lead: tuple = (),
 
 
 def linear(params: dict, x: torch.Tensor, spec: Optional[ExecSpec] = None,
-           dtype=torch.bfloat16,
-           post: Optional[Postreduce] = None) -> torch.Tensor:
+           dtype=torch.bfloat16, post: Optional[Postreduce] = None,
+           local: Optional[str] = None) -> torch.Tensor:
     """x @ w (+ b) through the configured backend.  An installed image
     (key ``"cima"``) rides into dispatch.  A linear bias folds into the
     datapath's bias registers pre-scale, so the fused projection still
-    computes ``post((x @ w) + b)``."""
+    computes ``post((x @ w) + b)``.  ``local`` asks dispatch for a local
+    form of a mesh tile (:func:`repro_torch.accel.matmul`); on a local
+    column output the plain bias adds the rank's columns."""
     if post is not None and "b" in params:
         b = params["b"]
         pb = b if post.scale is None else b * post.scale
@@ -52,9 +56,13 @@ def linear(params: dict, x: torch.Tensor, spec: Optional[ExecSpec] = None,
             pb = pb + post.bias
         post = dataclasses.replace(post, bias=pb)
     y = accel_matmul(x, params["w"], spec, dtype=dtype,
-                     image=params.get("cima"), post=post).to(dtype)
+                     image=params.get("cima"), post=post,
+                     local=local).to(dtype)
     if "b" in params and post is None:
-        y = y + params["b"].to(y.dtype)
+        b = params["b"]
+        if local == "col":
+            b = rank_columns(b, get_mesh())
+        y = y + b.to(y.dtype)
     return y
 
 

@@ -24,7 +24,9 @@ rank, as the reference's figures are per device:
   alike), by the reference's
   :data:`COLLECTIVES` names, each op's bytes the larger of its operand
   and its result as the reference takes them; ``collectives_by_axis``
-  the same by mesh axis;
+  the same by mesh axis, and ``collectives_by_op`` by ``(kind, axis,
+  op)`` with a reduction's op (``"sum"``, ``"max"``; None for a gather),
+  an attribute outside :meth:`StepCounter.stats`;
 * ``n_ops``: the ops dispatched that write a tensor (views, aliases and
   host reads such as ``.item()`` not counted), in place of
   ``n_computations``;
@@ -97,6 +99,7 @@ class StepCounter(TorchDispatchMode):
         self.kernel_calls = 0
         self.collectives = {k: {"count": 0, "bytes": 0} for k in COLLECTIVES}
         self.collectives_by_axis: dict = {}
+        self.collectives_by_op: dict = {}
         self.live_bytes = 0
         self.peak_bytes = 0
         self._tracked: set = set()
@@ -122,12 +125,13 @@ class StepCounter(TorchDispatchMode):
         self.kernel_calls += 1
 
     def add_collective(self, kind: str, axis: str, operand_bytes: int,
-                       result_bytes: int) -> None:
+                       result_bytes: int, op=None) -> None:
         """One collective (:func:`repro_torch.tally.report_collective`),
         its bytes the larger of its operand and its result."""
         nbytes = max(operand_bytes, result_bytes)
         for table, key in ((self.collectives, kind),
-                           (self.collectives_by_axis, axis)):
+                           (self.collectives_by_axis, axis),
+                           (self.collectives_by_op, (kind, axis, op))):
             entry = table.setdefault(key, {"count": 0, "bytes": 0})
             entry["count"] += 1
             entry["bytes"] += nbytes

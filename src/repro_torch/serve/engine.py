@@ -22,16 +22,22 @@ On a ``data x model`` mesh (``ServeConfig.mesh``, a
 :class:`~repro_torch.launch.mesh.ServeMesh`; every rank runs the same
 calls) the program compiles partitioned: each rank holds only its tile
 of every partitioned image, the raw weight behind a tile is released,
-and every call runs under the mesh, so each projection runs as the
-rank's tile (:mod:`repro_torch.accel.shard`).  Activations stay whole on
-the model axis.  The data axis splits batch rows: a batch the data axis
-divides (``generate``'s prompts, the batchers' slots) is served by each
-data shard on its own rows, with its own rows of the cache, and rows are
-gathered over the data group only where the host reads them (sampled
-tokens, the EOS poll).  A batch it does not divide (an admission's
-batch-1 prefill) runs on every data shard.  A MoE layer's expert
-capacity then counts one shard's tokens (a dropless capacity factor
-gives the unsharded streams).
+and every call runs under the mesh and the program's tiles, so each
+projection runs as the rank's tile (:mod:`repro_torch.accel.shard`).
+Attention runs on the rank's own heads where the reference's rule puts
+the model axis on the kv heads or the GQA group
+(``models.attention.head_split``): q, k and v stay on their rank, the
+rank's KV cache (the dense cache, each slot's, the paged pools) holds
+its own kv heads in ``"kv"`` mode, and ``wo``'s row tile takes the
+rank's heads of the attention output.  Every other activation stays
+whole on the model axis.  The data axis splits batch rows: a batch the
+data axis divides (``generate``'s prompts, the batchers' slots) is
+served by each data shard on its own rows, with its own rows of the
+cache, and rows are gathered over the data group only where the host
+reads them (sampled tokens, the EOS poll).  A batch it does not divide
+(an admission's batch-1 prefill) runs on every data shard, still on the
+rank's heads.  A MoE layer's expert capacity then counts one shard's
+tokens (a dropless capacity factor gives the unsharded streams).
 """
 from __future__ import annotations
 
@@ -208,6 +214,8 @@ class Engine:
         self.device = torch.device(device)
         params = _to_device(params, self.device)
         self.program = None
+        # the partition of this rank's program tiles, by policy tag
+        self.tiles: dict = {}
         if serve_cfg.use_program:
             with torch.inference_mode():
                 program = build_program(
@@ -219,6 +227,9 @@ class Engine:
                 params = install_program(params, program, cfg)
                 if self.mesh is not None:
                     params = _release_tiled(params)
+                    self.tiles = {img.tag: img.partition
+                                  for img in program.images.values()
+                                  if img.tile is not None}
         self.params = params
         # decode steps issued by the last generate() (EOS may stop early)
         self.last_decode_steps = 0
@@ -232,7 +243,8 @@ class Engine:
                 stack.enter_context(override(x_per_row=True))
             if self.mesh is not None:
                 stack.enter_context(use_mesh(self.mesh,
-                                             self.scfg.shard_policy))
+                                             self.scfg.shard_policy,
+                                             self.tiles))
             yield
 
     def data_rows(self, batch: int) -> Optional[slice]:
@@ -294,10 +306,12 @@ class Engine:
 
     def init_cache(self, batch: int):
         """A fresh decode cache at full batch width: on a mesh whose data
-        axis splits ``batch``, this data shard's rows of it."""
+        axis splits ``batch``, this data shard's rows of it; its KV
+        caches hold the heads this rank serves."""
         rows = self.data_rows(batch)
         n = batch if rows is None else rows.stop - rows.start
-        return init_cache(self.cfg, n, self.scfg.max_seq, self.device)
+        with self._scope():
+            return init_cache(self.cfg, n, self.scfg.max_seq, self.device)
 
     def sample(self, logits: torch.Tensor, request_ids, steps) -> torch.Tensor:
         """Next tokens [B].  Greedy at temperature 0; otherwise row ``i``

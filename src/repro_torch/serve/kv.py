@@ -32,7 +32,10 @@ table, generically over the cache tree:
 
 Unwritten pool positions read as exact zeros, so the gathered view is
 bit for bit the contiguous cache, and paged serving is token-identical
-to the slot batcher (tests/test_torch_paged.py).
+to the slot batcher (tests/test_torch_paged.py).  Every function here
+is generic over the leaves' shapes: on a mesh where attention runs on
+the rank's heads the probed layout, and so the pools, the gather, the
+scatter and the splice, hold the rank's kv heads.
 
 Tables and positions are ``int64`` on the device; the host mirrors the
 scheduler keeps are ``int32``, as in the reference.
@@ -294,7 +297,14 @@ def paged_cache_specs(paged: PagedCache, layout: PagedLayout, mesh,
     ``num_blocks`` logical blocks divide (the zero-read and discard
     blocks are each shard's own), and the per-slot positions split with
     the slots.  State leaves take the cache rule with batch
-    ``n_slots``."""
+    ``n_slots``.
+
+    This is the reference's rule.  The live pools a rank holds split the
+    kv heads where attention runs on the rank's own heads
+    (``models.attention.head_split``), also where this spec names
+    another dim (the head dim of olmo-1b's pool leaves): the reference's
+    attention constraints put the kv heads on "tp", and XLA reshards
+    between the two."""
     from repro_torch.distributed import sharding as shd
 
     msize = shd.axis_size(mesh, ("model",))

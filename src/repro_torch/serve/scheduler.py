@@ -36,7 +36,12 @@ the data group before the host reads them.  The pools keep the whole
 block-id space on every data shard (one global allocator hands any slot
 any block): a shard writes and reads only its own slots' blocks.
 Admission prefills run on every rank; the splice lands on the shard that
-holds the slot.
+holds the slot.  Where attention runs on the rank's own heads
+(``models.attention.head_split``), the pools, the gathered view, the
+scatter and the splice hold the rank's kv heads, so the pools' bytes
+and the allocator's audit are the rank's; block ids, deferrals and
+preemptions are the unsharded scheduler's, and the streams equal the
+slot batcher's.
 """
 from __future__ import annotations
 
@@ -99,8 +104,11 @@ class PagedScheduler:
         self.params, self.cfg, self.scfg = self.engine.params, cfg, serve_cfg
         self.device = self.engine.device
         self.n_slots = n_slots
-        self.layout = kv.build_layout(cfg, n_slots, serve_cfg.max_seq,
-                                      serve_cfg.kv_block_size, num_blocks)
+        # probed in the engine's scope: on a mesh the pools hold the
+        # heads this rank serves
+        with self.engine._scope():
+            self.layout = kv.build_layout(cfg, n_slots, serve_cfg.max_seq,
+                                          serve_cfg.kv_block_size, num_blocks)
         self.alloc = kv.BlockAllocator(self.layout.num_blocks)
         # on a data axis that divides the slots, this shard's slots: the
         # device layout holds them over the whole block-id space
@@ -117,10 +125,11 @@ class PagedScheduler:
         self._rows = self.engine.data_rows(n_slots)
         self._lo, self._hi = ((0, n_slots) if self._rows is None
                               else (self._rows.start, self._rows.stop))
-        self._local = self.layout if self._rows is None else kv.build_layout(
-            cfg, self._hi - self._lo, serve_cfg.max_seq,
-            serve_cfg.kv_block_size, self.layout.num_blocks)
         with self.engine._scope():
+            self._local = self.layout if self._rows is None else \
+                kv.build_layout(cfg, self._hi - self._lo, serve_cfg.max_seq,
+                                serve_cfg.kv_block_size,
+                                self.layout.num_blocks)
             self.paged = kv.init_paged_cache(self._local, self.device)
         # host-side mirrors: the scheduler owns block placement
         self.tables = np.full((n_slots, self.layout.table_width),

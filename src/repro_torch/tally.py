@@ -20,7 +20,9 @@ def report_kernel(ops: int, nbytes: int) -> None:
 
 
 def report_collective(kind: str, axis: str, operand_bytes: int,
-                      result_bytes: int) -> None:
-    """One collective over mesh ``axis``, to every open counter."""
+                      result_bytes: int, op=None) -> None:
+    """One collective over mesh ``axis``, to every open counter; ``op``
+    is a reduction's (``"sum"`` or ``"max"``), None for a gather."""
     for c in ACTIVE:
-        c.add_collective(kind, axis, int(operand_bytes), int(result_bytes))
+        c.add_collective(kind, axis, int(operand_bytes), int(result_bytes),
+                         op)

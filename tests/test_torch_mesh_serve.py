@@ -4,20 +4,30 @@ and the JAX package.
 
 Reduced olmo-1b (the reference's ``init_params`` converted key for key)
 at 1 x 2, 1 x 4 and 2 x 2 (data x model), reduced mamba2-130m at 2 x 2,
-on ``bpbs`` (no noise) with ``bank_n = 16``, so every per-device row
-count is whole banks and sharded is bitwise unsharded.  One group of 4
-CPU ranks (``tests/torch_mesh.py::serve_all``) runs everything: greedy
+reduced starcoder2-3b (4 heads, 1 kv head; its window cut to 16 on
+both packages' configs so that 8 prompt and 12 new positions wrap the
+ring cache) at 1 x 2 and 2 x 2, on ``bpbs`` (no noise) with ``bank_n = 16``,
+so every per-device row count is whole banks and sharded is bitwise
+unsharded.  Attention runs on each rank's own heads: olmo's in the
+reference's ``"kv"`` mode (its cache holds ``kv / model`` heads),
+starcoder2's in ``"g"`` (q local, the one kv head whole).  One group of
+4 CPU ranks (``tests/torch_mesh.py::serve_all``) runs everything: greedy
 ``generate`` (traced), prefill logits on ``bpbs`` and under
 ``digital_int``, the kernel route's tokens (its plain version here), the
 slot batcher's and the paged scheduler's streams on ragged requests over
-4 slots, and ``ServeConfig.from_tuned`` on the 2 x 2 mesh.  Held: every
-rank's tokens equal; logits bitwise and streams token for token equal to
-the port unsharded; the trace's per-tag records, calls and loads equal
-the unsharded trace's; against the reference unsharded, greedy tokens
-equal and ``digital_int`` logits within 1e-4 (float ops in another
-order, as the port's other model tests hold them).
+4 slots, the kv heads of each cache, one decode step's records and
+collectives, and ``ServeConfig.from_tuned`` on the 2 x 2 mesh.  Held:
+every rank's tokens equal; logits bitwise and streams token for token
+equal to the port unsharded; the trace's per-tag records, calls and
+loads equal the unsharded trace's; the caches' heads and a decode step's
+collectives as reckoned here from the mode; olmo's and starcoder2's
+against the reference unsharded, greedy tokens equal and
+``digital_int`` logits within 1e-4 (float ops in another order, as the
+port's other model tests hold them).
 """
+import dataclasses
 import warnings
+from collections import Counter
 
 import jax
 import numpy as np
@@ -41,28 +51,43 @@ from repro_torch.tune import TunedConfig
 
 SPEC = dict(ba=4, bx=4, bank_n=16)
 SERVE = dict(max_seq=32, max_new_tokens=6, kv_block_size=8, decode_block=4)
-MESHES = {"olmo-1b": list(tm.MESHES), "mamba2-130m": [(2, 2)]}
+# starcoder2: 8 prompt + 12 new positions wrap its ring cache of 16
+SERVE_BY = {"starcoder2-3b": dict(max_new_tokens=12)}
+WINDOW = 16
+MESHES = {"olmo-1b": list(tm.MESHES), "mamba2-130m": [(2, 2)],
+          "starcoder2-3b": [(1, 2), (2, 2)]}
 CASES = [(m, name) for name, ms in MESHES.items() for m in ms]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+# the configs also held to the reference unsharded
+REFERENCE = ("olmo-1b", "starcoder2-3b")
+
+
+def _reduced(get, name: str):
+    cfg = get(name).reduced()
+    if name == "starcoder2-3b":
+        cfg = dataclasses.replace(cfg, attn_window=WINDOW)
+    return cfg
+
+
 @pytest.fixture(scope="module")
 def setup():
-    jc = jget("olmo-1b").reduced()
-    pj = jinit(jc, jax.random.PRNGKey(0), max_seq=64)
-    configs = {"olmo-1b": (
-        tget("olmo-1b").reduced().with_accel("bpbs", **SPEC),
-        params_from_jax(jax.tree.map(np.asarray, pj), "cpu"))}
-    jm = jget("mamba2-130m").reduced()
-    configs["mamba2-130m"] = (
-        tget("mamba2-130m").reduced().with_accel("bpbs", **SPEC),
-        params_from_jax(jax.tree.map(np.asarray, jinit(
-            jm, jax.random.PRNGKey(0), max_seq=64)), "cpu"))
+    """Each config's reference params converted key for key."""
+    configs, jax_configs = {}, {}
+    for name in MESHES:
+        jc = _reduced(jget, name)
+        pj = jinit(jc, jax.random.PRNGKey(0), max_seq=64)
+        jax_configs[name] = (jc, pj)
+        configs[name] = (
+            _reduced(tget, name).with_accel("bpbs", **SPEC),
+            params_from_jax(jax.tree.map(np.asarray, pj), "cpu"))
+    vocab = jax_configs["olmo-1b"][0].vocab
     r = np.random.default_rng(0)
-    prompts = r.integers(0, jc.vocab, (4, 8))
-    requests = [(r.integers(0, jc.vocab, (n,)), m)
+    prompts = r.integers(0, vocab, (4, 8))
+    requests = [(r.integers(0, vocab, (n,)), m)
                 for n, m in zip((5, 9, 3, 12, 7), (4, 6, 2, 5, 3))]
-    return dict(jc=jc, pj=pj, configs=configs, prompts=prompts,
+    return dict(jax_configs=jax_configs, configs=configs, prompts=prompts,
                 requests=requests)
 
 
@@ -71,43 +96,60 @@ def runs(setup, tmp_path_factory):
     """The 4-rank group's results and the port's unsharded ones."""
     args = dict(configs=setup["configs"], meshes=MESHES,
                 prompts=setup["prompts"], requests=setup["requests"],
-                serve=SERVE, n_slots=4, tuned_config="olmo-1b")
+                serve=SERVE, serve_by=SERVE_BY, n_slots=4,
+                tuned_config="olmo-1b")
     wait = tm.start("serve", 4, tmp_path_factory.mktemp("serve"), args,
                     timeout=600)
     torch.set_num_threads(2)
-    flat = {name: tm.serve_all(params, cfg, ServeConfig(**SERVE),
+    flat = {name: tm.serve_all(params, cfg, ServeConfig(**_serve(name)),
                                setup["prompts"], setup["requests"], 4)
             for name, (cfg, params) in setup["configs"].items()}
     flat["reference"] = _reference(setup)
     return wait(), flat
 
 
+def _serve(name: str) -> dict:
+    return {**SERVE, **SERVE_BY.get(name, {})}
+
+
 def _reference(setup) -> dict:
-    """The reference unsharded on the same converted weights: greedy
-    ``bpbs`` tokens, and ``digital_int`` prefill logits under the serving
-    quantization scope."""
-    jc = setup["jc"]
+    """The reference unsharded on the same converted weights, for each
+    config of REFERENCE: greedy ``bpbs`` tokens, and ``digital_int``
+    prefill logits under the serving quantization scope."""
     prompts = jax.numpy.asarray(setup["prompts"], jax.numpy.int32)
-    tokens = np.asarray(JEngine(setup["pj"], jc.with_accel("bpbs", **SPEC),
-                                JServe(**SERVE)).generate(prompts))
-    with jaccel.override(x_per_row=True):
-        logits = np.asarray(jprefill(
-            setup["pj"], prompts, jc.with_accel("digital_int", **SPEC),
-            SERVE["max_seq"])[0])
-    return dict(tokens=tokens, logits_digital_int=logits)
+    out = {}
+    for name in REFERENCE:
+        jc, pj = setup["jax_configs"][name]
+        tokens = np.asarray(JEngine(pj, jc.with_accel("bpbs", **SPEC),
+                                    JServe(**_serve(name))).generate(prompts))
+        with jaccel.override(x_per_row=True):
+            logits = np.asarray(jprefill(
+                pj, prompts, jc.with_accel("digital_int", **SPEC),
+                SERVE["max_seq"])[0])
+        out[name] = dict(tokens=tokens, logits_digital_int=logits)
+    return out
 
 
 def _ids(cases):
     return [f"{d}x{m}-{name}" for (d, m), name in cases]
 
 
+def _held(ranks, case) -> list:
+    """The results of the ranks that ran ``case`` (the ranks of its
+    mesh), in mesh order."""
+    (data, model), _ = case
+    held = [r[case] for r in ranks if case in r]
+    assert len(held) == data * model
+    return held
+
+
 @pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
 def test_generate_tokens_equal_unsharded(runs, case):
     ranks, flat = runs
-    (data, model), name = case
-    got = ranks[0][case]
-    for r in ranks[1:data * model]:
-        np.testing.assert_array_equal(r[case]["tokens"], got["tokens"])
+    name = case[1]
+    got, *rest = _held(ranks, case)
+    for r in rest:
+        np.testing.assert_array_equal(r["tokens"], got["tokens"])
     np.testing.assert_array_equal(got["tokens"], flat[name]["tokens"])
     np.testing.assert_array_equal(got["tokens_kernel"],
                                   flat[name]["tokens_kernel"])
@@ -116,7 +158,7 @@ def test_generate_tokens_equal_unsharded(runs, case):
 @pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
 def test_prefill_logits_bitwise_unsharded(runs, case):
     ranks, flat = runs
-    got = ranks[0][case]
+    got = _held(ranks, case)[0]
     for key in ("logits", "logits_digital_int"):
         assert torch.equal(got[key], flat[case[1]][key]), key
 
@@ -124,10 +166,10 @@ def test_prefill_logits_bitwise_unsharded(runs, case):
 @pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
 def test_batcher_and_paged_streams_equal_unsharded(runs, case):
     ranks, flat = runs
-    (data, model), name = case
-    for r in ranks[:data * model]:
-        assert r[case]["batcher"] == flat[name]["batcher"]
-        assert r[case]["paged"] == flat[name]["paged"]
+    name = case[1]
+    for r in _held(ranks, case):
+        assert r["batcher"] == flat[name]["batcher"]
+        assert r["paged"] == flat[name]["paged"]
 
 
 @pytest.mark.parametrize("case", CASES, ids=_ids(CASES))
@@ -137,7 +179,7 @@ def test_trace_records_are_logical(runs, case):
     trace's, every partitioned record names the mesh's model axis."""
     ranks, flat = runs
     (data, model), name = case
-    got = ranks[0][case]
+    got = _held(ranks, case)[0]
     assert got["trace"] == flat[name]["trace"]
     parts = {p for _, p, _ in got["partitions"]}
     assert parts == {"col", "row"}
@@ -146,17 +188,73 @@ def test_trace_records_are_logical(runs, case):
     assert got["image_bytes"] < flat[name]["image_bytes"] / model * 1.05
 
 
+def _mode(cfg, model: int) -> str:
+    """The reference's ``_attn_tp_mode`` priority for the two modes that
+    run head-local (repro/models/attention.py:49-52)."""
+    if cfg.n_kv_heads % model == 0:
+        return "kv"
+    return "g" if (cfg.n_heads // cfg.n_kv_heads) % model == 0 else "none"
+
+
+HEAD_CASES = [c for c in CASES if c[1] != "mamba2-130m"]
+
+
+@pytest.mark.parametrize("case", HEAD_CASES, ids=_ids(HEAD_CASES))
+def test_caches_hold_the_ranks_kv_heads(setup, runs, case):
+    """Each rank's dense, slot and paged caches hold kv / model heads in
+    mode "kv" and every kv head in mode "g"."""
+    ranks, flat = runs
+    (data, model), name = case
+    cfg = setup["configs"][name][0]
+    mode = _mode(cfg, model)
+    assert mode == {"olmo-1b": "kv", "starcoder2-3b": "g"}[name]
+    want = cfg.n_kv_heads // model if mode == "kv" else cfg.n_kv_heads
+    for r in _held(ranks, case):
+        assert r["heads"] == dict(dense={want}, slot={want}, paged={want})
+    assert flat[name]["heads"]["dense"] == {cfg.n_kv_heads}
+
+
+@pytest.mark.parametrize("case", HEAD_CASES, ids=_ids(HEAD_CASES))
+def test_decode_step_collectives_are_head_local(setup, runs, case):
+    """A decode step's model-axis collectives, reckoned from its traced
+    projections: a column tile gathers its output but for the head-local
+    ones (q, k and v in mode "kv", q in "g"), a row tile all-reduces its
+    sum, and each attention layer's ``wo`` reduces one per-row scale
+    with ``max``; nothing over "data" (the decode runs on the shard's
+    rows)."""
+    ranks, _ = runs
+    (_, model), name = case
+    local = {"kv": ("attn.q", "attn.k", "attn.v"),
+             "g": ("attn.q",)}[_mode(setup["configs"][name][0], model)]
+    for r in _held(ranks, case):
+        got = r["decode"]
+        want = Counter()
+        for tag, part in got["records"]:
+            if part == "col" and tag not in local:
+                want["all-gather", "model", None] += 1
+            elif part == "row":
+                want["all-reduce", "model", "sum"] += 1
+                if tag == "attn.o":
+                    want["all-reduce", "model", "max"] += 1
+        assert Counter(got["collectives"]) == want
+        n_attn = sum(tag == "attn.o" for tag, _ in got["records"])
+        assert n_attn == setup["configs"][name][0].n_layers
+        assert want["all-reduce", "model", "max"] == n_attn
+
+
 def test_tokens_and_logits_match_reference(runs):
     """The sharded port against the reference unsharded on the same
     converted weights: greedy bpbs tokens equal, digital_int prefill
-    logits within 1e-4."""
+    logits within 1e-4; olmo-1b in mode "kv", starcoder2-3b in mode "g"
+    through its wrapped ring."""
     ranks, flat = runs
-    want = flat["reference"]
-    for shape in MESHES["olmo-1b"]:
-        got = ranks[0][(shape, "olmo-1b")]
-        np.testing.assert_array_equal(got["tokens"], want["tokens"])
-        np.testing.assert_allclose(got["logits_digital_int"].numpy(),
-                                   want["logits_digital_int"], **TOL)
+    for name in REFERENCE:
+        want = flat["reference"][name]
+        for shape in MESHES[name]:
+            got = _held(ranks, (shape, name))[0]
+            np.testing.assert_array_equal(got["tokens"], want["tokens"])
+            np.testing.assert_allclose(got["logits_digital_int"].numpy(),
+                                       want["logits_digital_int"], **TOL)
 
 
 def test_from_tuned_serves_on_its_mesh(runs):

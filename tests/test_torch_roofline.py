@@ -346,6 +346,39 @@ def test_recording_mesh_equals_real_ranks(tmp_path):
         gathers + 2 * n_moe
 
 
+def test_head_local_decode_cell_on_a_recording_mesh():
+    """A reduced olmo-1b decode cell (4 rows, ``kernel``) run as the dry
+    run runs it, on rank 0 of a recording mesh of model 2: attention on
+    the rank's heads, so its arguments count half the KV cache (what the
+    cache adds from 32 to 64 positions is half the unsharded cache's),
+    and its collectives are the head-local step's: per layer an
+    all-reduce of wo's and mlp.down's sums and one of wo's input scale
+    (``max``), the gathers of mlp.gate and mlp.up, and the unembed's
+    gather; no q/k/v gathers.  (``test_recording_mesh_equals_real_ranks``
+    holds such a decode step's counts to a spawned rank 0's.)"""
+    from repro_torch.distributed.autoshard import use_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeDef
+
+    cfg = tget("olmo-1b").reduced().with_accel("kernel")
+    mesh = RecordingMesh(data=1, model=2, device=torch.device("meta"))
+    args, stats = {}, {}
+    for seq in (32, 64):
+        counter = StepCounter()
+        with use_mesh(mesh):
+            args[seq], _ = dryrun._serve(cfg, ShapeDef("d", "decode", seq, 4),
+                                         mesh, None, counter)
+        stats[seq] = counter.stats()
+    whole = {seq: dryrun.tree_bytes(tmodels.init_cache(
+        cfg, 4, seq, device="meta").layers) for seq in (32, 64)}
+    assert 2 * (args[64] - args[32]) == whole[64] - whole[32]
+    layers = cfg.n_layers
+    col = stats[32]["collectives"]
+    assert col["all-reduce"]["count"] == 3 * layers
+    assert col["all-gather"]["count"] == 2 * layers + 1
+    assert set(stats[32]["collectives_by_axis"]) == {"model"}
+
+
 # ---------------------------------------------------------- the roofline
 
 def _synthetic_record():

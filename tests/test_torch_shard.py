@@ -145,8 +145,10 @@ def _results(runs, part, backend, bank):
     ``bank`` ("whole" or the default), from rank 0, each checked equal on
     every rank of its mesh."""
     ranks = runs[0]
-    for key, (y, y_direct) in ranks[0].items():
-        shape, tag, be, bank_n, with_post, tiled = key
+    for key, ys in ranks[0].items():
+        if key == "local":
+            continue
+        (y, y_direct), (shape, tag, be, bank_n, with_post, tiled) = ys, key
         if tag != TAGS[part] or be != backend:
             continue
         if (bank == "whole") != (bank_n != DEFAULT_BANK):
@@ -213,6 +215,37 @@ def test_default_bank_equals_reference_sharded(runs, case):
         assert torch.equal(y, y_direct)
 
 
+@pytest.mark.parametrize("part", ["col", "row"])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_local_forms_equal_the_gathered_and_sliced_forms(runs, part,
+                                                         backend):
+    """The local forms attention uses on its own heads: a column tile's
+    local output is bitwise the gathered output's rank slice; a row tile
+    on the rank's N range is bitwise today's row form, which slices the
+    whole input.  Per-tensor and per-row input scales; with the per-row
+    scale each rank holds rows whose largest element sits on another
+    rank, so only the ``max`` over the model axis gives their grid."""
+    x = runs[2][0]
+    seen = 0
+    for r, rank in enumerate(runs[0]):
+        for key, (y, y_local) in rank["local"].items():
+            shape, tag, be, _, _, _, per_row = key
+            if tag != TAGS[part] or be != backend or r >= shape[0] * shape[1]:
+                continue
+            k = r % shape[1]
+            if part == "col":
+                want = y[:, slice(*tile_bounds(y.shape[-1], shape[1], k))]
+            else:
+                want = y
+                lo, hi = tile_bounds(x.shape[-1], shape[1], k)
+                top = np.abs(x).argmax(axis=-1)
+                assert ((top < lo) | (top >= hi)).any()
+            assert torch.equal(y_local, want), (r, key)
+            seen += 1
+    # every rank of each mesh, with and without post, two scales
+    assert seen == sum(d * m for d, m in tm.MESHES) * 2 * 2
+
+
 @pytest.mark.parametrize("per_channel", [True, False])
 @pytest.mark.parametrize("partition", ["col", "row"])
 def test_compiled_tile_is_the_sliced_whole_image(partition, per_channel):
@@ -246,3 +279,30 @@ def test_tile_without_its_mesh_raises():
     tile = _compile_image(w, spec, "p", shards=2, partition="col", tile=1)
     with pytest.raises(RuntimeError, match="run it under its mesh"):
         taccel.matmul(torch.ones(2, 64), w, spec, image=tile)
+
+
+def test_local_forms_refuse_what_they_cannot_run():
+    """A local form needs its own partition on its mesh; an input of
+    n / devices is legal only as a local row input; an XNOR 1-bit input
+    statistic (a mean) refuses a split input."""
+    from repro_torch.accel.backends import quantize_input
+    from repro_torch.distributed.autoshard import model_block, use_mesh
+    from repro_torch.launch.mesh import ServeMesh
+
+    w = torch.ones(64, 48)
+    spec = taccel.ExecSpec(backend="bpbs", ba=4, bx=4, tag="mlp.down")
+    row = _compile_image(w, spec, "p", shards=2, partition="row", tile=0)
+    mesh = ServeMesh(data=1, model=2)
+    with torch.inference_mode(), use_mesh(mesh):
+        with pytest.raises(ValueError, match="partition 'row'"):
+            taccel.matmul(torch.ones(2, 64), w, spec, image=row, local="col")
+        with pytest.raises(ValueError, match="runs only as local='row'"):
+            taccel.matmul(torch.ones(2, 32), w, spec, image=row)
+        with pytest.raises(ValueError, match="rank's 32"):
+            taccel.matmul(torch.ones(2, 64), w, spec, image=row, local="row")
+    with pytest.raises(ValueError, match="no matching mesh"):
+        taccel.matmul(torch.ones(2, 32), w, spec, image=_compile_image(
+            w, spec, "p", shards=2, partition="row"), local="row")
+    xnor = taccel.ExecSpec(backend="bpbs", ba=1, bx=1, coding="xnor")
+    with pytest.raises(ValueError, match="XNOR 1-bit"):
+        quantize_input(torch.ones(2, 32), xnor, split=model_block(mesh))

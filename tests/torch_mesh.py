@@ -92,9 +92,15 @@ def task_shard(args) -> dict:
     (``(mesh, tag, backend, bank_n, with_post, tiled)``): the result of
     dispatch under the mesh, and of ``sharded_program_matmul`` called
     directly; both on a whole image (``tiled`` False: sliced per rank)
-    or on the rank's compiled tile."""
+    or on the rank's compiled tile.  Under ``"local"``, for each
+    whole-bank case on a compiled tile, with a per-tensor and a per-row
+    input scale
+    (``case + (per_row,)``): dispatch's gathered result and its local
+    form's (a column tile's own columns; a row tile on the rank's N range
+    of the input)."""
     from repro_torch import accel
-    from repro_torch.accel.program import _compile_image, partition_for
+    from repro_torch.accel.program import (_compile_image, partition_for,
+                                           tile_bounds)
     from repro_torch.accel.shard import sharded_program_matmul
     from repro_torch.core.datapath import Postreduce
     from repro_torch.distributed.autoshard import use_mesh
@@ -124,6 +130,19 @@ def task_shard(args) -> dict:
                                                   post=p)
             key = (shape, tag, backend, spec.bank_n, with_post, tiled)
             out[key] = (y, y_direct)
+            if bank_n != "whole" or not tiled:
+                continue
+            xl = xt
+            if part == "row":
+                xl = xt[:, slice(*tile_bounds(w.shape[0], shape[1],
+                                              mesh.index("model")))]
+            for per_row in (False, True):
+                with torch.inference_mode(), use_mesh(mesh), \
+                        accel.override(x_per_row=per_row):
+                    out.setdefault("local", {})[key + (per_row,)] = (
+                        accel.matmul(xt, wt, spec, image=img, post=p),
+                        accel.matmul(xl, wt, spec, image=img, post=p,
+                                     local=part))
     return out
 
 
@@ -157,14 +176,50 @@ def task_mesh(args) -> dict:
     return out
 
 
+def kv_heads(tree) -> set:
+    """The kv-head dims of every KV cache (or paged KV pool) in a cache
+    tree."""
+    from repro_torch.models.attention import KVCache
+
+    if isinstance(tree, KVCache):
+        return {int(tree.k.shape[-2]), int(tree.v.shape[-2])}
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if not isinstance(tree, (list, tuple)):
+        return set()
+    return set().union(set(), *map(kv_heads, tree))
+
+
+def decode_step_counts(engine, prompts) -> dict:
+    """One traced decode step on the engine's rows of ``prompts`` after
+    their prefill: the ``(tag, partition)`` of each record, and each
+    collective's count by ``(kind, axis, op)`` as the mesh reported it
+    (``StepCounter.collectives_by_op``)."""
+    from repro_torch import accel
+    from repro_torch.roofline.hlo_stats import StepCounter
+
+    rows = engine.data_rows(prompts.shape[0])
+    with engine.local_rows(rows):
+        logits, cache = engine.prefill(prompts if rows is None
+                                       else prompts[rows])
+        tok = torch.argmax(logits, dim=-1)
+        with accel.trace() as records, StepCounter() as counter:
+            engine.decode(tok, cache)
+    return dict(records=[(r.tag, r.partition) for r in records],
+                collectives={k: v["count"] for k, v in
+                             counter.collectives_by_op.items()})
+
+
 def serve_all(params, cfg, scfg, prompts, requests, n_slots: int,
               device="cpu") -> dict:
     """Everything the serving tests compare, on one config and (maybe
     meshed) ServeConfig: ``generate``'s tokens, prefill logits on the
     config's backend and under ``digital_int``, the kernel route's
-    tokens, the per-tag calls and loads of a traced ``generate``, and the
+    tokens, the per-tag calls and loads of a traced ``generate``, the
     streams of ``ContinuousBatcher`` and ``PagedScheduler`` on
-    ``requests`` (``(prompt, budget)`` pairs)."""
+    ``requests`` (``(prompt, budget)`` pairs), the kv heads of the dense,
+    slot and paged caches, and one decode step's records and
+    collectives."""
     from repro_torch import accel
     from repro_torch.serve import ContinuousBatcher, Engine, PagedScheduler
 
@@ -186,12 +241,19 @@ def serve_all(params, cfg, scfg, prompts, requests, n_slots: int,
     out["trace"] = calls
     out["partitions"] = sorted({(r.tag, r.partition, r.devices)
                                 for r in records})
+    out["heads"] = dict(
+        dense=kv_heads(engine.init_cache(n_slots).layers),
+        slot=kv_heads(engine.prefill_single(
+            np.asarray(requests[0][0]))[1].layers))
+    out["decode"] = decode_step_counts(engine, prompts)
     for name, server in (("batcher", ContinuousBatcher),
                          ("paged", PagedScheduler)):
         srv = server(params, cfg, scfg, n_slots, device=device)
         rids = [srv.submit(p, max_new_tokens=m) for p, m in requests]
         res = srv.run()
         out[name] = [res[r] for r in rids]
+        if name == "paged":
+            out["heads"]["paged"] = kv_heads(srv.paged.pools)
     if engine.program is not None:
         out["image_bytes"] = sum(
             t.numel() * t.element_size()
@@ -200,21 +262,42 @@ def serve_all(params, cfg, scfg, prompts, requests, n_slots: int,
     return out
 
 
+def _pair_meshes(world: int, device: str) -> list:
+    """A 1 x 2 gloo mesh over each pair of ranks of the job (made on
+    every rank, in one order; None outside it)."""
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    return [make_serve_mesh(1, 2, backend="gloo", device=device,
+                            ranks=[lo, lo + 1])
+            for lo in range(0, world - 1, 2)]
+
+
 def task_serve(args) -> dict:
     """:func:`serve_all` of each config in ``args["configs"]`` on every
-    mesh of the job, and ``ServeConfig.from_tuned`` on the 2 x 2 mesh."""
+    mesh of the job (its ServeConfig ``args["serve"]`` updated by the
+    config's ``args["serve_by"]`` entry), and ``ServeConfig.from_tuned``
+    on the 2 x 2 mesh.  The 1 x 2 cases take the pairs of ranks in turn,
+    so two run at once on 4 ranks: a case's results are on the ranks of
+    its mesh only."""
     from repro_torch.serve import ServeConfig
     from repro_torch.tune import TunedConfig
 
     device = args.get("device", "cpu")
+    pairs = _pair_meshes(args["world"], device)
     out = {}
     for shape, mesh in meshes(args["world"], device):
+        cases = [name for name in args["configs"]
+                 if shape in args["meshes"][name]]
+        if shape == (1, 2):
+            cases = [name for i, name in enumerate(cases)
+                     if pairs[i % len(pairs)] is not None]
+            mesh = next((m for m in pairs if m is not None), None)
         if mesh is None:
             continue
-        for name, (cfg, params) in args["configs"].items():
-            if shape not in args["meshes"][name]:
-                continue
-            scfg = ServeConfig(mesh=mesh, **args["serve"])
+        for name in cases:
+            cfg, params = args["configs"][name]
+            scfg = ServeConfig(mesh=mesh, **{
+                **args["serve"], **args.get("serve_by", {}).get(name, {})})
             out[(shape, name)] = serve_all(params, cfg, scfg,
                                            args["prompts"], args["requests"],
                                            args["n_slots"], device)
