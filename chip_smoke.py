@@ -194,7 +194,8 @@ from repro_torch.models.cnn import (cnn_forward, cnn_loss, init_cnn,  # noqa: E4
                                     update_bn_stats)
 from repro_torch.models.moe import capacity as moe_capacity  # noqa: E402
 from repro_torch.models.ssm import SSMState  # noqa: E402
-from repro_torch.models.attention import KVCache, head_split  # noqa: E402
+from repro_torch.models.attention import (KVCache, cross_split,  # noqa: E402
+                                          head_split)
 from repro_torch.models.transformer import stack_layout  # noqa: E402
 from repro_torch.serve import kv as paged_kv  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
@@ -417,16 +418,22 @@ NEAR_TIE_REL = 1e-3
 # row is preempted: lengths and budgets alone fix the schedule, so a CPU
 # replay at reduced width shows it); (d) prefills in 16-token chunks
 PAGED = dict(max_seq=256, kv_block_size=16, decode_block=8)
+# serve_paged serves olmo-1b at published widths and PAGED_LAYERS of its
+# 16 layers (whole until PR 28 cut it for the script's time): every layer
+# takes the same pools, tables and launches, and the schedule (deferrals,
+# preemptions, chunks) is fixed by lengths and budgets alone
+PAGED_LAYERS = 8
+PAGED_LAUNCHES_PER_FORWARD = PAGED_LAYERS * 7 + 1                 # 57
 PAGED_POOL_BLOCKS = 4
 PAGED_PRIORITIES = tuple(range(len(BATCH_PROMPTS)))[::-1]
 PAGED_CHUNK = 16
 # the reference's traffic benchmark (benchmarks/accel_bench.py::
-# run_poisson_traffic), cut from its 16 requests to 6 for the script's
-# time (train_moe_mesh and serve_mesh_mqa took the room; 6 still queue
-# on the 4 slots): prompt lengths and budgets drawn from the sizes with
-# default_rng(0), exponential gaps of mean 0.05 s
+# run_poisson_traffic), cut from its 16 requests to 5 for the script's
+# time (train_moe_mesh, serve_mesh_mqa and serve_mesh_sqd took the room;
+# 5 still queue on the 4 slots): prompt lengths and budgets drawn from
+# the sizes with default_rng(0), exponential gaps of mean 0.05 s
 POISSON_SIZES = (8, 32, 128)
-POISSON_REQUESTS, POISSON_GAP_S = 6, 0.05
+POISSON_REQUESTS, POISSON_GAP_S = 5, 0.05
 # serve_paged_archs: the other cache layouts, (depth cut or None for
 # whole, launches a forward, paged leaves): mamba2 has none, 3 layers of
 # recurrentgemma (rec, rec, attn) page one KV pair beside the LRU states
@@ -487,14 +494,15 @@ MESH_ROWS = (4, 128)
 MESH_SERVE = ((1, 2), (2, 2))
 MESH_TIMEOUT = 420
 # serve_mesh and train_mesh run olmo-1b at MESH_LAYERS of its 16 layers,
-# cut for the script's time: gloo moves the whole tree through the host,
-# and every layer takes the same tiles, collectives and launches
-MESH_LAYERS = 8
-MESH_LAUNCHES_PER_FORWARD = MESH_LAYERS * 7 + 1                   # 57
+# cut for the script's time (8 until serve_mesh_sqd came): gloo moves the
+# whole tree through the host, and every layer takes the same tiles,
+# collectives and launches
+MESH_LAYERS = 2
+MESH_LAUNCHES_PER_FORWARD = MESH_LAYERS * 7 + 1                   # 15
 # a head-local decode step's model-axis collectives a rank: per layer the
 # gathers of mlp.gate and mlp.up, the all-reduce (sum) of wo and mlp.down
 # and the all-reduce (max) of wo's input scale; the unembed's gather
-MESH_DECODE_COLLECTIVES = MESH_LAYERS * 5 + 1                     # 41
+MESH_DECODE_COLLECTIVES = MESH_LAYERS * 5 + 1                     # 11
 # serve_mesh_mqa: recurrentgemma-9b (MQA: 16 heads, 1 kv head, so the
 # reference's "g" mode on a 2-way model axis) at published widths and the
 # fewest layers that hold its local-attention block, one (rec, rec, attn)
@@ -503,6 +511,17 @@ MESH_DECODE_COLLECTIVES = MESH_LAYERS * 5 + 1                     # 41
 # counts them (rec 2 x 3, attn 4, mlp 3 x 3, unembed 1)
 MQA_LAYERS, MQA_NEW, MQA_MESH = 3, 8, (1, 2)
 MQA_LAUNCHES_PER_FORWARD = 20
+# serve_mesh_sqd: whisper-tiny whole at published widths (6 heads of 64
+# dims, 6 kv heads, 1,500 frames) on a 1 x 4 mesh, where the reference's
+# rule splits attention's query rows ("sq": 4 divides a 32-token prefill
+# and the 1,500-frame encoder) or its head dims ("d": a 30-token prefill,
+# every decode step, each rank's caches and cross keys and values 16 of
+# the 64 dims); 4 prompts of each length, SQD_NEW new tokens; bank_n 96,
+# so every row tile is whole banks (384 / 4 and 1,536 / 4), unsharded
+# too; tokens held to the unsharded run's but where its top-2 logits are
+# within SQD_NEAR_TIE at the first step that differs
+SQD_MESH, SQD_PROMPTS, SQD_NEW, SQD_BANK_N = (1, 4), (32, 30), 8, 96
+SQD_NEAR_TIE = 1e-3
 # sharded training (train_mesh): olmo-1b at published widths and
 # MESH_LAYERS layers, as train_lm trains it, on (data, model) meshes of
 # gloo ranks sharing the card, each mesh in its ShardPolicy mode; losses
@@ -540,8 +559,9 @@ NOISE_ROWS, NOISE_N, NOISE_M = 4096, 255, 256
 NOISE_SEEDS = (11, 12, 13)        # noisy Fig. 11 evaluations, averaged
 NOISE_CAL_BATCHES = 4             # calibrate_bn_stats, as the QAT CLI
 CORNER_STEPS, CORNER_BATCH, CORNER_EVAL = 60, 32, 8
-# sanitize: olmo-1b generate at B = 4, outside and then inside a scope
-SAN_BATCH, SAN_NEW = 4, 16
+# sanitize: olmo-1b generate at B = 4, outside and then inside a scope,
+# SAN_NEW new tokens (16 until PR 28 cut it for the script's time)
+SAN_BATCH, SAN_NEW = 4, 8
 # roofline: a dry-run cell's time limit (its process runs on the host)
 DRYRUN_TIMEOUT = 600
 
@@ -1712,9 +1732,7 @@ def phase_serve_whisper() -> int:
     cfg = get_config("whisper-tiny").with_accel("kernel", ba=4, bx=4)
     check((cfg.n_layers, cfg.enc_layers, cfg.frontend_seq)
           == (WH_LAYERS, WH_LAYERS, WH_FRAMES), "whisper-tiny's shape")
-    g = torch.Generator(device="cuda").manual_seed(1)
-    frames = 0.1 * torch.randn(WH_BATCH, WH_FRAMES, cfg.d_model, generator=g,
-                               device="cuda")
+    frames = whisper_frames(cfg)
     # images: the encoder's and decoder's q, k, v, o, up, down; the cross
     # q, k, v, o stacked over the decoder layers; the unembed
     engine, prompts, tokens, logits, row, profile = serve_on_kernel(
@@ -1938,7 +1956,8 @@ def poisson_traffic(cb, ps, cfg) -> dict:
     for name, server in (("slot", cb), ("paged", ps)):
         drive(server, warm)
         streams[name], out[name], _ = drive(server, reqs, arrivals=arrivals)
-        check_launches(out[name], LAUNCHES_PER_FORWARD, f"poisson {name}")
+        check_launches(out[name], PAGED_LAUNCHES_PER_FORWARD,
+                       f"poisson {name}")
     out["streams"] = same_streams(cb.engine, reqs, streams["slot"],
                                   streams["paged"], "poisson", False)
     out.update(requests=POISSON_REQUESTS, sizes=list(POISSON_SIZES),
@@ -2028,15 +2047,18 @@ def steady_decode(cb, ps, cfg) -> dict:
 
 
 def phase_serve_paged() -> int:
-    """Full-width olmo-1b on the kernel through ``PagedScheduler`` beside
-    ``ContinuousBatcher``: (a) the batcher trace (streams equal up to
-    near-ties, 113 launches a forward, one host sync a decode block), (b)
+    """Full-width olmo-1b at PAGED_LAYERS layers on the kernel through
+    ``PagedScheduler`` beside ``ContinuousBatcher``: (a) the batcher trace
+    (streams equal up to near-ties, PAGED_LAUNCHES_PER_FORWARD launches a
+    forward, one host sync a decode block), (b)
     the reference's Poisson traffic through both (streams equal; tokens/s,
     host syncs per token), steady decode with every slot live (idle
     share), (c) an oversubscribed pool with priorities (a deferral and a
     preemption, streams equal), (d) 16-token prefill chunks (streams equal
     up to near-ties)."""
-    cfg = get_config("olmo-1b").with_accel("kernel", ba=4, bx=4)
+    cfg = dataclasses.replace(
+        get_config("olmo-1b").with_accel("kernel", ba=4, bx=4),
+        n_layers=PAGED_LAYERS)
     params = init_params(cfg, 0, device="cuda")
     scfg = ServeConfig(max_new_tokens=16, **PAGED)
     reqs = batcher_requests(cfg)
@@ -2051,8 +2073,9 @@ def phase_serve_paged() -> int:
     # (a) the batcher trace
     want, slot_a, _ = drive(cb, reqs)
     got, paged_a, block_syncs = drive(ps, reqs)
-    check_launches(slot_a, LAUNCHES_PER_FORWARD, "batcher trace, slot")
-    check_launches(paged_a, LAUNCHES_PER_FORWARD, "batcher trace, paged")
+    check_launches(slot_a, PAGED_LAUNCHES_PER_FORWARD, "batcher trace, slot")
+    check_launches(paged_a, PAGED_LAUNCHES_PER_FORWARD,
+                   "batcher trace, paged")
     check(paged_a["decode_steps"] == PAGED["decode_block"]
           * paged_a["decode_blocks"], f"decode steps {paged_a}")
     check(block_syncs == [1] * paged_a["decode_blocks"],
@@ -2075,7 +2098,8 @@ def phase_serve_paged() -> int:
     ps = PagedScheduler(params, cfg, scfg, BATCH_SLOTS,
                         num_blocks=PAGED_POOL_BLOCKS, device="cuda")
     got, paged_c, _ = drive(ps, reqs, priorities=PAGED_PRIORITIES)
-    check_launches(paged_c, LAUNCHES_PER_FORWARD, "oversubscribed pool")
+    check_launches(paged_c, PAGED_LAUNCHES_PER_FORWARD,
+                   "oversubscribed pool")
     check(paged_c["deferred_admissions"] > 0 and paged_c["preemptions"] > 0,
           f"oversubscribed pool: {paged_c}")
     c = dict(num_blocks=PAGED_POOL_BLOCKS, priorities=PAGED_PRIORITIES,
@@ -2090,7 +2114,7 @@ def phase_serve_paged() -> int:
     ps = PagedScheduler(params, cfg, dataclasses.replace(
         scfg, prefill_chunk=PAGED_CHUNK), BATCH_SLOTS, device="cuda")
     got, paged_d, _ = drive(ps, reqs)
-    check_launches(paged_d, LAUNCHES_PER_FORWARD, "chunked prefill")
+    check_launches(paged_d, PAGED_LAUNCHES_PER_FORWARD, "chunked prefill")
     check(paged_d["prefill_chunks"] > paged_d["prefills"],
           f"chunked prefill: {paged_d}")
     d = dict(prefill_chunk=PAGED_CHUNK, paged=paged_d,
@@ -2100,6 +2124,7 @@ def phase_serve_paged() -> int:
     del ps, cb, params
     torch.cuda.empty_cache()
     emit("serve_paged", config=cfg.name, layers=cfg.n_layers,
+         published_depth=get_config("olmo-1b").n_layers,
          slots=BATCH_SLOTS, **PAGED, table_width=lay.table_width,
          num_blocks=lay.num_blocks,
          pool_bytes_full_residency=pool_bytes,
@@ -3917,16 +3942,17 @@ def mesh_olmo():
         n_layers=MESH_LAYERS)
 
 
-def decode_counts(engine, prompts) -> dict:
+def decode_counts(engine, prompts, frontend=None) -> dict:
     """One traced decode step on this rank's rows of ``prompts`` after
-    their prefill: each record's ``(tag, partition)``, and the collectives
-    the mesh reported by ``"kind/axis/op"`` (``StepCounter.
-    collectives_by_op``: count, and bytes the larger of operand and
-    result)."""
+    their prefill (``frontend``: its frontend embeddings): each record's
+    ``(tag, partition)``, and the collectives the mesh reported by
+    ``"kind/axis/op"`` (``StepCounter.collectives_by_op``: count, and
+    bytes the larger of operand and result)."""
     rows = engine.data_rows(prompts.shape[0])
     with engine.local_rows(rows):
         logits, cache = engine.prefill(
-            prompts if rows is None else prompts[rows])
+            prompts if rows is None else prompts[rows],
+            frontend if rows is None or frontend is None else frontend[rows])
         with accel.trace() as records, StepCounter() as counter:
             engine.decode(torch.argmax(logits, -1), cache)
     return dict(records=[(r.tag, r.partition) for r in records],
@@ -3934,11 +3960,21 @@ def decode_counts(engine, prompts) -> dict:
                          for key, v in counter.collectives_by_op.items()})
 
 
-def reckoned_collectives(records, local) -> dict:
+def attention_chunks(keys: int, chunk: int = 512) -> int:
+    """The score sums of one "d" attention call over ``keys`` keys: one
+    on the dense path (up to ``2 * chunk`` keys), one a chunk beyond
+    (``models.attention.sdpa``)."""
+    return 1 if keys <= 2 * chunk else -(-keys // chunk)
+
+
+def reckoned_collectives(records, local, split=None) -> dict:
     """A decode step's model-axis collectives by ``"kind/axis/op"``,
     reckoned from its records: a column tile's gather but for the
     head-local ones (``local``), a row tile's sum, and one ``max`` of
-    ``wo``'s input scale where attention ran on the rank's heads."""
+    ``wo``'s input scale where attention ran on the rank's heads; where
+    it ran on the rank's head dims or query rows (``split``: the tag of
+    each attention call's ``wo`` to its mode and its keys), one score
+    sum a chunk in "d" and one gather of its output."""
     want = collections.Counter()
     for tag, part in records:
         if part == "col" and tag not in local:
@@ -3947,22 +3983,47 @@ def reckoned_collectives(records, local) -> dict:
             want["all-reduce/model/sum"] += 1
             if tag == "attn.o" and local:
                 want["all-reduce/model/max"] += 1
+        if split and tag in split:
+            mode, keys = split[tag]
+            if mode == "d":
+                want["all-reduce/model/sum"] += attention_chunks(keys)
+            want["all-gather/model"] += 1
     return dict(want)
 
 
-def head_local(engine, batch: int) -> dict:
-    """This rank's attention mode (the reference's ``"kv"`` or ``"g"``
-    where attention runs on the rank's heads, else ``"whole"``), the
-    projections whose column tiles stay on the rank, and the kv-head
-    dims found in its decode cache of ``batch`` rows."""
+def head_local(engine, batch: int, calls=None) -> dict:
+    """This rank's attention mode in a decode step (the reference's
+    ``"kv"`` or ``"g"`` where attention runs on the rank's heads, ``"d"``
+    on its head dims, else ``"whole"``), the projections whose column
+    tiles stay on the rank, and the kv-head dims found in its decode
+    cache of ``batch`` rows.  ``calls`` (a call's name to its query
+    rows) adds the split of each (``modes``; whisper's cross-attention
+    too, as ``cross_<name>``) and the (kv heads, head dim) of the KV
+    caches and cross keys and values."""
+    cfg = engine.cfg
     with engine._scope():
-        split = head_split(engine.cfg)
-    mode = split.mode if split is not None else "whole"
-    heads = {int(c.k.shape[-2]) for c in
-             tree_leaves_of(engine.init_cache(batch).layers, KVCache)}
-    return dict(mode=mode, kv_heads=sorted(heads),
-                local={"kv": ("attn.q", "attn.k", "attn.v"),
-                       "g": ("attn.q",)}.get(mode, ()))
+        split = head_split(cfg)
+        modes = {}
+        for name, sq in (calls or {}).items():
+            modes[name] = mode_of(head_split(cfg, sq))
+            if cfg.is_encdec:
+                modes[f"cross_{name}"] = mode_of(cross_split(cfg, sq))
+    mode = mode_of(split)
+    cache = engine.init_cache(batch)
+    kv = tree_leaves_of(cache.layers, KVCache)
+    out = dict(mode=mode, kv_heads=sorted({int(c.k.shape[-2]) for c in kv}),
+               local={"kv": ("attn.q", "attn.k", "attn.v"),
+                      "g": ("attn.q",)}.get(mode, ()))
+    if calls:
+        out.update(modes=modes,
+                   kv_dims=sorted({tuple(c.k.shape[-2:]) for c in kv}),
+                   cross_dims=sorted({tuple(t.shape[-2:])
+                                      for t in cache.cross_kv or ()}))
+    return out
+
+
+def mode_of(split) -> str:
+    return split.mode if split is not None else "whole"
 
 
 def tree_leaves_of(tree, kind) -> list:
@@ -4195,6 +4256,153 @@ def serve_mesh_mqa() -> int:
     return launches
 
 
+def whisper_frames(cfg):
+    """Synthetic frame embeddings for whisper's encoder (seed 1)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    return 0.1 * torch.randn(WH_BATCH, WH_FRAMES, cfg.d_model, generator=g,
+                             device="cuda")
+
+
+def greedy_gaps(engine, prompts, frontend=None) -> np.ndarray:
+    """The top-2 logit gap [B, T] at each step of a greedy ``generate``
+    of ``prompts`` (where a near-tie may turn a token)."""
+    logits, cache = engine.prefill(prompts, frontend)
+    gaps = []
+    for t in range(engine.scfg.max_new_tokens):
+        if t:
+            logits, cache = engine.decode(tok, cache)
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        gaps.append(top[:, 0] - top[:, 1])
+        tok = torch.argmax(logits, dim=-1)
+    return torch.stack(gaps, dim=1).cpu().numpy()
+
+
+def near_tie_agreement(got, want, gaps) -> dict:
+    """Greedy tokens [B, T] against the unsharded run's: each row's
+    first differing step, which must sit where the unsharded top-2 logit
+    gap is below SQD_NEAR_TIE (the rest of that row is not compared)."""
+    turned = {}
+    for row in range(got.shape[0]):
+        diff = np.flatnonzero(got[row] != want[row])
+        if diff.size:
+            t = int(diff[0])
+            turned[row] = (t, float(gaps[row, t]))
+            check(gaps[row, t] < SQD_NEAR_TIE,
+                  f"row {row} turns at step {t} where the unsharded top-2 "
+                  f"gap is {gaps[row, t]}")
+    return turned
+
+
+def phase_serve_mesh_sqd() -> int:
+    """``serve_mesh_sqd``: whisper-tiny whole at published widths on the
+    kernel on a 1 x 4 mesh of gloo ranks sharing the card, attention on
+    each rank's query rows or head dims (the reference's "sq" and "d"
+    modes: 6 kv heads and a GQA group of 1 do not split 4 ways).
+    ``Engine.generate`` of 4 prompts of 32 tokens (an "sq" prefill) and
+    of 30 (a "d" prefill), SQD_NEW new each, on the frames of
+    ``serve_whisper``, at bank_n SQD_BANK_N (whole banks per row tile),
+    unsharded too.  Per rank: tokens equal to the sharded plain route's
+    (the kernel routed to its plain version) and to every rank's, and to
+    the unsharded run's under the near-tie rule; the split of each call
+    kind; KV-cache and cross-k/v bytes a quarter of the unsharded
+    cache's; a decode step's collectives by kind as its records reckon
+    them (one score sum a chunk and one output gather an attention
+    call); launches a prefill and a decode step as ``serve_whisper``'s;
+    peak memory and seconds.  Returns the ranks' main-path launches."""
+    cfg = get_config("whisper-tiny").with_accel("kernel", ba=4, bx=4)
+    engine = Engine(init_params(cfg, 0, device="cuda"), cfg,
+                    ServeConfig(max_new_tokens=SQD_NEW), device="cuda")
+    frames = whisper_frames(cfg)
+    prompts = serve_prompts(cfg.vocab, prompt=max(SQD_PROMPTS))
+    want = {}
+    with accel.override(bank_n=SQD_BANK_N):
+        for n in SQD_PROMPTS:
+            want[n] = (engine.generate(prompts[:, :n], frames),
+                       greedy_gaps(engine, prompts[:, :n], frames))
+    cache = engine.init_cache(prompts.shape[0])
+    whole_kv, whole_cross = (tensor_bytes(cache.layers),
+                             tensor_bytes(cache.cross_kv))
+    del engine, cache
+    torch.cuda.empty_cache()
+    data, model = SQD_MESH
+    t0 = time.perf_counter()
+    res = spawn_mesh("serve_sqd", data, model, dict(prompts=prompts.cpu(),
+                                                    frames=frames.cpu()))
+    seconds = time.perf_counter() - t0
+    # a "d" decode step's attention calls, by the tag of their wo: self-
+    # attention over the max_seq cache, cross-attention over the frames
+    calls = {"attn.o": ("d", ServeConfig().max_seq),
+             "cross.o": ("d", cfg.frontend_seq)}
+    modes = {"encoder": "sq", "decode": "d",
+             **{f"prefill_{n}": "sq" if n % model == 0 else "d"
+                for n in SQD_PROMPTS}}
+    modes.update({f"cross_{k}": v for k, v in modes.items()
+                  if k != "encoder"})
+    # the rank's dims of the self-attention cache and the cross k/v
+    dims = [(cfg.n_kv_heads, cfg.hd // model)]
+    per_generate = WH_PREFILL_LAUNCHES + (SQD_NEW - 1) * WH_DECODE_LAUNCHES
+    launches, ranks = 0, []
+    for r, got in enumerate(res):
+        what = f"serve_mesh_sqd {data}x{model} rank {r}"
+        heads = got["head_local"]
+        check(heads["modes"] == modes and heads["mode"] == "d"
+              and heads["kv_dims"] == dims and heads["cross_dims"] == dims,
+              f"{what}: attention {heads}")
+        check(got["kv_cache_bytes"] * model == whole_kv
+              and got["cross_kv_bytes"] * model == whole_cross,
+              f"{what}: KV cache {got['kv_cache_bytes']} B, cross k/v "
+              f"{got['cross_kv_bytes']} B; unsharded {whole_kv}, "
+              f"{whole_cross}")
+        turned = {}
+        for n in SQD_PROMPTS:
+            run = got["runs"][n]
+            check(np.array_equal(run["tokens"], res[0]["runs"][n]["tokens"]),
+                  f"{what}: {n}-token prompts' tokens differ from rank 0's")
+            check(np.array_equal(run["tokens"], run["tokens_plain"]),
+                  f"{what}: {n}-token prompts' tokens differ from the "
+                  f"sharded plain route's")
+            check(run["launches"] == per_generate,
+                  f"{what}: {run['launches']} launches in a {n}-token "
+                  f"generate, {per_generate} expected")
+            turned[n] = near_tie_agreement(run["tokens"], *want[n])
+            launches += run["launches"]
+        kinds = got["decode"]["by_kind"]
+        counts = {k: v["count"] for k, v in kinds.items()}
+        check(counts == reckoned_collectives(got["decode"]["records"], (),
+                                             calls),
+              f"{what}: a decode step's collectives {kinds}")
+        ranks.append(dict(
+            rank=r, coords=got["coords"], modes=heads["modes"],
+            kv_dims=heads["kv_dims"], cross_dims=heads["cross_dims"],
+            kv_cache_bytes=got["kv_cache_bytes"],
+            cross_kv_bytes=got["cross_kv_bytes"],
+            kv_cache_over_unsharded=got["kv_cache_bytes"] / whole_kv,
+            cross_kv_over_unsharded=got["cross_kv_bytes"] / whole_cross,
+            launches_generate={n: got["runs"][n]["launches"]
+                               for n in SQD_PROMPTS},
+            generate_s={n: got["runs"][n]["generate_s"] for n in SQD_PROMPTS},
+            collectives_generate={n: got["runs"][n]["collectives"]
+                                  for n in SQD_PROMPTS},
+            collectives_per_step_by_kind=kinds,
+            tokens_turned_from_unsharded=turned,
+            tile_bytes=got["image_bytes"],
+            max_memory_allocated_bytes=got["peak_bytes"]))
+    emit("serve_mesh_sqd", config="whisper-tiny", layers=cfg.n_layers,
+         encoder_layers=cfg.enc_layers, frames=WH_FRAMES,
+         mesh={"data": data, "model": model}, backend="gloo",
+         device="cuda:0 shared by every rank", prompts=WH_BATCH,
+         prompt_lengths=list(SQD_PROMPTS), new_tokens=SQD_NEW,
+         bank_n=SQD_BANK_N, phase_s=seconds, tokens_equal_plain_route=True,
+         launches_per_generate=per_generate,
+         kv_cache_bytes_unsharded=whole_kv,
+         cross_kv_bytes_unsharded=whole_cross,
+         unsharded_tokens={n: want[n][0].tolist() for n in SQD_PROMPTS},
+         unsharded_min_top2_gap={n: float(want[n][1].min())
+                                 for n in SQD_PROMPTS},
+         ranks=ranks)
+    return launches
+
+
 def phase_serve_tuned_mesh(tuned) -> int:
     """``ServeConfig.from_tuned`` on the tune phase's pick for reduced
     olmo-1b (``tune`` part a) on its data x model mesh of gloo ranks
@@ -4329,6 +4537,44 @@ def worker_serve_mqa(mesh, args) -> dict:
     return out
 
 
+def worker_serve_sqd(mesh, args) -> dict:
+    """One rank of ``serve_mesh_sqd``."""
+    cfg = get_config("whisper-tiny").with_accel("kernel", ba=4, bx=4)
+    engine = Engine(init_params(cfg, 0, device="cuda"), cfg,
+                    ServeConfig(max_new_tokens=SQD_NEW, mesh=mesh))
+    torch.cuda.empty_cache()
+    prompts = args["prompts"].to("cuda")
+    frames = args["frames"].to("cuda")
+    cache = engine.init_cache(prompts.shape[0])
+    calls = {f"prefill_{n}": n for n in SQD_PROMPTS}
+    calls.update(decode=1, encoder=cfg.frontend_seq)
+    heads = head_local(engine, prompts.shape[0], calls)
+    heads["modes"].pop("cross_encoder", None)
+    out = dict(coords=mesh.coords, image_bytes=image_bytes(engine),
+               head_local=heads, kv_cache_bytes=tensor_bytes(cache.layers),
+               cross_kv_bytes=tensor_bytes(cache.cross_kv), runs={})
+    del cache
+    with accel.override(bank_n=SQD_BANK_N):    # whole banks per row tile
+        for n in SQD_PROMPTS:
+            p = prompts[:, :n]
+            # the main path: counts at 0 just before, read just after
+            K.cima_mvm_planes.launches = 0
+            c0 = mesh.stats["collectives"]
+            t0 = time.perf_counter()
+            tokens = engine.generate(p, frames)
+            seconds = time.perf_counter() - t0
+            run = dict(tokens=tokens, generate_s=seconds,
+                       launches=K.cima_mvm_planes.launches,
+                       collectives=mesh.stats["collectives"] - c0)
+            with routed_launches(K.cima_mvm_planes_reference, keep=False):
+                run["tokens_plain"] = engine.generate(p, frames)
+            out["runs"][n] = run
+        out["decode"] = decode_counts(engine, prompts[:, :min(SQD_PROMPTS)],
+                                      frames)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
 def worker_tuned(mesh, args) -> dict:
     """One rank of ``serve_tuned_mesh``."""
     scfg = ServeConfig.from_tuned(args["tuned"], mesh=mesh, max_seq=64,
@@ -4367,8 +4613,9 @@ def phase_train_mesh() -> int:
     MESH_TRAIN_STEPS steps of LM_BATCH x LM_SEQ from seed 0, remat on).
     First the unsharded steps on the same batches in this process
     (``lm_run``); every rank's losses within TRAIN_MESH_RTOL of them (step
-    1 within TRAIN_MESH_FIRST_RTOL) and equal across ranks; 113 launches
-    a step a rank (57 forward, 56 remat), whatever its rows.  On 2 x 2
+    1 within TRAIN_MESH_FIRST_RTOL) and equal across ranks;
+    2 x MESH_LAUNCHES_PER_FORWARD - 1 launches a step a rank (the forward's
+    and the remat replay's but the unembed), whatever its rows.  On 2 x 2
     the steps again with the kernel routed to its plain version: losses
     and gradient norms bitwise.  The reduced trainer (``train(mesh=)``)
     crashed at ELASTIC_CRASH on 2 x 2 and resumed from its checkpoint
@@ -5069,7 +5316,7 @@ def mesh_worker(argv) -> None:
                            rank=int(rank), world_size=int(world))
     args = torch.load(tmp / "args.pt", weights_only=False)
     out = {"serve": worker_serve, "serve_mqa": worker_serve_mqa,
-           "tuned": worker_tuned,
+           "serve_sqd": worker_serve_sqd, "tuned": worker_tuned,
            "train": worker_train,
            "train_moe": worker_train_moe}[kind](mesh, args)
     torch.save(out, tmp / f"rank{rank}.pt")
@@ -5116,6 +5363,7 @@ def main():
     tune_launches, tuned = phase_tune()
     mesh_err, mesh_rows = phase_mesh_shapes(peaks)
     mesh_launches, mesh_step = phase_serve_mesh()
+    sqd_launches = phase_serve_mesh_sqd()
     tuned_mesh_launches = phase_serve_tuned_mesh(tuned)
     train_mesh_launches = phase_train_mesh()
     moe_mesh_launches = phase_train_moe_mesh()
@@ -5148,7 +5396,7 @@ def main():
                      + ds_batcher_launches + wh_launches + fr_launches
                      + paged_launches + paged_archs_launches
                      + moe_train_launches + tune_launches
-                     + mesh_launches + tuned_mesh_launches
+                     + mesh_launches + sqd_launches + tuned_mesh_launches
                      + train_mesh_launches + moe_mesh_launches
                      + san_launches
                      + roofline_launches + example_launches),
@@ -5174,7 +5422,8 @@ def main():
                "2 layers (21: 6 grouped) on 608-token early-fusion "
                "prompts, one decode step of each read launch by launch, "
                "llama4's dropless batcher, olmo-1b's paged serving beside "
-               "its slot batcher (serve_paged: the batcher trace, the "
+               "its slot batcher at 8 of 16 layers (serve_paged, 57 a "
+               "forward: the batcher trace, the "
                "Poisson traffic, an oversubscribed pool, chunked prefill), "
                "mamba2-130m, recurrentgemma-9b at 3 layers (20 a forward) "
                "and deepseek-v2-lite-16b at 2 (20) through both servers "
@@ -5187,18 +5436,22 @@ def main():
                "traced decode steps of reduced and full-width olmo-1b "
                "(29 and 113) with their SQNR probes (one launch each) "
                "and the tuned 1 x 1 point served for 8 forwards; "
-               "serve_mesh's ranks (olmo-1b at 8 of 16 layers on 1 x 2 "
+               "serve_mesh's ranks (olmo-1b at 2 of 16 layers on 1 x 2 "
                "and 2 x 2 gloo meshes sharing the card, attention on each "
-               "rank's heads: each rank's 16-forward generate, 57 tile "
+               "rank's heads: each rank's 16-forward generate, 15 tile "
                "launches a forward, and the 2 x 2 ranks' PagedScheduler "
                "runs; serve_mesh_mqa's recurrentgemma-9b at 3 of 38 "
-               "layers on 1 x 2, 20 a forward, 8 forwards a rank) and "
+               "layers on 1 x 2, 20 a forward, 8 forwards a rank); "
+               "serve_mesh_sqd's ranks (whisper-tiny whole on a 1 x 4 "
+               "gloo mesh sharing the card, attention on each rank's "
+               "query rows or head dims: 59 launches a prefill and 33 a "
+               "decode step, two 8-token generates a rank) and "
                "serve_tuned_mesh's "
                "ranks (reduced olmo-1b on the tuned pick's mesh, 29 a "
-               "forward, 8 forwards); train_mesh's ranks (olmo-1b at 8 of "
+               "forward, 8 forwards); train_mesh's ranks (olmo-1b at 2 of "
                "16 layers trained on 2 x 2 fsdp and 1 x 2 2d gloo meshes "
-               "sharing the card: 2 steps of 113 launches a rank, 57 "
-               "forward and 56 remat, whatever its rows; the reduced "
+               "sharing the card: 2 steps of 29 launches a rank, 15 "
+               "forward and 14 remat, whatever its rows; the reduced "
                "trainer's 4 "
                "steps a rank crashed on 2 x 2 and 2 resumed on 1 x 2, 29 "
                "each); train_moe_mesh's ranks (deepseek-v2-lite-16b at 2 "

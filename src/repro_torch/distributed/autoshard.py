@@ -14,20 +14,26 @@ axis is manual and dispatch runs nothing sharded inside; with
 serving engine's decode), so a partitioned matmul splits nothing more
 over ``"data"``.
 
-The reference's ``cs`` activation constraints.  Its attention puts the
-heads of q, k and v on ``"tp"``; the port's counterpart is explicit.
+The reference's ``cs`` activation constraints.  Its attention puts
+``"tp"`` on the kv heads, the GQA group, the query rows or the head dim
+of q, k and v (``_attn_tp_mode``); the port's counterpart is explicit.
 :func:`use_mesh` also carries the partitions of the program the ranks
 run (``tiles``: the serving engine's compiled images, a policy tag to
 ``"col"`` or ``"row"``, read by :func:`mesh_tiles`), from which
 ``models.attention.head_split`` decides, as the reference's
-``_attn_tp_mode`` does, whether an attention layer runs on the rank's
-own heads; the layer then asks :func:`repro_torch.accel.matmul` for the
-two local forms by argument (``local="col"``: the column tile's output
-stays on the rank; ``local="row"``: the input already is the rank's N
-range, its row statistic reduced over ``"model"`` by
-:func:`model_block`).  Every other activation stays whole on the model
-axis.  A training step's :func:`global_batch` scope carries no tiles, so
-the mesh form of training is untouched by them.  The MoE block's two
+``_attn_tp_mode`` does, where an attention call splits.  On the rank's
+own heads (``"kv"``, ``"g"``) the layer asks
+:func:`repro_torch.accel.matmul` for the two local forms by argument
+(``local="col"``: the column tile's output stays on the rank;
+``local="row"``: the input already is the rank's N range, its row
+statistic reduced over ``"model"`` by :func:`model_block`).  On its
+query rows or head dims (``"sq"``, ``"d"``; no tiles needed) attention
+itself runs on the rank's share between gathered projections, the
+scores summed over ``"model"`` in ``"d"``
+(``models.attention.split_sdpa``).  Every other activation stays whole
+on the model axis.  A training step's :func:`global_batch` scope
+carries no tiles and splits no attention, so the mesh form of training
+is untouched by them.  The MoE block's two
 constraints (the dispatch buffer and the expert outputs sharded on their
 expert axis over ``"tp"``) are carried into a training step on a mesh
 by :func:`gather`, a differentiable all-gather whose backward follows

@@ -22,9 +22,11 @@ The serving engine applies the image rules (each rank compiles only its
 tile) and the ``"data"`` entries of the cache rules (each data shard
 holds its batch rows).  Its KV caches split over ``"model"`` on the kv
 heads where attention runs on the rank's own heads
-(``models.attention.head_split``, the reference's ``"kv"`` mode);
-other activations, and the weights and caches outside the images, stay
-whole on the model axis.  A training step on a mesh computes the
+(``models.attention.head_split``, the reference's ``"kv"`` mode), and
+on the head dim where a decode step runs on the rank's head dims
+(``"d"``; whisper's cross keys and values too); other activations, and
+the weights and caches outside the images, stay whole on the model
+axis.  A training step on a mesh computes the
 experts of its :func:`expert_block` (EP on ``"model"`` in mode
 ``"2d"``).
 """
@@ -451,9 +453,11 @@ def cache_specs(cache, mesh, batch_size: int,
     non-batch dim: the sequence dim of olmo-1b's [16, B, 32768, 16, 128]
     decode_32k leaves).
     The live layout the serving engine holds is another where attention
-    runs on the rank's heads: "model" on the kv-head dim (the
-    reference's own attention constraints put the kv heads on "tp", and
-    XLA reshards between the two)."""
+    runs on the rank's heads or head dims: "model" on the kv-head dim
+    (mode "kv") or on the head dim (mode "d"), as the reference's own
+    attention constraints put them on "tp" (XLA reshards between the
+    two).  A split over the cache's sequence, this rule's layout, waits
+    (ROADMAP 4r)."""
     return _map_with_path(
         lambda _p, leaf: cache_spec(leaf.shape, mesh, batch_size, policy),
         cache)

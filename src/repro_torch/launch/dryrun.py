@@ -17,10 +17,14 @@ form of the cell's entry point under a
   and the arch's ``TRAIN_MICROBATCHES``, on rank 0's slices of the state;
 * prefill and decode: :class:`~repro_torch.serve.engine.Engine` on the
   mesh, as it serves (each rank its tile of every compiled image on the
-  quantizing backends, its rows of the batch and the cache, and where
-  attention runs on the rank's own heads, ``models.attention.
-  head_split``, its heads of q, k, v and the KV cache; the ``max`` of
-  each ``wo`` input's row scale is counted as an all-reduce).
+  quantizing backends, its rows of the batch and the cache, and
+  attention split as ``models.attention.head_split`` splits it: on the
+  rank's own heads of q, k, v and the KV cache in the reference's
+  ``"kv"`` and ``"g"`` modes, the ``max`` of each ``wo`` input's row
+  scale counted as an all-reduce; on its query rows in ``"sq"`` and its
+  head dims in ``"d"``, the KV cache and whisper's cross keys and values
+  then the rank's head-dim slice, each score sum of ``"d"`` (one a
+  512-key chunk) and each output gather counted).
 
 Each cell writes ``<out>/<arch>__<shape>__<pod1|pod2>.json`` with the
 reference's keys: ``status``, ``hlo_stats`` (the counter's counts, per
@@ -31,10 +35,9 @@ operand and its result, as the reference takes them),
 handed), ``n_devices``, ``memory_analysis.temp_size_in_bytes`` (the
 counter's peak of bytes allocated in the step beyond its arguments) and
 ``count_s``, the cell's wall seconds (set-up and the counted run).
-Where the port replicates what XLA would shard (the heads of
-attention in the reference's ``"sq"`` and ``"d"`` modes, MLA, SSM and
-RG-LRU heads, 2-D training compute) the counts say so: they are the
-port's, not the reference's.
+Where the port replicates what XLA would shard (MLA, SSM and RG-LRU
+heads, 2-D training compute) the counts say so: they are the port's,
+not the reference's.
 A cell that raises is written with ``status: "error"``, as the
 reference writes one; :func:`repro_torch.roofline.analysis.main` renders
 the table.

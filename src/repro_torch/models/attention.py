@@ -14,15 +14,27 @@ returns fresh arrays): a prefill writes its keys into the cache it is
 given, a decode step writes one slot per row, and both return that same
 cache.
 
-On a serving mesh MHA/GQA attention runs on the rank's own heads where
-the reference's rule (:func:`attn_tp_mode`) puts the model axis on the
-kv heads (``"kv"``) or the GQA group (``"g"``) and the layer's q/k/v
-images are column tiles and its ``wo`` image a row tile
-(:func:`head_split`): q (and in ``"kv"`` k, v and the KV cache) hold the
-rank's heads, attention runs on them alone, and ``wo``'s row tile takes
-the rank's slice of the attention output as its input.  The tiles and
-the input grid are the ones the whole-activation mesh path uses, so the
-results are the same.
+On a serving mesh MHA/GQA attention runs on the rank's share where the
+reference's rule (:func:`attn_tp_mode`) puts the model axis
+(:func:`head_split`):
+
+* on the kv heads (``"kv"``) or the GQA group (``"g"``), where the
+  layer's q/k/v images are column tiles and its ``wo`` image a row tile:
+  q (and in ``"kv"`` k, v and the KV cache) hold the rank's heads,
+  attention runs on them alone, and ``wo``'s row tile takes the rank's
+  slice of the attention output as its input;
+* on the query rows (``"sq"``) or the head dim (``"d"``), on any
+  backend: q, k and v are gathered as off the head split, each rank
+  runs attention on its rows (against every key) or on its head-dim
+  slice (the partial scores summed over ``"model"`` before the
+  softmax), and the output is gathered before ``wo``.  The KV caches
+  (and whisper's cross keys and values) hold the rank's head-dim slice
+  where a decode step is ``"d"``.
+
+The tiles and the input grid are the ones the whole-activation mesh
+path uses, so ``"kv"``, ``"g"`` and ``"sq"`` give its results (``"sq"``
+up to the rows' float order where the matmul blocks another number of
+rows differently); ``"d"`` sums each score in another order.
 """
 from __future__ import annotations
 
@@ -64,13 +76,16 @@ def attn_tp_mode(kv: int, g: int, sq: int, d: int) -> str:
 
 
 class HeadSplit(NamedTuple):
-    """The heads one rank of the model axis computes."""
+    """The share of an attention call one rank of the model axis
+    computes."""
 
-    mode: str       # "kv" or "g"
-    h: int          # its q heads, global [q0, q0 + h)
-    kv: int         # the kv heads it holds: its own in "kv", all in "g"
+    mode: str       # "kv", "g", "sq" or "d"
+    h: int          # its q heads, global [q0, q0 + h): all but in kv/g
+    kv: int         # the kv heads it holds: its own in "kv", all else
     q0: int
     g: int          # the model's GQA group (q heads a kv head serves)
+    lo: int = 0     # "sq": its query rows [lo, hi); "d": its head dims
+    hi: int = 0
 
 
 # the projections of a head-local layer and the tile each runs as
@@ -79,23 +94,34 @@ _LOCAL_TILES = {"kv": {"attn.q": "col", "attn.k": "col", "attn.v": "col",
                 "g": {"attn.q": "col", "attn.o": "row"}}
 
 
-def head_split(cfg) -> Optional[HeadSplit]:
-    """This rank's heads when an MHA/GQA layer runs head-local on the
-    ambient mesh, else None (the layer runs whole, as off a mesh).
+def head_split(cfg, sq: int = 1) -> Optional[HeadSplit]:
+    """This rank's share of an MHA/GQA attention call of ``sq`` query
+    rows (1: a decode step) on the ambient mesh, else None (the call
+    runs whole, as off a mesh).  The mode is the reference's for the
+    call (:func:`attn_tp_mode`), outside a training step's scope and
+    with the model axis not manual.
 
-    Head-local needs :func:`attn_tp_mode` ``"kv"`` or ``"g"`` (no
-    training step's scope, the model axis not manual), the program's q
-    (and in ``"kv"`` k, v) images as column tiles and ``wo``'s as a row
-    tile on this mesh (:func:`~repro_torch.distributed.autoshard.
-    mesh_tiles`), their specs on a backend with a sharded path, and an
-    amax input statistic for ``wo``: the XNOR 1-bit scale is a mean,
-    which a split input would sum in another order."""
+    ``"kv"`` and ``"g"`` (head-local) need the program's q (and in
+    ``"kv"`` k, v) images as column tiles and ``wo``'s as a row tile on
+    this mesh (:func:`~repro_torch.distributed.autoshard.mesh_tiles`),
+    their specs on a backend with a sharded path, and an amax input
+    statistic for ``wo``: the XNOR 1-bit scale is a mean, which a split
+    input would sum in another order.  ``"sq"`` (the rank's query rows
+    ``[k sq/m, (k+1) sq/m)``) and ``"d"`` (its head dims ``[k hd/m,
+    (k+1) hd/m)``) change no tile (q, k and v are gathered, ``wo`` takes
+    the whole activation), so they hold on any backend, the XNOR 1-bit
+    ``wo`` included."""
     mesh = get_mesh()
     if cfg.mla or mesh is None or train_mesh() is not None \
             or in_manual("model"):
         return None
-    h, kv = cfg.n_heads, cfg.n_kv_heads
-    mode = attn_tp_mode(kv, h // kv, 1, cfg.hd)
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    mode = attn_tp_mode(kv, h // kv, sq, hd)
+    m, k = mesh.size("model"), mesh.index("model")
+    if mode in ("sq", "d"):
+        n = sq if mode == "sq" else hd
+        return HeadSplit(mode, h, kv, 0, h // kv, k * (n // m),
+                         (k + 1) * (n // m))
     if mode not in _LOCAL_TILES:
         return None
     tiles = mesh_tiles()
@@ -109,12 +135,18 @@ def head_split(cfg) -> Optional[HeadSplit]:
     o = specs["attn.o"]
     if Coding(o.coding) == Coding.XNOR and o.bx == 1:
         return None
-    m, k = mesh.size("model"), mesh.index("model")
     # a column tile is whole heads only where the heads divide the axis
     assert h % m == 0, (h, m)
     assert mode == "g" or kv % m == 0, (kv, m)
     return HeadSplit(mode, h // m, kv // m if mode == "kv" else kv,
                      k * (h // m), h // kv)
+
+
+def _seq_split(split: Optional[HeadSplit]) -> Optional[HeadSplit]:
+    """``split`` where it is ``"sq"`` or ``"d"``, else None: the modes
+    whose projections run as off the head split."""
+    return split if split is not None and split.mode in ("sq", "d") \
+        else None
 
 
 def _rank_kv(t: torch.Tensor, split: Optional[HeadSplit]) -> torch.Tensor:
@@ -162,13 +194,18 @@ def _default_positions(q, k, q_offset, q_positions, kv_positions):
 
 
 def _dense_attention(q, k, v, *, causal, window, q_offset, scale, dtype,
-                     kv_positions=None, q_positions=None):
-    """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D].  Grouped-GQA dense softmax."""
+                     kv_positions=None, q_positions=None, score_sum=None):
+    """q: [B,Sq,H,D]; k,v: [B,Sk,KV,D].  Grouped-GQA dense softmax.
+    ``score_sum`` (the ``"d"`` split) sums the partial scores of the
+    rank's head dims over the model axis before they are scaled."""
     b, sq, h, d = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, sq, kv, h // kv, d)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
-                     k.to(torch.float32)) * scale
+                     k.to(torch.float32))
+    if score_sum is not None:
+        s = score_sum(s)
+    s = s * scale
     q_positions, kv_positions = _default_positions(q, k, q_offset,
                                                    q_positions, kv_positions)
     mask = _pos_mask(q_positions, kv_positions, causal=causal, window=window)
@@ -181,13 +218,15 @@ def _dense_attention(q, k, v, *, causal, window, q_offset, scale, dtype,
 
 def _chunked_attention(q, k, v, *, causal, window, q_offset, scale, dtype,
                        chunk=DEFAULT_CHUNK, kv_positions=None,
-                       q_positions=None, scan_remat=False, bf16_probs=False):
+                       q_positions=None, scan_remat=False, bf16_probs=False,
+                       score_sum=None):
     """Online softmax over KV chunks: never materializes the full score
     matrix.  ``bf16_probs`` feeds the probabilities and V to the PV
     product in bf16 with f32 accumulation (``l`` stays f32).
     ``scan_remat`` checkpoints each chunk step when autograd records the
     pass: its scores and probabilities are recomputed in the backward
-    pass instead of saved (the same forward values)."""
+    pass instead of saved (the same forward values).  ``score_sum`` as
+    in :func:`_dense_attention`, once a chunk."""
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -199,7 +238,10 @@ def _chunked_attention(q, k, v, *, causal, window, q_offset, scale, dtype,
     dv = v.shape[-1]
 
     def step(m, l, acc, kj, kch, vch):
-        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kch) * scale
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kch)
+        if score_sum is not None:
+            s = score_sum(s)
+        s = s * scale
         mask = _pos_mask(q_positions, kj, causal=causal, window=window)
         s = torch.where(mask, s, -1e30)
         m_new = torch.maximum(m, torch.amax(s, dim=-1))
@@ -239,7 +281,8 @@ def _chunked_attention(q, k, v, *, causal, window, q_offset, scale, dtype,
 
 def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, scale=None,
          dtype=torch.bfloat16, chunk=DEFAULT_CHUNK, kv_positions=None,
-         q_positions=None, scan_remat=False, bf16_probs=False):
+         q_positions=None, scan_remat=False, bf16_probs=False,
+         score_sum=None):
     """Dense attention up to ``2 * chunk`` keys, chunked beyond
     (``scan_remat`` and ``bf16_probs`` apply to the chunked path, as in
     the reference)."""
@@ -251,7 +294,54 @@ def sdpa(q, k, v, *, causal=True, window=None, q_offset=0, scale=None,
                 "bf16_probs": bf16_probs})
     return fn(q, k, v, causal=causal, window=window, q_offset=q_offset,
               scale=scale, dtype=dtype, kv_positions=kv_positions,
-              q_positions=q_positions, **kw)
+              q_positions=q_positions, score_sum=score_sum, **kw)
+
+
+def _rank_dims(t: torch.Tensor, split: Optional[HeadSplit], hd: int):
+    """k or v [B, S, KV, D] as the rank's share of ``split`` reads it:
+    its head-dim slice in ``"d"``, whole otherwise.  ``t`` is whole
+    (``D == hd``) or already the rank's slice (a ``"d"`` cache), which
+    the other modes gather over ``"model"``."""
+    sliced = t.shape[-1] != hd
+    if split is not None and split.mode == "d":
+        return t if sliced else t[..., split.lo:split.hi]
+    return get_mesh().all_gather(t, "model", dim=-1) if sliced else t
+
+
+def split_sdpa(split: Optional[HeadSplit], q, k, v, *, q_offset=0,
+               q_positions=None, **kw):
+    """:func:`sdpa` of the rank's share of a ``"sq"`` or ``"d"`` call,
+    gathered over ``"model"`` (the whole output on every rank); any
+    other ``split`` runs :func:`sdpa` as it is.  ``q`` [B, Sq, H, D] is
+    whole; ``k``, ``v`` are whole in ``"sq"`` and the rank's head-dim
+    slice in ``"d"`` (:func:`_rank_dims`).
+
+    ``"sq"``: the rank's query rows against every key, at their absolute
+    positions (``q_positions`` or ``arange(Sq) + q_offset``, per row or
+    shared), so causal and window masks are the whole call's; the rows
+    are gathered on dim 1.  ``"d"``: the rank's head dims of q, k and v;
+    the float32 partial scores are summed over ``"model"`` (once, or
+    once a chunk on the chunked path) before the scale, the mask and the
+    softmax, which every rank then computes whole; ``p @ v`` runs on the
+    rank's slice of v and the slices are gathered on the head dim."""
+    split = _seq_split(split)
+    if split is None:
+        return sdpa(q, k, v, q_offset=q_offset, q_positions=q_positions,
+                    **kw)
+    mesh = get_mesh()
+    if split.mode == "sq":
+        if q_positions is None:
+            q_positions = torch.arange(q.shape[1], device=q.device) + \
+                q_offset
+        rows = slice(split.lo, split.hi)
+        o = sdpa(q[:, rows], k, v, q_positions=q_positions[..., rows], **kw)
+        return mesh.all_gather(o, "model", dim=1)
+    if kw.get("scale") is None:
+        kw["scale"] = q.shape[-1] ** -0.5
+    o = sdpa(q[..., split.lo:split.hi], k, v, q_offset=q_offset,
+             q_positions=q_positions,
+             score_sum=lambda s: mesh.all_reduce(s, "model"), **kw)
+    return mesh.all_gather(o, "model", dim=-1)
 
 
 def ring_slot_positions(cache_len: int, cache_pos) -> torch.Tensor:
@@ -299,20 +389,38 @@ def init_attention(gen, cfg, device, lead: tuple = ()) -> dict:
     }
 
 
-def kv_cache_heads(cfg) -> int:
-    """The kv heads a rank's cache holds: its own in a head-local ``"kv"``
-    layer (:func:`head_split`), all of them otherwise."""
-    split = head_split(cfg)
-    return split.kv if split is not None else cfg.n_kv_heads
+def _cache_dims(cfg, split: Optional[HeadSplit]) -> tuple:
+    """(kv heads, head dim) of a cache laid out for ``split``."""
+    if split is not None and split.mode == "kv":
+        return split.kv, cfg.hd
+    if split is not None and split.mode == "d":
+        return cfg.n_kv_heads, split.hi - split.lo
+    return cfg.n_kv_heads, cfg.hd
+
+
+def kv_cache_dims(cfg) -> tuple:
+    """The (kv heads, head dim) a rank's KV cache holds, fixed by the
+    decode step's split (:func:`head_split` of one query row): its own kv
+    heads in ``"kv"``, its head-dim slice in ``"d"``, all of both
+    otherwise.  Prefills of either mode write that layout."""
+    return _cache_dims(cfg, head_split(cfg))
+
+
+def cross_kv_dims(cfg) -> tuple:
+    """The (kv heads, head dim) of the cross keys and values a rank's
+    decode cache holds (whisper): its head-dim slice where a decode
+    step's cross-attention is ``"d"``, whole otherwise (cross-attention
+    takes only the ``"sq"`` and ``"d"`` splits, :func:`cross_split`)."""
+    return _cache_dims(cfg, cross_split(cfg))
 
 
 def init_kv_cache(cfg, batch: int, s_max: int, dtype, device,
                   lead: tuple = ()) -> KVCache:
     """Windowed layers get a ring cache of the window length.  On a
-    serving mesh a head-local ``"kv"`` layer's cache holds the rank's kv
-    heads."""
+    serving mesh the cache holds the rank's kv heads or head dims
+    (:func:`kv_cache_dims`)."""
     length = min(s_max, cfg.attn_window) if cfg.attn_window else s_max
-    shape = lead + (batch, length, kv_cache_heads(cfg), cfg.hd)
+    shape = lead + (batch, length) + kv_cache_dims(cfg)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
@@ -327,23 +435,32 @@ def attention(params, x, cfg, positions, cache: Optional[KVCache] = None,
     LEFT-padded prompts: ``positions`` are then the per-row true positions
     [B, S], padded keys are hidden, and the cache is written left-aligned.
 
-    Head-local on a serving mesh (:func:`head_split`): q holds the rank's
-    heads, k, v and the cache the rank's kv heads in ``"kv"`` (all of
-    them in ``"g"``, each local head reading its ``j // g``), and the
-    rank's slice of the output goes to ``wo``'s row tile.
+    On a serving mesh (:func:`head_split` of the call's S rows): in
+    ``"kv"`` and ``"g"`` q holds the rank's heads, k, v and the cache the
+    rank's kv heads in ``"kv"`` (all of them in ``"g"``, each local head
+    reading its ``j // g``), and the rank's slice of the output goes to
+    ``wo``'s row tile; in ``"sq"`` and ``"d"`` attention runs on the
+    rank's query rows or head dims (:func:`split_sdpa`) and the cache
+    holds the rank's head dims where a decode step is ``"d"``
+    (:func:`kv_cache_dims`).
     """
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    split = head_split(cfg)
+    split = head_split(cfg, s)
     q_local = kv_local = None
-    if split is not None:
+    if split is not None and split.mode in _LOCAL_TILES:
         h, q_local = split.h, "col"
         if split.mode == "kv":
             kv, kv_local = split.kv, "col"
-    if cache is not None and cache.k.shape[-2] != kv:
+    # the cache's layout is the decode step's split
+    layout = head_split(cfg) if split is not None and split.mode == "sq" \
+        else split
+    dims = _cache_dims(cfg, layout)
+    if cache is not None and tuple(cache.k.shape[-2:]) != dims:
         raise ValueError(
-            f"a cache of {cache.k.shape[-2]} kv heads for a layer of {kv} "
-            f"on this rank: make the cache in the scope that serves it")
+            f"a cache of {tuple(cache.k.shape[-2:])} (kv heads, head dim) "
+            f"for a layer of {dims} on this rank: make the cache in the "
+            f"scope that serves it")
     sp = cfg.policy.resolver("attn")
     q = linear(params["wq"], x, sp("attn.q"), dtype,
                local=q_local).reshape(b, s, h, hd)
@@ -360,20 +477,21 @@ def attention(params, x, cfg, positions, cache: Optional[KVCache] = None,
         if pad_mask is not None:
             q_pos = positions
             kv_pos = torch.where(pad_mask, positions, -1)
-        o = sdpa(q, _rank_kv(k, split), _rank_kv(v, split), causal=cfg.causal,
-                 window=cfg.attn_window, q_offset=0, dtype=dtype,
-                 kv_positions=kv_pos, q_positions=q_pos,
-                 scan_remat=cfg.attn_scan_remat,
-                 bf16_probs=cfg.attn_bf16_probs)
+        o = split_sdpa(split, q, _rank_dims(_rank_kv(k, split), split, hd),
+                       _rank_dims(_rank_kv(v, split), split, hd),
+                       causal=cfg.causal, window=cfg.attn_window, q_offset=0,
+                       dtype=dtype, kv_positions=kv_pos, q_positions=q_pos,
+                       scan_remat=cfg.attn_scan_remat,
+                       bf16_probs=cfg.attn_bf16_probs)
         if cache is not None:   # prefill: fill the (possibly ring) cache
             length = cache.k.shape[1]
-            kc, vc = k, v
+            kc, vc = _rank_dims(k, layout, hd), _rank_dims(v, layout, hd)
             if pad_mask is not None:
                 if length < s:
                     raise NotImplementedError(
                         "pad-masked prefill into a ring cache shorter than "
                         "the padded prompt is unsupported")
-                kc, vc = left_align(k, pad_mask), left_align(v, pad_mask)
+                kc, vc = left_align(kc, pad_mask), left_align(vc, pad_mask)
             if length >= s:
                 cache.k[:, :s] = kc
                 cache.v[:, :s] = vc
@@ -390,14 +508,16 @@ def attention(params, x, cfg, positions, cache: Optional[KVCache] = None,
         offs = cp[:, None] + torch.arange(s, device=x.device)[None, :]
         slot = torch.remainder(offs, length)
         rows = torch.arange(b, device=x.device)[:, None]
-        cache.k[rows, slot] = k.to(cache.k.dtype)
-        cache.v[rows, slot] = v.to(cache.v.dtype)
+        cache.k[rows, slot] = _rank_dims(k, layout, hd).to(cache.k.dtype)
+        cache.v[rows, slot] = _rank_dims(v, layout, hd).to(cache.v.dtype)
         kv_pos = ring_slot_positions(length, cp + (s - 1))    # [B, L]
-        o = sdpa(q, _rank_kv(cache.k, split), _rank_kv(cache.v, split),
-                 causal=True, window=cfg.attn_window, dtype=dtype,
-                 kv_positions=kv_pos, q_positions=offs)
+        o = split_sdpa(split, q,
+                       _rank_dims(_rank_kv(cache.k, split), split, hd),
+                       _rank_dims(_rank_kv(cache.v, split), split, hd),
+                       causal=True, window=cfg.attn_window, dtype=dtype,
+                       kv_positions=kv_pos, q_positions=offs)
     out = linear(params["wo"], o.reshape(b, s, h * hd), sp("attn.o"), dtype,
-                 local="row" if split is not None else None)
+                 local="row" if q_local is not None else None)
     return out, cache
 
 
@@ -511,24 +631,46 @@ def init_cross_attention(gen, cfg, device, lead: tuple = ()) -> dict:
     return init_attention(gen, cfg, device, lead)
 
 
+def cross_split(cfg, sq: int = 1) -> Optional[HeadSplit]:
+    """This rank's share of a cross-attention call of ``sq`` query rows:
+    :func:`head_split`'s ``"sq"`` or ``"d"`` split, else None (whole;
+    cross-attention's projections are not head-local)."""
+    return _seq_split(head_split(cfg, sq))
+
+
+def cross_kv_layout(t: torch.Tensor, cfg) -> torch.Tensor:
+    """Whole cross keys or values [..., KV, D] as a rank's decode cache
+    holds them (:func:`cross_kv_dims`): the rank's head-dim slice where
+    a decode step's cross-attention is ``"d"``."""
+    split = cross_split(cfg)
+    return t if split is None or split.mode != "d" \
+        else t[..., split.lo:split.hi].contiguous()
+
+
 def cross_attention(params, x, enc_kv, cfg, dtype=torch.bfloat16):
     """Decoder-to-encoder attention (whisper): queries from ``x`` [B, S,
     d] over the precomputed encoder keys and values ``enc_kv`` = (k, v),
-    each [B, S_enc, KV, D], unmasked.  Past ``2 * DEFAULT_CHUNK`` keys
-    (whisper's 1,500 frames) this is the chunked path, whose padded last
-    chunk is hidden by its negative key positions alone."""
+    each [B, S_enc, KV, D] (whole, or a ``"d"`` cache's head-dim slice),
+    unmasked.  Past ``2 * DEFAULT_CHUNK`` keys (whisper's 1,500 frames)
+    this is the chunked path, whose padded last chunk is hidden by its
+    negative key positions alone.  On a serving mesh it runs on the
+    rank's query rows or head dims (:func:`cross_split`,
+    :func:`split_sdpa`)."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.hd
+    split = cross_split(cfg, s)
     sp = cfg.policy.resolver("attn")
     q = linear(params["wq"], x, sp("cross.q"), dtype).reshape(b, s, h, hd)
-    k, v = enc_kv
-    o = sdpa(q, k, v, causal=False, dtype=dtype)
+    k, v = (_rank_dims(t, split, hd) for t in enc_kv)
+    o = split_sdpa(split, q, k, v, causal=False, dtype=dtype)
     return linear(params["wo"], o.reshape(b, s, h * hd), sp("cross.o"), dtype)
 
 
 def encode_cross_kv(params, enc_out, cfg, dtype=torch.bfloat16):
     """One layer's cross-attention keys and values of the encoder output
-    ``enc_out`` [B, S_enc, d]: (k, v), each [B, S_enc, KV, D]."""
+    ``enc_out`` [B, S_enc, d]: (k, v), each [B, S_enc, KV, D], D the
+    rank's head-dim slice where its decode cache holds one
+    (:func:`cross_kv_layout`)."""
     b, s, _ = enc_out.shape
     kv, hd = cfg.n_kv_heads, cfg.hd
     sp = cfg.policy.resolver("attn")
@@ -536,4 +678,4 @@ def encode_cross_kv(params, enc_out, cfg, dtype=torch.bfloat16):
         b, s, kv, hd)
     v = linear(params["wv"], enc_out, sp("cross.v"), dtype).reshape(
         b, s, kv, hd)
-    return k, v
+    return cross_kv_layout(k, cfg), cross_kv_layout(v, cfg)

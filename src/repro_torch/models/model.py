@@ -266,20 +266,24 @@ def loss_fn(params, batch: dict, cfg):
 class DecodeCache(NamedTuple):
     layers: Any
     pos: torch.Tensor                   # per-slot next write position [B]
-    cross_kv: Any = None                # whisper: (k, v) [L, B, S_enc, KV, D]
+    # whisper: (k, v) [L, B, S_enc, KV, D], D the rank's head-dim slice
+    # where a decode step's cross-attention is "d"
+    cross_kv: Any = None
 
 
 def init_cache(cfg, batch: int, s_max: int, device="cuda") -> DecodeCache:
     """An empty cache.  For an encoder-decoder model it also holds zero
     cross keys and values at full batch width (the reference's holds
     none), so a batcher's live cache has a place to splice each admitted
-    slot's encoder output into."""
+    slot's encoder output into.  On a serving mesh its KV caches and
+    cross keys and values hold what the rank serves
+    (``attention.kv_cache_dims``, ``attention.cross_kv_dims``)."""
     dtype = _dtype(cfg)
     layers = tfm.init_stack_cache(cfg, batch, s_max, dtype, device)
     cross_kv = None
     if cfg.is_encdec:
-        shape = (cfg.n_layers, batch, cfg.frontend_seq, cfg.n_kv_heads,
-                 cfg.hd)
+        shape = (cfg.n_layers, batch, cfg.frontend_seq) + \
+            attn_mod.cross_kv_dims(cfg)
         cross_kv = tuple(torch.zeros(shape, dtype=dtype, device=device)
                          for _ in range(2))
     return DecodeCache(layers, torch.zeros(batch, dtype=torch.int64,
@@ -292,8 +296,9 @@ def prefill(params, tokens: torch.Tensor, cfg, s_max: Optional[int] = None,
     DecodeCache).  ``frontend_embeds`` [B, F, d]: an early-fusion
     decoder's leading positions, or whisper's encoder input (zeros when
     none are given; the cache then carries every decoder layer's cross
-    keys and values).  ``pad_mask`` ([B, S] bool, True = real token)
-    admits LEFT-padded prompts: pads are masked out of attention,
+    keys and values, in the layout a rank's decode cache holds them:
+    ``attention.cross_kv_layout``).  ``pad_mask`` ([B, S] bool, True =
+    real token) admits LEFT-padded prompts: pads are masked out of attention,
     positions are the true token indices, the cache is written
     left-aligned and ``cache.pos`` carries each row's true length.  MoE
     expert capacity is shared by every token of the batch, pads included,
@@ -336,6 +341,8 @@ def prefill(params, tokens: torch.Tensor, cfg, s_max: Optional[int] = None,
                                            pad_mask=pad_mask)
         x = norm(params["final_norm"], x[:, -1:], cfg.norm)
         logits = _lm_logits(params, x, cfg, dtype)
+    if cross_kv is not None:
+        cross_kv = tuple(attn_mod.cross_kv_layout(t, cfg) for t in cross_kv)
     return logits[:, 0], DecodeCache(layers, pos_out, cross_kv)
 
 

@@ -24,20 +24,25 @@ calls) the program compiles partitioned: each rank holds only its tile
 of every partitioned image, the raw weight behind a tile is released,
 and every call runs under the mesh and the program's tiles, so each
 projection runs as the rank's tile (:mod:`repro_torch.accel.shard`).
-Attention runs on the rank's own heads where the reference's rule puts
-the model axis on the kv heads or the GQA group
-(``models.attention.head_split``): q, k and v stay on their rank, the
-rank's KV cache (the dense cache, each slot's, the paged pools) holds
-its own kv heads in ``"kv"`` mode, and ``wo``'s row tile takes the
-rank's heads of the attention output.  Every other activation stays
-whole on the model axis.  The data axis splits batch rows: a batch the
+Attention runs on the rank's share where the reference's rule puts the
+model axis (``models.attention.head_split``, per call): on the kv heads
+or the GQA group, q, k and v stay on their rank, the rank's KV cache
+(the dense cache, each slot's, the paged pools) holds its own kv heads
+in ``"kv"`` mode, and ``wo``'s row tile takes the rank's heads of the
+attention output; on the query rows (``"sq"``) or the head dim
+(``"d"``), attention runs on the rank's rows or head dims between the
+gathered projections, and where a decode step is ``"d"`` the KV caches
+and whisper's cross keys and values (the dense cache, each slot's,
+every splice) hold the rank's head-dim slice.  Every other activation
+stays whole on the model axis.  The data axis splits batch rows: a batch the
 data axis divides (``generate``'s prompts, the batchers' slots) is
 served by each data shard on its own rows, with its own rows of the
 cache, and rows are gathered over the data group only where the host
 reads them (sampled tokens, the EOS poll).  A batch it does not divide
 (an admission's batch-1 prefill) runs on every data shard, still on the
-rank's heads.  A MoE layer's expert capacity then counts one shard's
-tokens (a dropless capacity factor gives the unsharded streams).
+rank's share of attention.  A MoE layer's expert capacity then counts
+one shard's tokens (a dropless capacity factor gives the unsharded
+streams).
 """
 from __future__ import annotations
 
@@ -307,7 +312,9 @@ class Engine:
     def init_cache(self, batch: int):
         """A fresh decode cache at full batch width: on a mesh whose data
         axis splits ``batch``, this data shard's rows of it; its KV
-        caches hold the heads this rank serves."""
+        caches (and whisper's cross keys and values) hold the heads or
+        head dims this rank serves, the layout every prefill of the
+        batchers splices into it."""
         rows = self.data_rows(batch)
         n = batch if rows is None else rows.stop - rows.start
         with self._scope():

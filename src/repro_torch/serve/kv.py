@@ -34,8 +34,9 @@ Unwritten pool positions read as exact zeros, so the gathered view is
 bit for bit the contiguous cache, and paged serving is token-identical
 to the slot batcher (tests/test_torch_paged.py).  Every function here
 is generic over the leaves' shapes: on a mesh where attention runs on
-the rank's heads the probed layout, and so the pools, the gather, the
-scatter and the splice, hold the rank's kv heads.
+the rank's heads or head dims the probed layout, and so the pools, the
+gather, the scatter and the splice, hold the rank's kv heads (mode
+``"kv"``) or its head-dim slice (``"d"``).
 
 Tables and positions are ``int64`` on the device; the host mirrors the
 scheduler keeps are ``int32``, as in the reference.
@@ -300,11 +301,12 @@ def paged_cache_specs(paged: PagedCache, layout: PagedLayout, mesh,
     ``n_slots``.
 
     This is the reference's rule.  The live pools a rank holds split the
-    kv heads where attention runs on the rank's own heads
-    (``models.attention.head_split``), also where this spec names
-    another dim (the head dim of olmo-1b's pool leaves): the reference's
-    attention constraints put the kv heads on "tp", and XLA reshards
-    between the two."""
+    kv heads where attention runs on the rank's own heads and the head
+    dim where a decode step runs on the rank's head dims
+    (``models.attention.head_split``, modes ``"kv"`` and ``"d"``), also
+    where this spec names another dim (the head dim of olmo-1b's pool
+    leaves, in mode ``"kv"``): the reference's attention constraints put
+    those dims on "tp", and XLA reshards between the two."""
     from repro_torch.distributed import sharding as shd
 
     msize = shd.axis_size(mesh, ("model",))

@@ -36,9 +36,10 @@ the data group before the host reads them.  The pools keep the whole
 block-id space on every data shard (one global allocator hands any slot
 any block): a shard writes and reads only its own slots' blocks.
 Admission prefills run on every rank; the splice lands on the shard that
-holds the slot.  Where attention runs on the rank's own heads
-(``models.attention.head_split``), the pools, the gathered view, the
-scatter and the splice hold the rank's kv heads, so the pools' bytes
+holds the slot.  Where attention runs on the rank's own heads or head
+dims (``models.attention.head_split``), the pools, the gathered view,
+the scatter and the splice hold the rank's kv heads or head-dim slice
+(the layout probe runs in the engine's scope), so the pools' bytes
 and the allocator's audit are the rank's; block ids, deferrals and
 preemptions are the unsharded scheduler's, and the streams equal the
 slot batcher's.

@@ -24,10 +24,38 @@ collectives as reckoned here from the mode; olmo's and starcoder2's
 against the reference unsharded, greedy tokens equal and
 ``digital_int`` logits within 1e-4 (float ops in another order, as the
 port's other model tests hold them).
+
+Attention on the rank's query rows or head dims (the reference's
+``"sq"`` and ``"d"`` modes): reduced llama3.2-1b with 9 q / 3 kv heads
+and reduced whisper-tiny with 3 heads, each at 2 (decoder) layers (both
+packages' configs through
+``dataclasses.replace``, the reference's weights converted), whose kv
+heads and GQA group a 1 x 2 mesh does not divide, on the same group's
+rank pairs (``torch_mesh.py::serve_sqd``).  An 8-token prefill is
+``"sq"``, a 7-token one and every decode step ``"d"``; each rank's
+dense, slot, paged and cross caches hold 16 of the 32 head dims.
+Held: ``"sq"`` prefill logits bitwise unsharded (the rows are free dims
+of every product, and the CPU's matmuls give them the same bits at
+either row count); ``"d"`` logits on ``digital`` (the prefill and a
+decode step) within rtol = atol = 1e-5 of the port unsharded and of the
+reference unsharded (each score is summed over the ranks in another
+order); greedy ``bpbs`` tokens of both prefills equal on every rank and
+to the port's unsharded tokens, the 7-token run's also to the
+reference's (run in a process of its own meanwhile), a first
+divergence allowed only where the unsharded top-2 logit gap is below
+NEAR_TIE; the slot batcher's and the paged scheduler's streams equal
+each request's solo ``generate`` on the mesh (the paged scheduler's
+also in 4-token prefill chunks: a resumed chunk is "sq" on the "d"
+cache, whose head dims it gathers); a decode step's
+collectives as reckoned from its records (one score sum and one output
+gather an attention call); ``split_sdpa`` on the dense and the chunked
+path against ``sdpa`` whole.
 """
 import dataclasses
 import warnings
 from collections import Counter
+from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import get_context
 
 import jax
 import numpy as np
@@ -39,6 +67,7 @@ from repro import accel as jaccel
 from repro.configs import get_config as jget
 from repro.distributed.sharding import ShardPolicy as JPolicy
 from repro.models import init_params as jinit
+from repro.models import decode_step as jdecode
 from repro.models import prefill as jprefill
 from repro.serve import Engine as JEngine
 from repro.serve import ServeConfig as JServe
@@ -62,6 +91,14 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 
 # the configs also held to the reference unsharded
 REFERENCE = ("olmo-1b", "starcoder2-3b")
+# "sq" / "d" configs: kv heads and GQA group odd, so 1 x 2 splits the
+# query rows of an even prefill and the head dims of everything else
+SQD = {"llama3.2-1b": dict(n_layers=2, n_heads=9, n_kv_heads=3),
+       "whisper-tiny": dict(n_layers=2, n_heads=3, n_kv_heads=3)}
+SQD_CASES = [((1, 2), name) for name in SQD]
+SQD_TOL = dict(rtol=1e-5, atol=1e-5)
+# a greedy token may turn where the unsharded top-2 logits are this close
+NEAR_TIE = 1e-3
 
 
 def _reduced(get, name: str):
@@ -82,13 +119,23 @@ def setup():
         configs[name] = (
             _reduced(tget, name).with_accel("bpbs", **SPEC),
             params_from_jax(jax.tree.map(np.asarray, pj), "cpu"))
+    sqd = {}
+    for name, heads in SQD.items():
+        jc = dataclasses.replace(jget(name).reduced(), **heads)
+        pj = jinit(jc, jax.random.PRNGKey(0), max_seq=64)
+        jax_configs[name] = (jc, pj)
+        digital = dataclasses.replace(tget(name).reduced(), **heads)
+        sqd[name] = dict(cfg=digital.with_accel("bpbs", **SPEC),
+                         digital=digital,
+                         params=params_from_jax(jax.tree.map(np.asarray, pj),
+                                                "cpu"))
     vocab = jax_configs["olmo-1b"][0].vocab
     r = np.random.default_rng(0)
     prompts = r.integers(0, vocab, (4, 8))
     requests = [(r.integers(0, vocab, (n,)), m)
                 for n, m in zip((5, 9, 3, 12, 7), (4, 6, 2, 5, 3))]
     return dict(jax_configs=jax_configs, configs=configs, prompts=prompts,
-                requests=requests)
+                requests=requests, sqd=sqd)
 
 
 @pytest.fixture(scope="module")
@@ -97,14 +144,26 @@ def runs(setup, tmp_path_factory):
     args = dict(configs=setup["configs"], meshes=MESHES,
                 prompts=setup["prompts"], requests=setup["requests"],
                 serve=SERVE, serve_by=SERVE_BY, n_slots=4,
-                tuned_config="olmo-1b")
+                tuned_config="olmo-1b", sqd=setup["sqd"])
     wait = tm.start("serve", 4, tmp_path_factory.mktemp("serve"), args,
                     timeout=600)
-    torch.set_num_threads(2)
-    flat = {name: tm.serve_all(params, cfg, ServeConfig(**_serve(name)),
-                               setup["prompts"], setup["requests"], 4)
-            for name, (cfg, params) in setup["configs"].items()}
-    flat["reference"] = _reference(setup)
+    # the reference's runs of the "sq" / "d" configs, in a process of
+    # their own meanwhile (its jit compiles take the longest)
+    with ProcessPoolExecutor(1, mp_context=get_context("spawn")) as pool:
+        sqd_reference = pool.submit(
+            _sqd_reference,
+            {name: (jc, jax.tree.map(np.asarray, pj)) for name, (jc, pj)
+             in setup["jax_configs"].items() if name in SQD},
+            setup["prompts"])
+        torch.set_num_threads(2)
+        flat = {name: tm.serve_all(params, cfg, ServeConfig(**_serve(name)),
+                                   setup["prompts"], setup["requests"], 4)
+                for name, (cfg, params) in setup["configs"].items()}
+        for name, c in setup["sqd"].items():
+            flat[name] = tm.serve_sqd(c["params"], c["cfg"], c["digital"],
+                                      ServeConfig(**SERVE), setup["prompts"],
+                                      setup["requests"], 4)
+        flat["reference"] = dict(_reference(setup), **sqd_reference.result())
     return wait(), flat
 
 
@@ -127,6 +186,24 @@ def _reference(setup) -> dict:
                 pj, prompts, jc.with_accel("digital_int", **SPEC),
                 SERVE["max_seq"])[0])
         out[name] = dict(tokens=tokens, logits_digital_int=logits)
+    return out
+
+
+def _sqd_reference(configs: dict, prompts) -> dict:
+    """The reference unsharded for each ``"sq"`` / ``"d"`` config
+    (``configs``: name to (config, params as numpy)) on the odd-length
+    prompts (a ``"d"`` prefill on the mesh): greedy ``bpbs`` tokens, and
+    ``digital`` logits of the prefill and of one decode step after it."""
+    odd = jax.numpy.asarray(prompts, jax.numpy.int32)[:, :-1]
+    out = {}
+    for name, (jc, pj) in configs.items():
+        tokens = JEngine(pj, jc.with_accel("bpbs", **SPEC),
+                         JServe(**SERVE)).generate(odd)
+        logits, cache = jprefill(pj, odd, jc, SERVE["max_seq"])
+        step = jdecode(pj, jax.numpy.argmax(logits, -1), cache, jc)[0]
+        out[name] = dict(tokens={"d": np.asarray(tokens)},
+                         digital={"d": np.asarray(logits),
+                                  "decode": np.asarray(step)})
     return out
 
 
@@ -228,14 +305,7 @@ def test_decode_step_collectives_are_head_local(setup, runs, case):
              "g": ("attn.q",)}[_mode(setup["configs"][name][0], model)]
     for r in _held(ranks, case):
         got = r["decode"]
-        want = Counter()
-        for tag, part in got["records"]:
-            if part == "col" and tag not in local:
-                want["all-gather", "model", None] += 1
-            elif part == "row":
-                want["all-reduce", "model", "sum"] += 1
-                if tag == "attn.o":
-                    want["all-reduce", "model", "max"] += 1
+        want = tm.reckoned_collectives(got["records"], local)
         assert Counter(got["collectives"]) == want
         n_attn = sum(tag == "attn.o" for tag, _ in got["records"])
         assert n_attn == setup["configs"][name][0].n_layers
@@ -305,3 +375,138 @@ def test_paged_warns_on_slots_the_data_axis_does_not_divide(setup):
         "n_slots=3 is not divisible by the mesh 'data' axis (2): slot "
         "state and positions replicate instead of sharding — size the "
         "slot pool as a multiple of data for the intended capacity"]
+
+
+# ------------------------------------------------- "sq" and "d" splits
+
+def _sqd_ids(cases):
+    return [name for _, name in cases]
+
+
+def _greedy_equal(got, want, gaps, what: str) -> None:
+    """Greedy tokens [B, T] equal, but that a row may turn first at a
+    step whose unsharded top-2 logit gap is below NEAR_TIE (the rest of
+    that row is not compared)."""
+    for row in range(got.shape[0]):
+        turned = np.flatnonzero(got[row] != want[row])
+        if turned.size:
+            t = int(turned[0])
+            assert gaps[row, t] < NEAR_TIE, (
+                f"{what}: row {row} turns at step {t} where the unsharded "
+                f"top-2 gap is {gaps[row, t]}")
+
+
+def _sqd_modes(cfg) -> dict:
+    want = {"prefill_even": "sq", "prefill_odd": "d", "decode": "d"}
+    if cfg.is_encdec:
+        want.update({f"cross_{k}": v for k, v in want.items()},
+                    encoder="sq")
+    return want
+
+
+@pytest.mark.parametrize("case", SQD_CASES, ids=_sqd_ids(SQD_CASES))
+def test_sqd_modes_and_cache_dims(setup, runs, case):
+    """On 1 x 2 the reference's rule gives an 8-row prefill "sq" and a
+    7-row one and a decode step "d" (whisper's cross-attention alike,
+    its 8-frame encoder "sq"); every cache of a rank holds all kv heads
+    and half the head dims, the unsharded port's the whole head."""
+    ranks, flat = runs
+    name = case[1]
+    cfg = setup["sqd"][name]["cfg"]
+    want = {(cfg.n_kv_heads, cfg.hd // 2)}
+    kinds = ["dense", "slot"] + (
+        ["cross_dense", "cross_slot", "cross_prefill"] if cfg.is_encdec
+        else ["paged"])
+    for r in _held(ranks, case):
+        assert r["modes"] == _sqd_modes(cfg)
+        assert r["dims"] == {k: want for k in kinds}
+    assert set(flat[name]["modes"].values()) == {"whole"}
+    assert all(d == {(cfg.n_kv_heads, cfg.hd)}
+               for d in flat[name]["dims"].values())
+
+
+@pytest.mark.parametrize("case", SQD_CASES, ids=_sqd_ids(SQD_CASES))
+def test_sqd_sq_prefill_logits_bitwise_unsharded(runs, case):
+    ranks, flat = runs
+    want = flat[case[1]]
+    for r in _held(ranks, case):
+        assert torch.equal(r["logits"]["sq"], want["logits"]["sq"])
+        assert torch.equal(r["digital"]["sq"], want["digital"]["sq"])
+
+
+@pytest.mark.parametrize("case", SQD_CASES, ids=_sqd_ids(SQD_CASES))
+def test_sqd_d_logits_match_unsharded_and_reference(runs, case):
+    """``digital`` logits of the 7-token ("d") prefill and of the decode
+    step after it: within 1e-5 of the port unsharded and of the
+    reference unsharded."""
+    ranks, flat = runs
+    name = case[1]
+    for r in _held(ranks, case):
+        for key in ("d", "decode"):
+            got = r["digital"][key].numpy()
+            np.testing.assert_allclose(got, flat[name]["digital"][key],
+                                       **SQD_TOL)
+            np.testing.assert_allclose(
+                got, flat["reference"][name]["digital"][key], **SQD_TOL)
+
+
+@pytest.mark.parametrize("case", SQD_CASES, ids=_sqd_ids(SQD_CASES))
+def test_sqd_greedy_tokens_match_unsharded_and_reference(runs, case):
+    """Greedy ``bpbs`` tokens of the "sq" and the "d" prefill's run:
+    equal on every rank and to the port unsharded; the "d" run's also to
+    the reference unsharded (each under the near-tie rule)."""
+    ranks, flat = runs
+    name = case[1]
+    held = _held(ranks, case)
+    for kind in ("sq", "d"):
+        got = held[0]["tokens"][kind]
+        for r in held[1:]:
+            np.testing.assert_array_equal(r["tokens"][kind], got)
+        gaps = flat[name]["gaps"][kind]
+        _greedy_equal(got, flat[name]["tokens"][kind], gaps,
+                      f"{name} {kind} vs unsharded")
+    _greedy_equal(held[0]["tokens"]["d"], flat["reference"][name]["tokens"]
+                  ["d"], flat[name]["gaps"]["d"], f"{name} d vs reference")
+
+
+@pytest.mark.parametrize("case", SQD_CASES, ids=_sqd_ids(SQD_CASES))
+def test_sqd_batcher_and_paged_streams_equal_solo(runs, case):
+    ranks, _ = runs
+    for r in _held(ranks, case):
+        assert r["batcher"] == r["solo"]
+        if "paged" in r:
+            assert r["paged"] == r["solo"]
+            assert r["paged_chunked"] == r["solo"]
+
+
+@pytest.mark.parametrize("case", SQD_CASES, ids=_sqd_ids(SQD_CASES))
+def test_sqd_decode_step_collectives_are_reckoned(setup, runs, case):
+    """A "d" decode step's collectives: the projections' as off the
+    split (every column tile gathered, every row tile summed, no
+    ``max``), and for each self- and cross-attention call one score sum
+    (one chunk: 32 cache slots, whisper's 8 frames) and one gather of
+    its output."""
+    ranks, _ = runs
+    cfg = setup["sqd"][case[1]]["cfg"]
+    split = {"attn.o": ("d", SERVE["max_seq"]),
+             "cross.o": ("d", cfg.frontend_seq)}
+    for r in _held(ranks, case):
+        got = r["decode"]
+        assert Counter(got["collectives"]) == tm.reckoned_collectives(
+            got["records"], split=split)
+        calls = sum(tag in split for tag, _ in got["records"])
+        assert calls == cfg.n_layers * (2 if cfg.is_encdec else 1)
+
+
+@pytest.mark.parametrize("case", SQD_CASES, ids=_sqd_ids(SQD_CASES))
+def test_split_sdpa_dense_and_chunked_match_whole(runs, case):
+    """``split_sdpa`` over 40 keys (dense) and 1,100 (chunked, three
+    score sums): "sq" bitwise ``sdpa`` whole, "d" within 1e-5."""
+    ranks, _ = runs
+    for r in _held(ranks, case):
+        for (mode, keys), (whole, got) in r["split_sdpa"].items():
+            if mode == "sq":
+                assert torch.equal(got, whole), keys
+            else:
+                np.testing.assert_allclose(got.numpy(), whole.numpy(),
+                                           **SQD_TOL)

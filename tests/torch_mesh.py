@@ -13,9 +13,11 @@ tensors, arrays and plain values.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import subprocess
 import sys
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -179,15 +181,53 @@ def task_mesh(args) -> dict:
 def kv_heads(tree) -> set:
     """The kv-head dims of every KV cache (or paged KV pool) in a cache
     tree."""
+    return {heads for heads, _ in kv_dims(tree)}
+
+
+def kv_dims(tree) -> set:
+    """The (heads, head dim) of every KV cache (or paged KV pool) in a
+    cache tree."""
     from repro_torch.models.attention import KVCache
 
     if isinstance(tree, KVCache):
-        return {int(tree.k.shape[-2]), int(tree.v.shape[-2])}
+        return {tuple(int(n) for n in t.shape[-2:]) for t in tree}
     if isinstance(tree, dict):
         tree = list(tree.values())
     if not isinstance(tree, (list, tuple)):
         return set()
-    return set().union(set(), *map(kv_heads, tree))
+    return set().union(set(), *map(kv_dims, tree))
+
+
+def attention_chunks(keys: int, chunk: int = 512) -> int:
+    """The score sums of one ``"d"`` attention call over ``keys`` keys:
+    one on the dense path (up to ``2 * chunk`` keys), one a chunk on the
+    chunked path (``models.attention.sdpa``)."""
+    return 1 if keys <= 2 * chunk else -(-keys // chunk)
+
+
+def reckoned_collectives(records, local=(), split=None) -> Counter:
+    """A decode step's model-axis collectives by ``(kind, axis, op)``,
+    reckoned from its ``(tag, partition)`` records: a column tile's
+    gather but for the head-local ones (``local``), a row tile's sum,
+    one ``max`` of ``wo``'s input scale where attention ran on the
+    rank's heads; and where it ran on the rank's head dims or query rows
+    (``split``: the tag of each attention call's ``wo`` to its mode and
+    its keys), one score sum a chunk in ``"d"`` and the output's
+    gather."""
+    want = Counter()
+    for tag, part in records:
+        if part == "col" and tag not in local:
+            want["all-gather", "model", None] += 1
+        elif part == "row":
+            want["all-reduce", "model", "sum"] += 1
+            if tag == "attn.o" and local:
+                want["all-reduce", "model", "max"] += 1
+        if split and tag in split:
+            mode, keys = split[tag]
+            if mode == "d":
+                want["all-reduce", "model", "sum"] += attention_chunks(keys)
+            want["all-gather", "model", None] += 1
+    return want
 
 
 def decode_step_counts(engine, prompts) -> dict:
@@ -262,6 +302,127 @@ def serve_all(params, cfg, scfg, prompts, requests, n_slots: int,
     return out
 
 
+def greedy_gaps(engine, prompts) -> np.ndarray:
+    """The top-2 logit gap [B, T] at each step of a greedy ``generate``
+    of ``prompts`` (where a near-tie may turn a token)."""
+    logits, cache = engine.prefill(torch.as_tensor(prompts,
+                                                   device=engine.device))
+    gaps = []
+    for t in range(engine.scfg.max_new_tokens):
+        if t:
+            logits, cache = engine.decode(tok, cache)
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        gaps.append(top[:, 0] - top[:, 1])
+        tok = torch.argmax(logits, dim=-1)
+    return torch.stack(gaps, dim=1).cpu().numpy()
+
+
+def _mode(split) -> str:
+    return split.mode if split is not None else "whole"
+
+
+def split_sdpa_cases(mesh, keys=(40, 1100)) -> dict:
+    """``attention.split_sdpa`` of this rank's ``"sq"`` and ``"d"``
+    shares against ``sdpa`` whole on the same seeded q, k, v (9 q and
+    3 kv heads of 32 dims, 4 causal queries at the end of ``keys``: the
+    dense path and the chunked one), under ``mesh``: (whole, split) by
+    (mode, keys)."""
+    from repro_torch.distributed.autoshard import use_mesh
+    from repro_torch.models.attention import HeadSplit, sdpa, split_sdpa
+
+    gen = torch.Generator().manual_seed(0)
+    m, k = mesh.size("model"), mesh.index("model")
+    out = {}
+    for n in keys:
+        q = torch.randn(2, 4, 9, 32, generator=gen)
+        kk = torch.randn(2, n, 3, 32, generator=gen)
+        vv = torch.randn(2, n, 3, 32, generator=gen)
+        kw = dict(causal=True, q_offset=n - 4, dtype=torch.float32)
+        whole = sdpa(q, kk, vv, **kw)
+        for mode, size in (("sq", 4), ("d", 32)):
+            lo, hi = k * size // m, (k + 1) * size // m
+            dims = slice(lo, hi) if mode == "d" else slice(None)
+            with use_mesh(mesh):
+                got = split_sdpa(HeadSplit(mode, 9, 3, 0, 3, lo, hi), q,
+                                 kk[..., dims], vv[..., dims], **kw)
+            out[mode, n] = (whole, got)
+    return out
+
+
+def serve_sqd(params, cfg, digital_cfg, scfg, prompts, requests,
+              n_slots: int, device="cpu") -> dict:
+    """What the ``"sq"`` / ``"d"`` serving tests compare, on one config
+    whose kv heads and GQA group the model axis does not divide, on its
+    backend and on ``digital_cfg`` (maybe meshed ServeConfig): the split
+    of each call kind; greedy ``generate`` of ``prompts`` (even: an
+    ``"sq"`` prefill on 1 x 2) and of ``prompts[:, :-1]`` (odd: ``"d"``)
+    and the even prefill's logits; ``digital_cfg``'s prefill logits of
+    both and one decode step's after the odd prefill; the (heads, dim)
+    of the dense, slot, paged and cross caches; one decode step's
+    records and collectives; ``split_sdpa_cases``; and the streams of
+    ``ContinuousBatcher`` and ``PagedScheduler`` (not for an
+    encoder-decoder config, which it refuses; also in 4-token prefill
+    chunks, whose resumed chunks run "sq" on the "d" cache) on
+    ``requests`` beside each request's solo ``generate``.  Off a mesh
+    (the unsharded results these are held to) the top-2 gaps of both
+    greedy runs take the place of the decode step, the split cases, the
+    streams and the solo runs."""
+    from repro_torch.models.attention import cross_split, head_split
+    from repro_torch.serve import ContinuousBatcher, Engine, PagedScheduler
+
+    engine = Engine(params, cfg, scfg, device)
+    even = torch.as_tensor(prompts, device=engine.device)
+    odd = even[:, :-1]
+    kinds = {"prefill_even": even.shape[1], "prefill_odd": odd.shape[1],
+             "decode": 1}
+    with engine._scope():
+        modes = {k: _mode(head_split(cfg, n)) for k, n in kinds.items()}
+        if cfg.is_encdec:
+            modes.update({f"cross_{k}": _mode(cross_split(cfg, n))
+                          for k, n in kinds.items()})
+            modes["encoder"] = _mode(head_split(cfg, cfg.frontend_seq))
+    out = {"modes": modes,
+           "tokens": {"sq": engine.generate(even), "d": engine.generate(odd)},
+           "logits": {"sq": engine.prefill(even)[0].cpu()}}
+    dengine = Engine(params, digital_cfg, scfg, device)
+    logits, cache = dengine.prefill(odd)
+    out["digital"] = {"sq": dengine.prefill(even)[0].cpu(),
+                      "d": logits.cpu(),
+                      "decode": dengine.decode(torch.argmax(logits, -1),
+                                               cache)[0].cpu()}
+    dense = engine.init_cache(n_slots)
+    slot = engine.prefill_single(np.asarray(requests[0][0]))[1]
+    out["dims"] = dict(dense=kv_dims(dense.layers), slot=kv_dims(slot.layers))
+    if cfg.is_encdec:
+        out["dims"].update(
+            cross_dense={tuple(t.shape[-2:]) for t in dense.cross_kv},
+            cross_slot={tuple(t.shape[-2:]) for t in slot.cross_kv},
+            cross_prefill={tuple(t.shape[-2:])
+                           for t in engine.prefill(even)[1].cross_kv})
+    if scfg.mesh is None:
+        out["gaps"] = {"sq": greedy_gaps(engine, even),
+                       "d": greedy_gaps(engine, odd)}
+        return out
+    out["decode"] = decode_step_counts(engine, odd)
+    out["split_sdpa"] = split_sdpa_cases(scfg.mesh)
+    out["solo"] = [Engine(params, cfg, dataclasses.replace(
+        scfg, max_new_tokens=m), device).generate(np.asarray(p)[None])[0]
+        .tolist() for p, m in requests]
+    servers = [("batcher", ContinuousBatcher, scfg)]
+    if not cfg.is_encdec:
+        servers += [("paged", PagedScheduler, scfg),
+                    ("paged_chunked", PagedScheduler,
+                     dataclasses.replace(scfg, prefill_chunk=4))]
+    for name, server, sc in servers:
+        srv = server(params, cfg, sc, n_slots, device=device)
+        rids = [srv.submit(p, max_new_tokens=m) for p, m in requests]
+        res = srv.run()
+        out[name] = [list(res[r]) for r in rids]
+        if name == "paged":
+            out["dims"]["paged"] = kv_dims(srv.paged.pools)
+    return out
+
+
 def _pair_meshes(world: int, device: str) -> list:
     """A 1 x 2 gloo mesh over each pair of ranks of the job (made on
     every rank, in one order; None outside it)."""
@@ -276,28 +437,37 @@ def task_serve(args) -> dict:
     """:func:`serve_all` of each config in ``args["configs"]`` on every
     mesh of the job (its ServeConfig ``args["serve"]`` updated by the
     config's ``args["serve_by"]`` entry), and ``ServeConfig.from_tuned``
-    on the 2 x 2 mesh.  The 1 x 2 cases take the pairs of ranks in turn,
-    so two run at once on 4 ranks: a case's results are on the ranks of
-    its mesh only."""
+    on the 2 x 2 mesh; :func:`serve_sqd` of each config in
+    ``args["sqd"]`` (its ``cfg``, ``digital`` config and ``params``) on
+    1 x 2.  The 1 x 2 cases take the pairs of ranks in turn, so two run
+    at once on 4 ranks: a case's results are on the ranks of its mesh
+    only."""
     from repro_torch.serve import ServeConfig
     from repro_torch.tune import TunedConfig
 
     device = args.get("device", "cpu")
     pairs = _pair_meshes(args["world"], device)
+    sqd = args.get("sqd", {})
     out = {}
     for shape, mesh in meshes(args["world"], device):
         cases = [name for name in args["configs"]
                  if shape in args["meshes"][name]]
         if shape == (1, 2):
-            cases = [name for i, name in enumerate(cases)
+            cases = [name for i, name in enumerate(cases + list(sqd))
                      if pairs[i % len(pairs)] is not None]
             mesh = next((m for m in pairs if m is not None), None)
         if mesh is None:
             continue
         for name in cases:
-            cfg, params = args["configs"][name]
             scfg = ServeConfig(mesh=mesh, **{
                 **args["serve"], **args.get("serve_by", {}).get(name, {})})
+            if name in sqd:
+                out[(shape, name)] = serve_sqd(
+                    sqd[name]["params"], sqd[name]["cfg"],
+                    sqd[name]["digital"], scfg, args["prompts"],
+                    args["requests"], args["n_slots"], device)
+                continue
+            cfg, params = args["configs"][name]
             out[(shape, name)] = serve_all(params, cfg, scfg,
                                            args["prompts"], args["requests"],
                                            args["n_slots"], device)
