@@ -109,15 +109,21 @@ into ``build/`` (one ``nvcc`` per source, started together), then
   version, bitwise, on olmo-1b's five shapes cut into 2 and 4 column and
   row tiles at 4 and 128 rows, and the row tiles' partials at whole
   banks to the whole launch, each tile timed beside its bound
-  (``mesh_shapes``); serves full-width olmo-1b on 1 x 2 and 2 x 2 meshes
+  (``mesh_shapes``), and deepseek-v2-lite's ``w_ukv`` as 2 and 16 column
+  tiles over a decode step's latent cache (``ukv_tile``); serves
+  full-width olmo-1b on 1 x 2 and 2 x 2 meshes
   of gloo ranks sharing the card, each rank running the kernel on its
   tiles and attention on its own heads (its kv heads in every cache, no
   q/k/v gathers), tokens equal on every rank and to the sharded plain
   route's, and at whole-bank tiles to the unsharded run's, with
   ``PagedScheduler`` on the 2 x 2 mesh (``serve_mesh``), and
   recurrentgemma-9b's MQA layer in the reference's "g" mode on 1 x 2,
-  tokens equal to the unsharded run's and to the sharded plain route's
-  (``serve_mesh_mqa``); and serves
+  its RG-LRU on each rank's width slice, tokens equal to the unsharded
+  run's and to the sharded plain route's (``serve_mesh_mqa``); on the
+  same ranks mamba2-130m whole and deepseek-v2-lite at 2 layers with
+  their SSD and MLA mixers on each rank's heads (``w_ukv`` a local
+  column tile), each rank's split, states, launches and decode
+  collectives held (``serve_mesh_mixers``); and serves
   the reduced tune pick
   through ``ServeConfig.from_tuned`` on its 2 x 4 mesh, tokens equal to
   the 1 x 1 route's (``serve_tuned_mesh``).  The ranks are this script
@@ -194,8 +200,11 @@ from repro_torch.models.cnn import (cnn_forward, cnn_loss, init_cnn,  # noqa: E4
                                     update_bn_stats)
 from repro_torch.models.moe import capacity as moe_capacity  # noqa: E402
 from repro_torch.models.ssm import SSMState  # noqa: E402
-from repro_torch.models.attention import (KVCache, cross_split,  # noqa: E402
-                                          head_split)
+from repro_torch.models.rglru import LRUState  # noqa: E402
+from repro_torch.models.attention import (KVCache, MLACache,  # noqa: E402
+                                          cross_split, head_split)
+from repro_torch.models.mixer_split import (lru_split, mla_split,  # noqa: E402
+                                            ssd_split)
 from repro_torch.models.transformer import stack_layout  # noqa: E402
 from repro_torch.serve import kv as paged_kv  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
@@ -511,6 +520,24 @@ MESH_DECODE_COLLECTIVES = MESH_LAYERS * 5 + 1                     # 11
 # counts them (rec 2 x 3, attn 4, mlp 3 x 3, unembed 1)
 MQA_LAYERS, MQA_NEW, MQA_MESH = 3, 8, (1, 2)
 MQA_LAUNCHES_PER_FORWARD = 20
+# serve_mesh_mixers: on serve_mesh_mqa's 1 x 2 ranks (no second start-up)
+# the mixers on each rank's share (models.mixer_split): recurrentgemma's
+# RG-LRU width in serve_mesh_mqa's own run (2,048 of 4,096 a rank),
+# mamba2-130m whole (its SSD mixer on 12 of 24 heads a rank) and
+# deepseek-v2-lite at 2 of 27 layers (its dense layer and one MoE layer;
+# MLA on 8 of 16 q heads a rank, w_ukv a local column tile over a latent
+# cache of DS_MAX_SEQ), 4 prompts x 32 tokens, MQA_NEW new, each at a
+# bank_n that makes every row tile whole banks unsharded too (deepseek's
+# row tiles hold 5,472 and 1,408 rows: 32), with the launches a forward
+# serve_paged_archs counts; tokens held to the unsharded run's but where
+# its top-2 logits are within SQD_NEAR_TIE at the first step that differs
+MIXER_CONFIGS = {"mamba2-130m": (None, 256, MAMBA2_LAUNCHES),
+                 "deepseek-v2-lite-16b": (2, 32, 20)}
+# the ukv column tile's shapes on the card: deepseek-v2-lite's w_ukv
+# (N 512, M 16 heads x 256) cut into 2 and 16 column tiles, at the decode
+# rows of serve_mesh_mixers (4 rows x a DS_MAX_SEQ latent cache)
+UKV_TILE_SHAPES = [(f"deepseek attn.ukv col tile 1/{m}", 512, 4096 // m,
+                    None, 1) for m in (2, 16)]
 # serve_mesh_sqd: whisper-tiny whole at published widths (6 heads of 64
 # dims, 6 kv heads, 1,500 frames) on a 1 x 4 mesh, where the reference's
 # rule splits attention's query rows ("sq": 4 divides a 32-token prefill
@@ -543,12 +570,12 @@ ELASTIC_STEPS, ELASTIC_CRASH = 6, 4
 # MoE training on a mesh (train_moe_mesh): full-width deepseek-v2-lite at
 # the fewest layers that hold a routed block (first_k_dense + 1), trained
 # on a 2 x 2 "2d" mesh of gloo ranks sharing the card with train_moe's
-# batches (MESH_TRAIN_STEPS of them), optimizer and remat (off): the rows
+# batches (MOE_MESH_STEPS of them), optimizer and remat (off): the rows
 # gathered over "data", 32 of the 64 experts a rank.  Step 1's loss and
 # aux within TRAIN_MESH_FIRST_RTOL of the unsharded port step on the same
-# global batch, step 2's loss within TRAIN_MESH_RTOL; the first step
-# warms up and is timed, the second is profiled
-MOE_MESH, MOE_MESH_MODE = (2, 2), "2d"
+# global batch; the one step is timed and profiled.  One step (the CPU
+# tests hold three) for the script's time: serve_mesh_mixers took the room
+MOE_MESH, MOE_MESH_MODE, MOE_MESH_STEPS = (2, 2), "2d", 1
 # ADC noise at the 0.85 V corner.  At fs = 255 (one bank of 255 rows, no
 # adaptive range) the clean ADC is exact and a code moves by
 # e = round(sigma z): P(e = +-1) = erfc(0.5 / (sigma sqrt 2)) = 0.09558,
@@ -3881,7 +3908,13 @@ def phase_mesh_shapes(peaks):
                          bound_by=by, times_bound=t_kernel / bms)
             del qx, qw, whole256
             torch.cuda.empty_cache()
-    return 0.0, rows
+    # MLA's w_ukv as a column tile: each rank's heads' keys and values
+    # over the whole latent cache, no collective
+    ukv, ukv_err = kernel_shapes(UKV_TILE_SHAPES, (DS_BATCH * DS_MAX_SEQ,),
+                                 peaks, "ukv_tile")
+    for (name, b), v in ukv.items():
+        rows[(name, "col", int(name.rsplit("/", 1)[1]), b)] = v
+    return ukv_err, rows
 
 
 def spawn_mesh(kind: str, data: int, model: int, args: dict) -> list:
@@ -3967,21 +4000,24 @@ def attention_chunks(keys: int, chunk: int = 512) -> int:
     return 1 if keys <= 2 * chunk else -(-keys // chunk)
 
 
-def reckoned_collectives(records, local, split=None) -> dict:
+def reckoned_collectives(records, local, split=None, gathers=0) -> dict:
     """A decode step's model-axis collectives by ``"kind/axis/op"``,
-    reckoned from its records: a column tile's gather but for the
-    head-local ones (``local``), a row tile's sum, and one ``max`` of
-    ``wo``'s input scale where attention ran on the rank's heads; where
-    it ran on the rank's head dims or query rows (``split``: the tag of
-    each attention call's ``wo`` to its mode and its keys), one score
-    sum a chunk in "d" and one gather of its output."""
+    reckoned from its records: a column tile's gather but for the local
+    ones (``local``), a row tile's sum, and one ``max`` of a local row
+    tile's input scale (``wo``'s where attention ran on the rank's
+    heads); where attention ran on the rank's head dims or query rows
+    (``split``: the tag of each attention call's ``wo`` to its mode and
+    its keys), one score sum a chunk in "d" and one gather of its
+    output; and the split mixers' own gathers (``gathers``)."""
     want = collections.Counter()
+    if gathers:
+        want["all-gather/model"] += gathers
     for tag, part in records:
         if part == "col" and tag not in local:
             want["all-gather/model"] += 1
         elif part == "row":
             want["all-reduce/model/sum"] += 1
-            if tag == "attn.o" and local:
+            if tag in local or (tag == "attn.o" and local):
                 want["all-reduce/model/max"] += 1
         if split and tag in split:
             mode, keys = split[tag]
@@ -4187,18 +4223,84 @@ def mesh_recurrentgemma():
         n_layers=MQA_LAYERS)
 
 
+def mixer_cfg(name: str):
+    """``serve_mesh_mixers``' config ``name`` at published widths and its
+    cut depth on the kernel."""
+    depth = MIXER_CONFIGS[name][0]
+    cfg = get_config(name).with_accel("kernel", ba=4, bx=4)
+    return cfg if depth is None else dataclasses.replace(cfg,
+                                                         n_layers=depth)
+
+
+def mixer_scfg(cfg, mesh=None):
+    """The ServeConfig a mixer config is served with: MQA_NEW new tokens,
+    deepseek's latent cache DS_MAX_SEQ long (the ukv tile's rows)."""
+    return ServeConfig(max_new_tokens=MQA_NEW, mesh=mesh,
+                       max_seq=DS_MAX_SEQ if cfg.mla else 2048)
+
+
+MIXER_STATES = (("ssd", SSMState), ("lru", LRUState), ("mla", MLACache))
+
+
+def state_bytes(cache) -> dict:
+    """Bytes of a cache's SSM, LRU and MLA states by ``"<kind>.<field>"``."""
+    out = collections.Counter()
+    for name, cls in MIXER_STATES:
+        for st in tree_leaves_of(cache.layers, cls):
+            for field, t in zip(cls._fields, st):
+                out[f"{name}.{field}"] += t.numel() * t.element_size()
+    return dict(out)
+
+
+def mixer_splits(engine) -> dict:
+    """Each mixer's split in the engine's scope (``models.mixer_split``):
+    ``[mode, lo, hi, local]``, or ``"whole"``."""
+    cfg, kinds = engine.cfg, set(engine.cfg.pattern())
+    fns = {"mla": (cfg.mla, mla_split), "ssd": ("ssm" in kinds, ssd_split),
+           "lru": ("rec" in kinds, lru_split)}
+    with engine._scope():
+        return {k: list(fn(cfg)) if fn(cfg) is not None else "whole"
+                for k, (has, fn) in fns.items() if has}
+
+
+def mixer_reckoning(cfg, splits, records, attn_local=()) -> tuple:
+    """A decode step's reckoned collectives (:func:`reckoned_collectives`)
+    where the mixers run on the rank's share: the local tiles (MLA's q,
+    ukv and o; the RG-LRU's in_x, in_gate and out; SSD's out_proj in
+    "heads"; head-local attention's, ``attn_local``) and the mixers' own
+    gathers (one an SSD layer: its heads' sums of squares or its output;
+    one an RG-LRU layer: the conv's output).  Returns (local tags,
+    reckoned counts by "kind/axis/op")."""
+    local, gathers = set(attn_local), 0
+    kinds = collections.Counter(cfg.pattern())
+    for kind, tags in (("mla", ("attn.q", "attn.ukv", "attn.o")),
+                       ("ssd", ("ssm.out_proj",)),
+                       ("lru", ("rec.in_x", "rec.in_gate", "rec.out"))):
+        split = splits.get(kind, "whole")
+        if split != "whole" and split[3]:
+            local.update(tags)
+    if splits.get("ssd", "whole") != "whole":
+        gathers += kinds["ssm"]
+    if splits.get("lru", "whole") != "whole":
+        gathers += kinds["rec"]
+    return local, reckoned_collectives(records, local, gathers=gathers)
+
+
 def serve_mesh_mqa() -> int:
     """``serve_mesh_mqa``: recurrentgemma-9b (``mesh_recurrentgemma``) on
     a 1 x 2 mesh of gloo ranks sharing the card, its local-attention
     layer in the reference's "g" mode (each rank its 8 q heads against
-    the one kv head; the cache whole).  ``Engine.generate`` of 4 prompts
-    x 32 tokens, MQA_NEW new, at bank_n = 256 (whole banks per row
-    tile): every rank's tokens equal the unsharded kernel route's and
-    the sharded plain route's (the kernel routed to its plain version,
-    on this path's tiles).  Per rank: launches, the attention mode and
-    the cache's kv heads, cache bytes (KV and LRU state, whole), a
-    decode step's collectives by kind (no gather of q, as the step's
-    records reckon them).  Returns the ranks' main-path launches."""
+    the one kv head; the cache whole) and its RG-LRU layers on each
+    rank's width slice.  ``Engine.generate`` of 4 prompts x 32
+    tokens, MQA_NEW new, at bank_n = 256 (whole banks per row tile):
+    every rank's tokens equal the unsharded kernel route's and the
+    sharded plain route's (the kernel routed to its plain version, on
+    this path's tiles).  Per rank: launches, the attention mode and the
+    cache's kv heads, cache bytes (the KV cache whole, the LRU states
+    half), a decode step's collectives by kind (no gather of q, in_x or
+    in_gate, as the step's records reckon them).  The same ranks then
+    serve ``serve_mesh_mixers``' configs (:func:`serve_mesh_mixers`).
+    Returns the ranks' main-path launches."""
     cfg = mesh_recurrentgemma()
     check(cfg.pattern() == ("rec", "rec", "attn"), f"pattern {cfg.pattern()}")
     scfg = ServeConfig(max_new_tokens=MQA_NEW)
@@ -4207,13 +4309,20 @@ def serve_mesh_mqa() -> int:
     prompts = serve_prompts(cfg.vocab)
     with accel.override(bank_n=256):
         want = engine.generate(prompts)
-    whole_cache = tensor_bytes(engine.init_cache(prompts.shape[0]).layers)
+    whole = engine.init_cache(prompts.shape[0])
+    whole_cache, whole_states = tensor_bytes(whole.layers), state_bytes(whole)
     depth = published_depth_bytes(engine)
-    del engine
+    del engine, whole
     torch.cuda.empty_cache()
+    mixers = {}
+    for name in MIXER_CONFIGS:
+        mixers[name] = mixer_unsharded(name, serve_prompts(
+            get_config(name).vocab))
     data, model = MQA_MESH
     t0 = time.perf_counter()
-    res = spawn_mesh("serve_mqa", data, model, dict(prompts=prompts.cpu()))
+    res = spawn_mesh("serve_mqa", data, model, dict(
+        prompts=prompts.cpu(),
+        mixers={k: v["prompts"].cpu() for k, v in mixers.items()}))
     seconds = time.perf_counter() - t0
     launches, ranks = 0, []
     for r, got in enumerate(res):
@@ -4227,20 +4336,32 @@ def serve_mesh_mqa() -> int:
         heads = got["head_local"]
         check(heads["mode"] == "g" and heads["kv_heads"] == [cfg.n_kv_heads],
               f"{what}: attention {heads}")
-        check(got["cache_bytes"] == whole_cache,
-              f"{what}: a g-mode cache of {got['cache_bytes']} B")
+        lru = got["splits"]["lru"]
+        check(lru[:3] == ["width", r * cfg.lru_width // model,
+                          (r + 1) * cfg.lru_width // model] and lru[3],
+              f"{what}: RG-LRU split {lru}")
+        states = got["state_bytes"]
+        check(all(states[k] * model == whole_states[k] for k in whole_states)
+              and got["cache_bytes"] == whole_cache - sum(
+                  whole_states.values()) // model,
+              f"{what}: a cache of {got['cache_bytes']} B, states {states}")
         kinds = got["decode"]["by_kind"]
         counts = {k: v["count"] for k, v in kinds.items()}
-        check(counts == reckoned_collectives(got["decode"]["records"],
-                                             heads["local"])
-              and counts["all-reduce/model/max"] == 1,
-              f"{what}: a decode step's collectives {kinds}")
+        local, reckoned = mixer_reckoning(cfg, got["splits"],
+                                          got["decode"]["records"],
+                                          heads["local"])
+        check(counts == reckoned
+              and counts["all-reduce/model/max"] == 1 + cfg.pattern().count(
+                  "rec"),
+              f"{what}: a decode step's collectives {kinds}, reckoned "
+              f"{reckoned}")
         launches += got["launches"]
         ranks.append(dict(rank=r, coords=got["coords"],
                           launches_generate=got["launches"],
                           attention_mode=heads["mode"],
-                          kv_heads=heads["kv_heads"],
+                          kv_heads=heads["kv_heads"], lru_split=lru,
                           cache_bytes=got["cache_bytes"],
+                          state_bytes=states,
                           collectives_per_step_by_kind=kinds,
                           generate_s=got["generate_s"],
                           tile_bytes=got["image_bytes"],
@@ -4252,7 +4373,109 @@ def serve_mesh_mqa() -> int:
          new_tokens=MQA_NEW, bank_n=256, phase_s=seconds,
          tokens_equal_unsharded=True, tokens_equal_plain_route=True,
          cache_bytes_unsharded=whole_cache,
-         ranks=ranks)
+         state_bytes_unsharded=whole_states, ranks=ranks)
+    return launches + serve_mesh_mixers(mixers, res, seconds)
+
+
+def mixer_unsharded(name: str, prompts) -> dict:
+    """The unsharded run a ``serve_mesh_mixers`` rank is held to, at its
+    config's bank_n: greedy tokens, the top-2 gaps of a greedy run, its
+    states' and caches' bytes."""
+    cfg = mixer_cfg(name)
+    engine = Engine(init_params(cfg, 0, device="cuda"), cfg,
+                    mixer_scfg(cfg), device="cuda")
+    with accel.override(bank_n=MIXER_CONFIGS[name][1]):
+        tokens = engine.generate(prompts)
+        gaps = greedy_gaps(engine, prompts)
+    cache = engine.init_cache(prompts.shape[0])
+    out = dict(prompts=prompts, tokens=tokens, gaps=gaps,
+               cache_bytes=tensor_bytes(cache.layers),
+               state_bytes=state_bytes(cache),
+               published_depth=(published_depth_bytes(engine)
+                                if MIXER_CONFIGS[name][0] else None))
+    del engine, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_mesh_mixers(mixers: dict, res: list, seconds: float) -> int:
+    """``serve_mesh_mixers``: the ranks ``serve_mesh_mqa`` started also
+    served mamba2-130m whole and deepseek-v2-lite at 2 of 27 layers
+    (``MIXER_CONFIGS``) with their mixers on each rank's share (mamba2's
+    SSD on 12 of 24 heads, its state half; deepseek's MLA on 8 of 16 q
+    heads, ``w_ukv`` a local column tile, the latent cache whole).  Each
+    rank's tokens equal the sharded plain route's and, but at near-ties,
+    the unsharded run's; its split, its state and cache bytes against
+    the unsharded ones; its launches a forward; a decode step's
+    collectives as its records reckon them (deepseek: no collective for
+    ``w_ukv``, one sum fewer a layer than ``w_ukv`` as a row tile would
+    take).  Returns the ranks' main-path launches."""
+    launches, lines = 0, {}
+    for name, (depth, bank_n, per_fwd) in MIXER_CONFIGS.items():
+        cfg, want = mixer_cfg(name), mixers[name]
+        kind = "mla" if cfg.mla else "ssd"
+        ranks = []
+        for r, rank in enumerate(res):
+            got = rank["mixers"][name]
+            what = f"serve_mesh_mixers {name} rank {r}"
+            check(np.array_equal(got["tokens"], got["tokens_plain"]),
+                  f"{what}: tokens differ from the sharded plain route's")
+            turned = near_tie_agreement(got["tokens"], want["tokens"],
+                                        want["gaps"])
+            check(got["launches"] == per_fwd * MQA_NEW,
+                  f"{what}: {got['launches']} launches in {MQA_NEW} "
+                  f"forwards")
+            split = got["splits"][kind]
+            n = (cfg.n_heads if cfg.mla else
+                 cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim)
+            check(split == ["heads", r * n // 2, (r + 1) * n // 2, True],
+                  f"{what}: split {split}")
+            states, whole = got["state_bytes"], want["state_bytes"]
+            if cfg.mla:
+                ratio_ok = states == whole
+            else:
+                d_inner, n_st = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+                ratio_ok = (states["ssd.ssm"] * 2 == whole["ssd.ssm"]
+                            and states["ssd.conv"] * (d_inner + 2 * n_st)
+                            == whole["ssd.conv"] * (d_inner // 2 + 2 * n_st))
+            check(ratio_ok, f"{what}: states {states}, unsharded {whole}")
+            kinds = got["decode"]["by_kind"]
+            counts = {k: v["count"] for k, v in kinds.items()}
+            records = got["decode"]["records"]
+            local, reckoned = mixer_reckoning(cfg, got["splits"], records)
+            check(counts == reckoned, f"{what}: a decode step's collectives "
+                  f"{kinds}, reckoned {reckoned}")
+            ukv = sum(tag == "attn.ukv" for tag, _ in records)
+            if cfg.mla:
+                check(ukv == cfg.n_layers and ("attn.ukv", "col") in records
+                      and ("attn.ukv", "row") not in records,
+                      f"{what}: ukv records {ukv}")
+            launches += got["launches"]
+            ranks.append(dict(
+                rank=r, split=split, local_tiles=sorted(local),
+                launches_generate=got["launches"],
+                launches_per_forward=got["launches"] // MQA_NEW,
+                tokens_turned_at_near_ties=turned,
+                state_bytes=states,
+                state_bytes_over_unsharded={
+                    k: states[k] / whole[k] for k in whole},
+                cache_bytes=got["cache_bytes"],
+                collectives_per_step_by_kind=kinds,
+                # w_ukv as PR 28's row tile: a sum a layer for it, and q's
+                # gather, where attention now takes neither
+                ukv_sums_removed_per_step=ukv,
+                generate_s=got["generate_s"], tile_bytes=got["image_bytes"],
+                max_memory_allocated_bytes=got["peak_bytes"]))
+        lines[name] = ranks
+        emit("serve_mesh_mixers", config=name, layers=cfg.n_layers,
+             published_depth=want["published_depth"],
+             pattern=sorted(set(cfg.pattern())), mesh={"data": 1, "model": 2},
+             backend="gloo", device="cuda:0 shared by every rank",
+             prompts=4, prompt=32, new_tokens=MQA_NEW, bank_n=bank_n,
+             max_seq=mixer_scfg(cfg).max_seq, ranks_phase_s=seconds,
+             tokens_equal_plain_route=True,
+             unsharded_cache_bytes=want["cache_bytes"],
+             unsharded_state_bytes=want["state_bytes"], ranks=ranks)
     return launches
 
 
@@ -4513,16 +4736,19 @@ def worker_serve(mesh, args) -> dict:
 
 
 def worker_serve_mqa(mesh, args) -> dict:
-    """One rank of ``serve_mesh_mqa``."""
+    """One rank of ``serve_mesh_mqa``, then of ``serve_mesh_mixers``."""
     cfg = mesh_recurrentgemma()
     engine = Engine(init_params(cfg, 0, device="cuda"), cfg,
                     ServeConfig(max_new_tokens=MQA_NEW, mesh=mesh))
     torch.cuda.empty_cache()
     prompts = args["prompts"].to("cuda")
+    cache = engine.init_cache(prompts.shape[0])
     out = dict(coords=mesh.coords, image_bytes=image_bytes(engine),
                head_local=head_local(engine, prompts.shape[0]),
-               cache_bytes=tensor_bytes(
-                   engine.init_cache(prompts.shape[0]).layers))
+               splits=mixer_splits(engine),
+               cache_bytes=tensor_bytes(cache.layers),
+               state_bytes=state_bytes(cache))
+    del cache
     with accel.override(bank_n=256):           # whole banks per row tile
         # the main path: counts at 0 just before, read just after
         K.cima_mvm_planes.launches = 0
@@ -4534,6 +4760,38 @@ def worker_serve_mqa(mesh, args) -> dict:
             out["tokens_plain"] = engine.generate(prompts)
         out["decode"] = decode_counts(engine, prompts)
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del engine
+    torch.cuda.empty_cache()
+    out["mixers"] = {name: worker_mixer(mesh, name, p.to("cuda"))
+                     for name, p in args["mixers"].items()}
+    return out
+
+
+def worker_mixer(mesh, name: str, prompts) -> dict:
+    """One rank of ``serve_mesh_mixers`` on config ``name``."""
+    cfg = mixer_cfg(name)
+    engine = Engine(init_params(cfg, 0, device="cuda"), cfg,
+                    mixer_scfg(cfg, mesh))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cache = engine.init_cache(prompts.shape[0])
+    out = dict(image_bytes=image_bytes(engine), splits=mixer_splits(engine),
+               cache_bytes=tensor_bytes(cache.layers),
+               state_bytes=state_bytes(cache))
+    del cache
+    with accel.override(bank_n=MIXER_CONFIGS[name][1]):
+        # the main path: counts at 0 just before, read just after
+        K.cima_mvm_planes.launches = 0
+        t0 = time.perf_counter()
+        out["tokens"] = engine.generate(prompts)
+        out["generate_s"] = time.perf_counter() - t0
+        out["launches"] = K.cima_mvm_planes.launches
+        with routed_launches(K.cima_mvm_planes_reference, keep=False):
+            out["tokens_plain"] = engine.generate(prompts)
+        out["decode"] = decode_counts(engine, prompts)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del engine
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4734,12 +4992,12 @@ def phase_train_mesh() -> int:
     return launches
 
 
-def mesh_batches(cfg) -> list:
+def mesh_batches(cfg, steps: int = MESH_TRAIN_STEPS) -> list:
     """The mesh training phases' global batches: train_lm's first
-    MESH_TRAIN_STEPS."""
+    ``steps``."""
     data_cfg = DataConfig(seq_len=LM_SEQ, global_batch=LM_BATCH,
                           vocab=cfg.vocab, seed=0)
-    return [make_batch(data_cfg, s, "cuda") for s in range(MESH_TRAIN_STEPS)]
+    return [make_batch(data_cfg, s, "cuda") for s in range(steps)]
 
 
 def mesh_opt() -> AdamWConfig:
@@ -4850,20 +5108,21 @@ def moe_mesh_cfg():
 def phase_train_moe_mesh() -> int:
     """deepseek-v2-lite-16b trained on the kernel on a 2 x 2 "2d" mesh of
     gloo ranks sharing the card (``train_moe_mesh``: ``build_train_step(
-    mesh=)`` with routed experts, MESH_TRAIN_STEPS steps of LM_BATCH x
+    mesh=)`` with routed experts, MOE_MESH_STEPS steps of LM_BATCH x
     LM_SEQ from seed 0, published widths at 2 of 27 layers): each MoE
     block routes, drops and scores its aux over the global batch's 2,048
     tokens and a rank computes its 32 of the 64 experts.  First the
     unsharded port step on the same global batches in this process; then
-    every rank's step-1 loss and aux within TRAIN_MESH_FIRST_RTOL of it,
-    step 2's loss within TRAIN_MESH_RTOL, losses equal across ranks, the
+    every rank's step-1 loss and aux within TRAIN_MESH_FIRST_RTOL of it
+    (any later step's loss within TRAIN_MESH_RTOL), losses equal across
+    ranks, the
     forward's launches a step (2-D and grouped, none in the backward, as
     train_moe counts them) and the rank's grouped launch (32 experts at
     the step's capacity rows) bitwise against the plain version on its
     own arguments.  Per rank: ms a step by phase, collectives and bytes by
     phase, peak memory, idle share."""
     cfg = moe_mesh_cfg()
-    batches, opt_cfg = mesh_batches(cfg), mesh_opt()
+    batches, opt_cfg = mesh_batches(cfg, MOE_MESH_STEPS), mesh_opt()
     want_2d, want_grouped = moe_train_forward_launches(cfg)
     torch.cuda.empty_cache()
     # twice: the second run is the unsharded step's own spread (the MoE
@@ -4921,7 +5180,7 @@ def phase_train_moe_mesh() -> int:
          published_depth=get_config("deepseek-v2-lite-16b").n_layers,
          mesh={"data": data, "model": model}, mode=mode, backend="gloo",
          device="cuda:0 shared by every rank", seq=LM_SEQ, batch=LM_BATCH,
-         remat=cfg.remat, steps=MESH_TRAIN_STEPS,
+         remat=cfg.remat, steps=MOE_MESH_STEPS,
          experts_per_rank=cfg.n_experts // model,
          capacity_rows=moe_capacity(LM_SEQ * LM_BATCH, cfg),
          unsharded=flat, losses=[s["loss"] for s in res[0]["steps"]],
@@ -4933,7 +5192,8 @@ def phase_train_moe_mesh() -> int:
                                    zip(runs[1], flat)],
          ms_per_step_median=statistics.median(
              x["steps"][0]["ms"] for x in ranks),
-         timed_step="the first, a warm-up step",
+         timed_step=("the first, a warm-up step" if MOE_MESH_STEPS > 1
+                     else "the one step, profiled"),
          launches_per_step_per_rank=want_2d + want_grouped,
          phase_s=seconds, ranks=ranks)
     return launches
@@ -4942,7 +5202,7 @@ def phase_train_moe_mesh() -> int:
 def worker_train_moe(mesh, args) -> dict:
     """One rank of ``train_moe_mesh``."""
     cfg = moe_mesh_cfg()
-    batches, opt_cfg = mesh_batches(cfg), mesh_opt()
+    batches, opt_cfg = mesh_batches(cfg, MOE_MESH_STEPS), mesh_opt()
     policy = ShardPolicy(MOE_MESH_MODE)
     params = init_params(cfg, 0, device="cuda")
     specs = state_specs(state_template(params), mesh, policy)
@@ -4999,7 +5259,8 @@ def worker_train_moe(mesh, args) -> dict:
     launches = counted.launches
     peak = torch.cuda.max_memory_allocated()
     if profile is not None and profile["device_busy_ms_per_step"]:
-        # against the unprofiled step, the warm-up
+        # against the first step: the unprofiled warm-up, or with one
+        # step the profiled step itself
         profile["device_idle_share"] = \
             1.0 - profile["device_busy_ms_per_step"] / out_steps[0]["ms"]
     del holder
@@ -5441,7 +5702,12 @@ def main():
                "rank's heads: each rank's 16-forward generate, 15 tile "
                "launches a forward, and the 2 x 2 ranks' PagedScheduler "
                "runs; serve_mesh_mqa's recurrentgemma-9b at 3 of 38 "
-               "layers on 1 x 2, 20 a forward, 8 forwards a rank); "
+               "layers on 1 x 2, 20 a forward, 8 forwards a rank, its "
+               "RG-LRU on each rank's width slice; serve_mesh_mixers' "
+               "mamba2-130m whole, 49 a forward, and deepseek-v2-lite-16b "
+               "at 2 of 27 layers, 20 a forward, on the same ranks, 8 "
+               "forwards each a rank, their SSD and MLA mixers on each "
+               "rank's heads); "
                "serve_mesh_sqd's ranks (whisper-tiny whole on a 1 x 4 "
                "gloo mesh sharing the card, attention on each rank's "
                "query rows or head dims: 59 launches a prefill and 33 a "
@@ -5470,6 +5736,9 @@ def main():
                                 for (d, m), v in mesh_step.items()},
         "mesh_tiles_b4": [dict(name=k[0], part=k[1], shards=k[2], **v)
                           for k, v in mesh_rows.items() if k[3] == 4],
+        "ukv_col_tiles": [dict(name=k[0], shards=k[2], rows=k[3], **v)
+                          for k, v in mesh_rows.items()
+                          if k[0].startswith("deepseek attn.ukv")],
         "recurrent_decode_step_ms": {m: v["ms"] for m, v in rec_step.items()},
         "recurrent_decode_step_plain_ms": {m: v["plain_ms"]
                                            for m, v in rec_step.items()},

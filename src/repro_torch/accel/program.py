@@ -128,12 +128,21 @@ def segment_dma_words() -> int:
 # tag leaves whose projection is the second GEMM of a Megatron pair (the
 # input is already split over the model axis): split along N, partial
 # sums all-reduced after the ADC epilogue.  Derived from the parameter
-# names the reference's sharding rules mark row-parallel (a copy of
-# ``repro.distributed.sharding._ROW_PARALLEL_PARENTS``) through the
-# name -> policy-tag-leaf map.
-_ROW_PARALLEL_PARENTS = ("down", "wo", "out", "out_proj", "w_ukv")
+# names the reference's sharding rules mark row-parallel
+# (``repro.distributed.sharding._ROW_PARALLEL_PARENTS``) through the
+# name -> policy-tag-leaf map, but for MLA's ``w_ukv``, which a serving
+# program cuts into column tiles: the reference's activation constraint
+# on its output (``kvu`` on its heads over "tp", the latent whole; repro/
+# models/attention.py:440-441) is what a column tile of its h * (dn + dv)
+# columns gives each rank with no collective, its own heads' keys and
+# values, where a row tile would all-reduce the whole expansion (4.29 GB
+# a layer at decode_32k).  A column tile holds the unsharded image's
+# bits: the whole N and the global input scale stay on every rank.  The
+# parameter rule of training (``distributed/sharding.py``) keeps the
+# reference's row split.
+_ROW_PARALLEL_PARENTS = ("down", "wo", "out", "out_proj")
 _PARENT_TO_TAG_LEAF = {"down": "down", "wo": "o", "out": "out",
-                       "out_proj": "out_proj", "w_ukv": "ukv"}
+                       "out_proj": "out_proj"}
 _ROW_PARALLEL_LEAVES = tuple(_PARENT_TO_TAG_LEAF[p]
                              for p in _ROW_PARALLEL_PARENTS)
 

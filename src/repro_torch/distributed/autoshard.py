@@ -30,8 +30,13 @@ statistic reduced over ``"model"`` by :func:`model_block`).  On its
 query rows or head dims (``"sq"``, ``"d"``; no tiles needed) attention
 itself runs on the rank's share between gathered projections, the
 scores summed over ``"model"`` in ``"d"``
-(``models.attention.split_sdpa``).  Every other activation stays whole
-on the model axis.  A training step's :func:`global_batch` scope
+(``models.attention.split_sdpa``).  MLA, the SSD mixer and the RG-LRU
+run on the rank's share of the dims the reference's ``cs`` constraints
+on q and ``kvu``, on ``xs`` and on ``xr`` put on ``"tp"``
+(``models.mixer_split``): MLA's heads with its q and ``w_ukv`` tiles
+local, SSD's heads or head dims and the LRU width with their scans and
+states, the projections around them local where the tiles allow.  Every
+other activation stays whole on the model axis.  A training step's :func:`global_batch` scope
 carries no tiles and splits no attention, so the mesh form of training
 is untouched by them.  The MoE block's two
 constraints (the dispatch buffer and the expert outputs sharded on their

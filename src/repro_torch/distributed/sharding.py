@@ -456,8 +456,11 @@ def cache_specs(cache, mesh, batch_size: int,
     runs on the rank's heads or head dims: "model" on the kv-head dim
     (mode "kv") or on the head dim (mode "d"), as the reference's own
     attention constraints put them on "tp" (XLA reshards between the
-    two).  A split over the cache's sequence, this rule's layout, waits
-    (ROADMAP 4r)."""
+    two); the SSM state holds the rank's heads (or head dims) and the
+    conv state its x channels, the LRU states the rank's width slice,
+    and MLA's latent cache stays whole (``models.mixer_split``: the
+    reference's constraints on ``xs``, ``xr`` and ``kvu``).  A split over
+    the cache's sequence, this rule's layout, waits (ROADMAP 4r)."""
     return _map_with_path(
         lambda _p, leaf: cache_spec(leaf.shape, mesh, batch_size, policy),
         cache)

@@ -24,7 +24,10 @@ form of the cell's entry point under a
   scale counted as an all-reduce; on its query rows in ``"sq"`` and its
   head dims in ``"d"``, the KV cache and whisper's cross keys and values
   then the rank's head-dim slice, each score sum of ``"d"`` (one a
-  512-key chunk) and each output gather counted).
+  512-key chunk) and each output gather counted; MLA on the rank's q
+  heads with ``w_ukv`` a local column tile, the SSD mixer on its heads
+  or head dims and the RG-LRU on its width slice, their states the
+  rank's share, as ``models.mixer_split`` splits them).
 
 Each cell writes ``<out>/<arch>__<shape>__<pod1|pod2>.json`` with the
 reference's keys: ``status``, ``hlo_stats`` (the counter's counts, per
@@ -35,9 +38,8 @@ operand and its result, as the reference takes them),
 handed), ``n_devices``, ``memory_analysis.temp_size_in_bytes`` (the
 counter's peak of bytes allocated in the step beyond its arguments) and
 ``count_s``, the cell's wall seconds (set-up and the counted run).
-Where the port replicates what XLA would shard (MLA, SSM and RG-LRU
-heads, 2-D training compute) the counts say so: they are the port's,
-not the reference's.
+Where the port replicates what XLA would shard (2-D training compute)
+the counts say so: they are the port's, not the reference's.
 A cell that raises is written with ``status: "error"``, as the
 reference writes one; :func:`repro_torch.roofline.analysis.main` renders
 the table.

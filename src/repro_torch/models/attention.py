@@ -34,24 +34,23 @@ reference's rule (:func:`attn_tp_mode`) puts the model axis
 The tiles and the input grid are the ones the whole-activation mesh
 path uses, so ``"kv"``, ``"g"`` and ``"sq"`` give its results (``"sq"``
 up to the rows' float order where the matmul blocks another number of
-rows differently); ``"d"`` sums each score in another order.
+rows differently); ``"d"`` sums each score in another order.  MLA runs
+on the rank's q heads where the tiles allow it
+(:func:`~repro_torch.models.mixer_split.mla_split`, in
+:func:`mla_attention`), with the same bits.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.accel.context import current_override
-from repro_torch.accel.shard import SHARD_BACKENDS
-from repro_torch.core.quant import Coding
 from repro_torch.distributed.autoshard import (get_mesh, get_shard_policy,
-                                               in_manual, mesh_tiles,
-                                               train_mesh)
+                                               in_manual, train_mesh)
 
 from .layers import apply_rope, init_linear, linear
+from .mixer_split import mla_split, tiles_allow
 
 DEFAULT_CHUNK = 512
 
@@ -110,7 +109,8 @@ def head_split(cfg, sq: int = 1) -> Optional[HeadSplit]:
     ``[k sq/m, (k+1) sq/m)``) and ``"d"`` (its head dims ``[k hd/m,
     (k+1) hd/m)``) change no tile (q, k and v are gathered, ``wo`` takes
     the whole activation), so they hold on any backend, the XNOR 1-bit
-    ``wo`` included."""
+    ``wo`` included.  MLA takes none of these
+    (:func:`~repro_torch.models.mixer_split.mla_split` is its split)."""
     mesh = get_mesh()
     if cfg.mla or mesh is None or train_mesh() is not None \
             or in_manual("model"):
@@ -124,16 +124,7 @@ def head_split(cfg, sq: int = 1) -> Optional[HeadSplit]:
                          (k + 1) * (n // m))
     if mode not in _LOCAL_TILES:
         return None
-    tiles = mesh_tiles()
-    need = _LOCAL_TILES[mode]
-    if any(tiles.get(tag) != part for tag, part in need.items()):
-        return None
-    sp, ov = cfg.policy.resolver("attn"), current_override()
-    specs = {tag: dataclasses.replace(sp(tag), **ov) for tag in need}
-    if any(s.backend not in SHARD_BACKENDS for s in specs.values()):
-        return None
-    o = specs["attn.o"]
-    if Coding(o.coding) == Coding.XNOR and o.bx == 1:
+    if not tiles_allow(cfg, "attn", _LOCAL_TILES[mode], "attn.o"):
         return None
     # a column tile is whole heads only where the heads divide the axis
     assert h % m == 0, (h, m)
@@ -573,13 +564,25 @@ def mla_attention(params, x, cfg, positions, cache: Optional[MLACache] = None,
     and ``w_ukv`` expands the latents it attends over (at decode, the
     whole cache) into per-head keys and values.  ``pad_mask`` and a
     per-row ``cache_pos`` as in :func:`attention`.  Returns (out,
-    cache)."""
+    cache).
+
+    On a serving mesh whose tiles allow it (:func:`~repro_torch.models.
+    mixer_split.mla_split`) the rank runs its own q heads: ``wq`` and
+    ``w_ukv`` as local column tiles (its heads' q, keys and values, with
+    no collective), attention on them, and ``wo``'s row tile on its
+    heads' output.  The latent cache and the shared rope key stay whole
+    on every rank."""
     b, s, _ = x.shape
     h = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     sp = cfg.policy.resolver("attn")
+    split = mla_split(cfg)
+    col = row = None
+    if split is not None:
+        h, col, row = split.size, "col", "row"
 
-    q = linear(params["wq"], x, sp("attn.q"), dtype).reshape(b, s, h, dn + dr)
+    q = linear(params["wq"], x, sp("attn.q"), dtype,
+               local=col).reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q = torch.cat([q_nope, apply_rope(q_rope, positions, cfg.rope_theta)],
                   dim=-1)
@@ -614,14 +617,15 @@ def mla_attention(params, x, cfg, positions, cache: Optional[MLACache] = None,
         q_pos = offs
 
     length = full_c.shape[1]
-    kvu = linear(params["w_ukv"], full_c, sp("attn.ukv"), dtype).reshape(
-        b, length, h, dn + dv)
+    kvu = linear(params["w_ukv"], full_c, sp("attn.ukv"), dtype,
+                 local=col).reshape(b, length, h, dn + dv)
     k_nope, v = kvu[..., :dn], kvu[..., dn:]
     k = torch.cat([k_nope, full_rope.expand(b, length, h, dr)], dim=-1)
     o = sdpa(q, k, v, causal=True, scale=(dn + dr) ** -0.5, dtype=dtype,
              kv_positions=kv_pos, q_positions=q_pos,
              scan_remat=cfg.attn_scan_remat, bf16_probs=cfg.attn_bf16_probs)
-    out = linear(params["wo"], o.reshape(b, s, h * dv), sp("attn.o"), dtype)
+    out = linear(params["wo"], o.reshape(b, s, h * dv), sp("attn.o"), dtype,
+                 local=row)
     return out, cache
 
 

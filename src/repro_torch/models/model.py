@@ -277,7 +277,9 @@ def init_cache(cfg, batch: int, s_max: int, device="cuda") -> DecodeCache:
     none), so a batcher's live cache has a place to splice each admitted
     slot's encoder output into.  On a serving mesh its KV caches and
     cross keys and values hold what the rank serves
-    (``attention.kv_cache_dims``, ``attention.cross_kv_dims``)."""
+    (``attention.kv_cache_dims``, ``attention.cross_kv_dims``), and its
+    SSM and LRU states the rank's share (``ssm.state_dims``,
+    ``rglru.state_width``)."""
     dtype = _dtype(cfg)
     layers = tfm.init_stack_cache(cfg, batch, s_max, dtype, device)
     cross_kv = None

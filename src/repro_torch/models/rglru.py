@@ -12,6 +12,15 @@ it stays digital; the block's dense projections ``rec.in_x``,
 ``rec.in_gate`` and ``rec.out`` go through ``accel.matmul``, while the
 gates ``w_rg``/``w_ig`` dispatch with ``spec=None`` in float32, as in the
 reference.
+
+On a serving mesh (:func:`~repro_torch.models.mixer_split.lru_split`)
+each rank runs the conv, the recurrence and the state of its slice of
+the LRU width: ``in_x`` and ``in_gate`` (with its fused GELU) as local
+column tiles where the program's tiles allow it (else their outputs are
+sliced), the conv on the slice, the conv's output gathered over
+``"model"`` for the gates (which contract the whole width), each gate's
+columns of the slice, the scan, and ``out`` on ``hs * gate`` as a local
+row tile (else ``y`` is gathered and ``out`` runs as off the mesh).
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ from repro_torch.accel import Postreduce
 from repro_torch.core.datapath import ACTIVATIONS
 
 from .layers import init_linear, linear
+from .mixer_split import lru_split, serving_mesh
 from .ssm import _causal_conv, _softplus
 
 C_EXP = 8.0   # the paper's fixed exponent on the recurrent gate
@@ -72,28 +82,50 @@ def rglru_forward(params, x, cfg, state: Optional[LRUState] = None,
     ``pad_mask`` ([B, S] bool, True = real token; left-padded prefill):
     padded steps become identity transitions (a = 1, input term 0) and
     their conv inputs are zeroed, so the state after a left-padded prompt
-    equals the state after the unpadded prompt."""
+    equals the state after the unpadded prompt.
+
+    On a serving mesh the rank runs its width slice (module docstring)
+    and ``state`` holds it (:func:`state_width`; a state of another
+    split raises)."""
     b = x.shape[0]
     s = x.shape[1]
     sp = cfg.policy.resolver("rec")
+    split = lru_split(cfg)
+    width = state_width(cfg)
+    if state is not None and int(state.h.shape[-1]) != width:
+        raise ValueError(
+            f"an LRU state of width {int(state.h.shape[-1])} for a block of "
+            f"{width} on this rank: make the state in the scope that "
+            f"serves it")
+    col = "col" if split is not None and split.local else None
     # the gate GELU rides the in_gate projection's fused datapath epilogue
     if getattr(cfg, "fuse_datapath", True):
         gate = linear(params["in_gate"], x, sp("rec.in_gate"), dtype,
-                      post=Postreduce(act="gelu"))
+                      post=Postreduce(act="gelu"), local=col)
     else:
         gate = ACTIVATIONS["gelu"](linear(params["in_gate"], x,
-                                          sp("rec.in_gate"), dtype))
-    xr = linear(params["in_x"], x, sp("rec.in_x"), dtype)
+                                          sp("rec.in_gate"), dtype,
+                                          local=col))
+    xr = linear(params["in_x"], x, sp("rec.in_x"), dtype, local=col)
+    if col is None:
+        gate, xr = _share(gate, split), _share(xr, split)
     if pad_mask is not None:
         xr = xr * pad_mask[..., None].to(xr.dtype)
     conv_state = state.conv if state is not None else None
-    xr, new_conv = _causal_conv(xr, params["conv_w"].to(dtype),
-                                params["conv_b"].to(dtype), conv_state)
+    xr, new_conv = _causal_conv(xr, _share(params["conv_w"], split).to(dtype),
+                                _share(params["conv_b"], split).to(dtype),
+                                conv_state)
 
     xf = xr.to(torch.float32)
-    r = torch.sigmoid(linear(params["w_rg"], xr, None, torch.float32))
-    i = torch.sigmoid(linear(params["w_ig"], xr, None, torch.float32))
-    log_a = -C_EXP * r * _softplus(-params["lambda"])   # log sigmoid(L)^cr
+    # the gates contract the whole width: the conv's output gathered
+    xw = xr if split is None else serving_mesh().all_gather(xr, "model", -1)
+    r = torch.sigmoid(linear({k: _share(v, split)
+                              for k, v in params["w_rg"].items()}, xw, None,
+                             torch.float32))
+    i = torch.sigmoid(linear({k: _share(v, split)
+                              for k, v in params["w_ig"].items()}, xw, None,
+                             torch.float32))
+    log_a = -C_EXP * r * _softplus(-_share(params["lambda"], split))
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * xf)
     if pad_mask is not None:
@@ -115,15 +147,33 @@ def rglru_forward(params, x, cfg, state: Optional[LRUState] = None,
         h = hs[:, -1]
 
     y = hs.to(dtype) * gate
-    out = linear(params["out"], y, sp("rec.out"), dtype)
+    if split is not None and col is None:
+        y = serving_mesh().all_gather(y, "model", -1)
+    out = linear(params["out"], y, sp("rec.out"), dtype,
+                 local="row" if col is not None else None)
     return out, LRUState(new_conv, h)
+
+
+def _share(t: torch.Tensor, split) -> torch.Tensor:
+    """The rank's width slice of ``t``'s last dim (``t`` off a split)."""
+    return t if split is None else t[..., split.lo:split.hi]
+
+
+def state_width(cfg) -> int:
+    """The LRU width a rank's state holds: its slice on a serving mesh
+    (:func:`~repro_torch.models.mixer_split.lru_split`), else all."""
+    split = lru_split(cfg)
+    return cfg.lru_width if split is None else split.size
 
 
 def init_lru_state(cfg, batch: int, dtype, device,
                    lead: tuple = ()) -> LRUState:
+    """A zero state; on a serving mesh the rank's width slice
+    (:func:`state_width`)."""
+    w = state_width(cfg)
     return LRUState(
-        conv=torch.zeros(lead + (batch, cfg.conv1d_size - 1, cfg.lru_width),
+        conv=torch.zeros(lead + (batch, cfg.conv1d_size - 1, w),
                          dtype=dtype, device=device),
-        h=torch.zeros(lead + (batch, cfg.lru_width), dtype=torch.float32,
+        h=torch.zeros(lead + (batch, w), dtype=torch.float32,
                       device=device),
     )

@@ -10,6 +10,19 @@ The in/out projections are static-weight MVMs and run through
 ``accel.matmul`` (policy paths ``ssm.in_proj``/``ssm.out_proj``); the SSD
 scan multiplies two activations, so it stays digital: plain torch ops,
 as plain XLA ops in the reference.
+
+On a serving mesh (:func:`~repro_torch.models.mixer_split.ssd_split`)
+each rank runs the conv, the scan and the state of its heads
+(``"heads"``) or of its slice of every head's dims (``"p"``):
+``in_proj`` stays a gathered column tile (its packed ``[z | xBC | dt]``
+columns do not fall on head boundaries) and the rank takes its channels
+of it.  In ``"heads"``, where the program's ``out_proj`` is a row tile,
+the gated RMSNorm and ``out_proj`` run on the rank's channels too: each
+head's sum of squares is gathered over ``"model"`` (so the mean is the
+unsharded one, bit for bit) and ``out_proj`` takes the rank's channels
+as a local row tile.  Otherwise ``y`` is gathered over ``"model"``
+before the norm (in ``"p"`` the rank's channels are strided), and the
+norm and ``out_proj`` run as off the mesh.
 """
 from __future__ import annotations
 
@@ -20,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import init_linear, linear
+from .mixer_split import MixerSplit, serving_mesh, ssd_split
 
 
 class SSMState(NamedTuple):
@@ -143,6 +157,57 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int, init_state=None):
     return y, st
 
 
+def _share_dims(cfg, split: Optional[MixerSplit]) -> tuple:
+    """(heads, head dim) of the rank's share of the SSD mixer."""
+    _, n_heads, _ = dims(cfg)
+    if split is None:
+        return n_heads, cfg.ssm_head_dim
+    if split.mode == "heads":
+        return split.size, cfg.ssm_head_dim
+    return n_heads, split.size
+
+
+def _channels(t: torch.Tensor, cfg, split: Optional[MixerSplit]):
+    """The rank's x channels of ``t``'s last dim (``d_inner`` head-major
+    channels, or more: the rest is dropped): its heads' block in
+    ``"heads"``, its slice of each head's dims in ``"p"``."""
+    p = cfg.ssm_head_dim
+    if split is None:
+        return t
+    if split.mode == "heads":
+        return t[..., split.lo * p:split.hi * p]
+    heads = dims(cfg)[1]
+    return t[..., :heads * p].unflatten(-1, (heads, p))[
+        ..., split.lo:split.hi].flatten(-2)
+
+
+def _heads(t: torch.Tensor, split: Optional[MixerSplit]) -> torch.Tensor:
+    """The rank's heads of a per-head operand's last dim in ``"heads"``;
+    ``t`` otherwise (every head in ``"p"``)."""
+    if split is None or split.mode != "heads":
+        return t
+    return t[..., split.lo:split.hi]
+
+
+def _conv_operand(t: torch.Tensor, cfg, split: Optional[MixerSplit]):
+    """The rank's channels of a conv operand over ``[x | B | C]``: its x
+    channels followed by B and C, whole."""
+    if split is None:
+        return t
+    d_inner = dims(cfg)[0]
+    return torch.cat([_channels(t, cfg, split), t[..., d_inner:]], dim=-1)
+
+
+def state_dims(cfg) -> tuple:
+    """The shapes, without the batch, of a rank's (conv, ssm) state:
+    ``(K-1, x channels + 2N)`` and ``(heads, head dim, N)`` of its share
+    (:func:`~repro_torch.models.mixer_split.ssd_split`; the whole mixer
+    off a serving mesh)."""
+    heads, p = _share_dims(cfg, ssd_split(cfg))
+    return ((cfg.conv1d_size - 1, heads * p + 2 * cfg.ssm_state),
+            (heads, p, cfg.ssm_state))
+
+
 def ssm_forward(params, x, cfg, state: Optional[SSMState] = None,
                 decode: bool = False, dtype=torch.bfloat16, pad_mask=None):
     """Full mixer.  x: [B, S, d].  Returns (y, new_state).
@@ -151,29 +216,43 @@ def ssm_forward(params, x, cfg, state: Optional[SSMState] = None,
     padded steps are identity transitions: conv inputs zeroed (so the
     carried conv state matches an unpadded run) and ``dt`` zeroed (so
     ``exp(dt*A) = 1`` passes the SSD state through and the padded step
-    adds nothing to any real position's output)."""
+    adds nothing to any real position's output).
+
+    On a serving mesh the rank runs its share (module docstring) and
+    ``state`` holds it (:func:`state_dims`; a state of another split
+    raises)."""
     b, s, _ = x.shape
     d_inner, n_heads, conv_dim = dims(cfg)
     n = cfg.ssm_state
     sp = cfg.policy.resolver("ssm")
+    split = ssd_split(cfg)
+    heads, p = _share_dims(cfg, split)
+    if state is not None and tuple(state.ssm.shape[-3:]) != (heads, p, n):
+        raise ValueError(
+            f"an SSM state of {tuple(state.ssm.shape[-3:])} (heads, head "
+            f"dim, N) for a mixer of {(heads, p, n)} on this rank: make "
+            f"the state in the scope that serves it")
+    local = split is not None and split.local
 
     zxbcdt = linear(params["in_proj"], x, sp("ssm.in_proj"), dtype)
     z = zxbcdt[..., :d_inner]
-    xbc = zxbcdt[..., d_inner:d_inner + conv_dim]
-    dt = _softplus(zxbcdt[..., -n_heads:].to(torch.float32)
-                   + params["dt_bias"])
+    xbc = _conv_operand(zxbcdt[..., d_inner:d_inner + conv_dim], cfg, split)
+    dt = _softplus(_heads(zxbcdt[..., -n_heads:], split).to(torch.float32)
+                   + _heads(params["dt_bias"], split))
     if pad_mask is not None:
         xbc = xbc * pad_mask[..., None].to(xbc.dtype)
         dt = dt * pad_mask[..., None].to(dt.dtype)
 
     conv_state = state.conv if state is not None else None
-    xbc, new_conv = _causal_conv(xbc, params["conv_w"].to(dtype),
-                                 params["conv_b"].to(dtype), conv_state)
+    xbc, new_conv = _causal_conv(
+        xbc, _conv_operand(params["conv_w"], cfg, split).to(dtype),
+        _conv_operand(params["conv_b"], cfg, split).to(dtype), conv_state)
     xbc = F.silu(xbc)
-    xs = xbc[..., :d_inner].reshape(b, s, n_heads, cfg.ssm_head_dim)
-    B_ = xbc[..., d_inner:d_inner + n].to(torch.float32)
-    C_ = xbc[..., d_inner + n:].to(torch.float32)
-    A = params["A_log"]
+    d_loc = heads * p
+    xs = xbc[..., :d_loc].reshape(b, s, heads, p)
+    B_ = xbc[..., d_loc:d_loc + n].to(torch.float32)
+    C_ = xbc[..., d_loc + n:].to(torch.float32)
+    A = _heads(params["A_log"], split)
 
     if decode:
         assert s == 1
@@ -187,25 +266,39 @@ def ssm_forward(params, x, cfg, state: Optional[SSMState] = None,
                                  cfg.ssm_chunk,
                                  init_state=(state.ssm if state is not None
                                              else None))
-    y = y + params["D"][None, None, :, None] * xs.to(torch.float32)
-    y = y.reshape(b, s, d_inner).to(dtype)
+    y = y + _heads(params["D"], split)[None, None, :, None] \
+        * xs.to(torch.float32)
+    norm_scale = params["norm_scale"]
+    if local:        # the norm and out_proj on the rank's channels
+        z, norm_scale = _channels(z, cfg, split), _channels(norm_scale, cfg,
+                                                            split)
+    elif split is not None:     # [B, S, heads, p]: gather the share
+        y = serving_mesh().all_gather(y.to(dtype), "model",
+                                      dim=2 if split.mode == "heads" else 3)
+    y = y.reshape(b, s, -1).to(dtype)
 
-    # gated RMSNorm (mamba2)
+    # gated RMSNorm (mamba2): the mean over d_inner is the sum of each
+    # head's sum of squares times the float32 reciprocal of d_inner
     yf = y.to(torch.float32) * F.silu(z.to(torch.float32))
-    yf = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + 1e-6)
-    y = (yf * params["norm_scale"]).to(dtype)
+    ss = (yf * yf).unflatten(-1, (-1, cfg.ssm_head_dim)).sum(dim=-1)
+    if local:
+        ss = serving_mesh().all_gather(ss, "model", dim=-1)
+    ms = ss.sum(dim=-1, keepdim=True) * (1.0 / d_inner)
+    yf = yf * torch.rsqrt(ms + 1e-6)
+    y = (yf * norm_scale).to(dtype)
 
-    out = linear(params["out_proj"], y, sp("ssm.out_proj"), dtype)
+    out = linear(params["out_proj"], y, sp("ssm.out_proj"), dtype,
+                 local="row" if local else None)
     return out, SSMState(new_conv, new_ssm)
 
 
 def init_ssm_state(cfg, batch: int, dtype, device,
                    lead: tuple = ()) -> SSMState:
-    d_inner, n_heads, conv_dim = dims(cfg)
+    """A zero state; on a serving mesh the rank's share
+    (:func:`state_dims`)."""
+    conv, ssm = state_dims(cfg)
     return SSMState(
-        conv=torch.zeros(lead + (batch, cfg.conv1d_size - 1, conv_dim),
-                         dtype=dtype, device=device),
-        ssm=torch.zeros(lead + (batch, n_heads, cfg.ssm_head_dim,
-                                cfg.ssm_state),
-                        dtype=torch.float32, device=device),
+        conv=torch.zeros(lead + (batch,) + conv, dtype=dtype, device=device),
+        ssm=torch.zeros(lead + (batch,) + ssm, dtype=torch.float32,
+                        device=device),
     )

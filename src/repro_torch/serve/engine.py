@@ -33,7 +33,11 @@ attention output; on the query rows (``"sq"``) or the head dim
 (``"d"``), attention runs on the rank's rows or head dims between the
 gathered projections, and where a decode step is ``"d"`` the KV caches
 and whisper's cross keys and values (the dense cache, each slot's,
-every splice) hold the rank's head-dim slice.  Every other activation
+every splice) hold the rank's head-dim slice.  MLA runs on the rank's
+q heads (``wq`` and ``w_ukv`` as local column tiles, the latent cache
+whole), the SSD mixer on its heads or head dims and the RG-LRU on its
+width slice, their states (in every cache, slot and splice) holding
+the rank's share (``models.mixer_split``).  Every other activation
 stays whole on the model axis.  The data axis splits batch rows: a batch the
 data axis divides (``generate``'s prompts, the batchers' slots) is
 served by each data shard on its own rows, with its own rows of the
@@ -313,8 +317,9 @@ class Engine:
         """A fresh decode cache at full batch width: on a mesh whose data
         axis splits ``batch``, this data shard's rows of it; its KV
         caches (and whisper's cross keys and values) hold the heads or
-        head dims this rank serves, the layout every prefill of the
-        batchers splices into it."""
+        head dims this rank serves and its SSM and LRU states the
+        rank's share, the layout every prefill of the batchers splices
+        into it."""
         rows = self.data_rows(batch)
         n = batch if rows is None else rows.stop - rows.start
         with self._scope():

@@ -36,7 +36,9 @@ to the slot batcher (tests/test_torch_paged.py).  Every function here
 is generic over the leaves' shapes: on a mesh where attention runs on
 the rank's heads or head dims the probed layout, and so the pools, the
 gather, the scatter and the splice, hold the rank's kv heads (mode
-``"kv"``) or its head-dim slice (``"d"``).
+``"kv"``) or its head-dim slice (``"d"``), and where the SSD mixer and
+the RG-LRU run on the rank's share (``models.mixer_split``) the slot
+states hold the rank's SSM heads or head dims and LRU width.
 
 Tables and positions are ``int64`` on the device; the host mirrors the
 scheduler keeps are ``int32``, as in the reference.

@@ -38,8 +38,10 @@ any block): a shard writes and reads only its own slots' blocks.
 Admission prefills run on every rank; the splice lands on the shard that
 holds the slot.  Where attention runs on the rank's own heads or head
 dims (``models.attention.head_split``), the pools, the gathered view,
-the scatter and the splice hold the rank's kv heads or head-dim slice
-(the layout probe runs in the engine's scope), so the pools' bytes
+the scatter and the splice hold the rank's kv heads or head-dim slice,
+and the slot states the rank's share of the SSD and RG-LRU states
+(``models.mixer_split``; the layout probe runs in the engine's scope),
+so the pools' bytes
 and the allocator's audit are the rank's; block ids, deferrals and
 preemptions are the unsharded scheduler's, and the streams equal the
 slot batcher's.

@@ -50,6 +50,14 @@ cache, whose head dims it gathers); a decode step's
 collectives as reckoned from its records (one score sum and one output
 gather an attention call); ``split_sdpa`` on the dense and the chunked
 path against ``sdpa`` whole.
+
+The mixers on the rank's share (``models.mixer_split``): reduced
+mamba2-130m (its SSD mixer on 4 of 8 heads a rank) and reduced
+deepseek-v2-lite at 2 layers (MLA on 2 of 4 q heads a rank, dropless at
+capacity factor 64), on ``digital_int`` with the port's seeded weights,
+on the same group's 1 x 2 rank pairs (``torch_mesh.py::serve_streams``).
+Held: the slot batcher's and the paged scheduler's streams equal each
+request's solo ``generate`` on the mesh.
 """
 import dataclasses
 import warnings
@@ -75,6 +83,7 @@ from repro_torch.configs import get_config as tget
 from repro_torch.convert import params_from_jax
 from repro_torch.distributed.sharding import ShardPolicy
 from repro_torch.launch.mesh import ServeMesh
+from repro_torch.models import init_params as tinit
 from repro_torch.serve import PagedScheduler, ServeConfig
 from repro_torch.tune import TunedConfig
 
@@ -99,6 +108,11 @@ SQD_CASES = [((1, 2), name) for name in SQD]
 SQD_TOL = dict(rtol=1e-5, atol=1e-5)
 # a greedy token may turn where the unsharded top-2 logits are this close
 NEAR_TIE = 1e-3
+# split mixers (SSD heads, MLA heads) served by the slot batcher and the
+# paged scheduler on 1 x 2: config changes on the reduced config
+STREAMS = {"mamba2-130m": {},
+           "deepseek-v2-lite-16b": dict(n_layers=2, moe_capacity_factor=64.0)}
+STREAM_CASES = [((1, 2), name) for name in STREAMS]
 
 
 def _reduced(get, name: str):
@@ -129,13 +143,18 @@ def setup():
                          digital=digital,
                          params=params_from_jax(jax.tree.map(np.asarray, pj),
                                                 "cpu"))
+    streams = {}
+    for name, changes in STREAMS.items():
+        cfg = dataclasses.replace(tget(name).reduced(), **changes)
+        cfg = cfg.with_accel("digital_int", **SPEC)
+        streams[name] = (cfg, tinit(cfg, 0, device="cpu", max_seq=64))
     vocab = jax_configs["olmo-1b"][0].vocab
     r = np.random.default_rng(0)
     prompts = r.integers(0, vocab, (4, 8))
     requests = [(r.integers(0, vocab, (n,)), m)
                 for n, m in zip((5, 9, 3, 12, 7), (4, 6, 2, 5, 3))]
     return dict(jax_configs=jax_configs, configs=configs, prompts=prompts,
-                requests=requests, sqd=sqd)
+                requests=requests, sqd=sqd, streams=streams)
 
 
 @pytest.fixture(scope="module")
@@ -144,7 +163,8 @@ def runs(setup, tmp_path_factory):
     args = dict(configs=setup["configs"], meshes=MESHES,
                 prompts=setup["prompts"], requests=setup["requests"],
                 serve=SERVE, serve_by=SERVE_BY, n_slots=4,
-                tuned_config="olmo-1b", sqd=setup["sqd"])
+                tuned_config="olmo-1b", sqd=setup["sqd"],
+                streams=setup["streams"])
     wait = tm.start("serve", 4, tmp_path_factory.mktemp("serve"), args,
                     timeout=600)
     # the reference's runs of the "sq" / "d" configs, in a process of
@@ -510,3 +530,20 @@ def test_split_sdpa_dense_and_chunked_match_whole(runs, case):
             else:
                 np.testing.assert_allclose(got.numpy(), whole.numpy(),
                                            **SQD_TOL)
+
+
+# ------------------------------------------------------- split mixers
+
+@pytest.mark.parametrize("case", STREAM_CASES, ids=_sqd_ids(STREAM_CASES))
+def test_split_mixer_streams_equal_solo(runs, case):
+    """On 1 x 2 mamba2's SSD mixer runs on each rank's heads (its state
+    holding them) and deepseek's MLA on each rank's q heads; the slot
+    batcher's and the paged scheduler's streams equal each request's
+    solo ``generate`` on the mesh."""
+    ranks, _ = runs
+    kind = {"mamba2-130m": "ssd", "deepseek-v2-lite-16b": "mla"}[case[1]]
+    for k, r in enumerate(_held(ranks, case)):
+        mode, lo, hi, local = r["modes"][kind]
+        assert (mode, local) == ("heads", True) and lo == k * (hi - lo)
+        assert r["batcher"] == r["solo"]
+        assert r["paged"] == r["solo"]

@@ -205,22 +205,26 @@ def attention_chunks(keys: int, chunk: int = 512) -> int:
     return 1 if keys <= 2 * chunk else -(-keys // chunk)
 
 
-def reckoned_collectives(records, local=(), split=None) -> Counter:
+def reckoned_collectives(records, local=(), split=None,
+                         gathers: int = 0) -> Counter:
     """A decode step's model-axis collectives by ``(kind, axis, op)``,
     reckoned from its ``(tag, partition)`` records: a column tile's
-    gather but for the head-local ones (``local``), a row tile's sum,
-    one ``max`` of ``wo``'s input scale where attention ran on the
-    rank's heads; and where it ran on the rank's head dims or query rows
-    (``split``: the tag of each attention call's ``wo`` to its mode and
-    its keys), one score sum a chunk in ``"d"`` and the output's
-    gather."""
+    gather but for the local ones (``local``), a row tile's sum, one
+    ``max`` of a local row tile's input scale (``wo``'s where attention
+    ran on the rank's heads); where attention ran on the rank's head
+    dims or query rows (``split``: the tag of each attention call's
+    ``wo`` to its mode and its keys), one score sum a chunk in ``"d"``
+    and the output's gather; and the split mixers' own gathers
+    (``gathers``)."""
     want = Counter()
+    if gathers:
+        want["all-gather", "model", None] += gathers
     for tag, part in records:
         if part == "col" and tag not in local:
             want["all-gather", "model", None] += 1
         elif part == "row":
             want["all-reduce", "model", "sum"] += 1
-            if tag == "attn.o" and local:
+            if tag in local or (tag == "attn.o" and local):
                 want["all-reduce", "model", "max"] += 1
         if split and tag in split:
             mode, keys = split[tag]
@@ -423,6 +427,112 @@ def serve_sqd(params, cfg, digital_cfg, scfg, prompts, requests,
     return out
 
 
+def mixer_modes(cfg) -> dict:
+    """The split of each mixer the config has, in the ambient scope:
+    ``(mode, lo, hi, local)`` (``models.mixer_split``), or ``"whole"``."""
+    from repro_torch.models.mixer_split import (lru_split, mla_split,
+                                                ssd_split)
+
+    kinds = set(cfg.pattern())
+    found = {"mla": (cfg.mla, mla_split), "ssd": ("ssm" in kinds, ssd_split),
+             "lru": ("rec" in kinds, lru_split)}
+    return {k: tuple(fn(cfg)) if fn(cfg) is not None else "whole"
+            for k, (has, fn) in found.items() if has}
+
+
+def state_shapes(tree) -> dict:
+    """The shapes of a cache tree's recurrent states and latent caches,
+    by ``"<kind>.<field>"`` (the batch dim included)."""
+    from repro_torch.models.attention import MLACache
+    from repro_torch.models.rglru import LRUState
+    from repro_torch.models.ssm import SSMState
+
+    out: dict = {}
+
+    def walk(t):
+        for kind, cls in (("ssm", SSMState), ("lru", LRUState),
+                          ("mla", MLACache)):
+            if isinstance(t, cls):
+                for field, leaf in zip(cls._fields, t):
+                    out.setdefault(f"{kind}.{field}", set()).add(
+                        tuple(int(n) for n in leaf.shape))
+                return
+        if isinstance(t, dict):
+            t = list(t.values())
+        if isinstance(t, (list, tuple)):
+            for x in t:
+                walk(x)
+    walk(tree)
+    return out
+
+
+def serve_mixer(params, cfg, scfg, prompts, device="cpu") -> dict:
+    """What the split-mixer tests compare, on one config and (maybe
+    meshed) ServeConfig: each mixer's split in the engine's scope, the
+    shapes of its states and latent caches, greedy ``generate`` on the
+    config's backend, the logits of the prefill and of one decode step
+    after it on ``digital_int`` (the program's tiles) and on ``digital``
+    (no tiles: no projection local), and one traced decode step's
+    records and collectives (:func:`decode_step_counts`)."""
+    from repro_torch import accel
+    from repro_torch.serve import Engine
+
+    engine = Engine(params, cfg, scfg, device)
+    prompts = torch.as_tensor(prompts, device=engine.device)
+    with engine._scope():
+        modes = mixer_modes(cfg)
+    out = {"modes": modes,
+           "shapes": state_shapes(engine.init_cache(prompts.shape[0])
+                                  .layers),
+           "tokens": engine.generate(prompts)}
+    # digital: no program, so no tiles (an engine of its own: a mesh
+    # engine keeps no raw weight behind a tile)
+    for backend, eng in (("digital_int", engine), ("digital", Engine(
+            params, cfg.with_accel("digital"), scfg, device))):
+        with accel.override(backend=backend):
+            logits, cache = eng.prefill(prompts)
+            step = eng.decode(torch.argmax(logits, -1), cache)[0]
+        out[backend] = {"prefill": logits.cpu(), "decode": step.cpu()}
+    out["decode"] = decode_step_counts(engine, prompts)
+    return out
+
+
+def task_mixers(args) -> dict:
+    """:func:`serve_mixer` of each config of ``args["cases"]`` (name to
+    (config, params)) on a 1 x 2 mesh of the job's two ranks."""
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serve import ServeConfig
+
+    mesh = make_serve_mesh(1, 2, backend="gloo", device="cpu")
+    return {name: serve_mixer(params, cfg,
+                              ServeConfig(mesh=mesh, **args["serve"]),
+                              args["prompts"])
+            for name, (cfg, params) in args["cases"].items()}
+
+
+def serve_streams(params, cfg, scfg, requests, n_slots: int,
+                  device="cpu") -> dict:
+    """The streams of ``ContinuousBatcher`` and ``PagedScheduler`` on
+    ``requests`` (``(prompt, budget)`` pairs) over ``n_slots`` slots,
+    each request's solo ``generate``, and each mixer's split in the
+    engine's scope."""
+    from repro_torch.serve import ContinuousBatcher, Engine, PagedScheduler
+
+    engine = Engine(params, cfg, scfg, device)
+    with engine._scope():
+        out = {"modes": mixer_modes(cfg)}
+    out["solo"] = [Engine(params, cfg, dataclasses.replace(
+        scfg, max_new_tokens=m), device).generate(np.asarray(p)[None])[0]
+        .tolist() for p, m in requests]
+    for name, server in (("batcher", ContinuousBatcher),
+                         ("paged", PagedScheduler)):
+        srv = server(params, cfg, scfg, n_slots, device=device)
+        rids = [srv.submit(p, max_new_tokens=m) for p, m in requests]
+        res = srv.run()
+        out[name] = [list(res[r]) for r in rids]
+    return out
+
+
 def _pair_meshes(world: int, device: str) -> list:
     """A 1 x 2 gloo mesh over each pair of ranks of the job (made on
     every rank, in one order; None outside it)."""
@@ -438,29 +548,38 @@ def task_serve(args) -> dict:
     mesh of the job (its ServeConfig ``args["serve"]`` updated by the
     config's ``args["serve_by"]`` entry), and ``ServeConfig.from_tuned``
     on the 2 x 2 mesh; :func:`serve_sqd` of each config in
-    ``args["sqd"]`` (its ``cfg``, ``digital`` config and ``params``) on
-    1 x 2.  The 1 x 2 cases take the pairs of ranks in turn, so two run
-    at once on 4 ranks: a case's results are on the ranks of its mesh
-    only."""
+    ``args["sqd"]`` (its ``cfg``, ``digital`` config and ``params``) and
+    :func:`serve_streams` of each in ``args["streams"]`` (name to
+    (config, params)) on 1 x 2.  The 1 x 2 cases take the pairs of ranks
+    in turn, so two run at once on 4 ranks: a case's results are on the
+    ranks of its mesh only."""
     from repro_torch.serve import ServeConfig
     from repro_torch.tune import TunedConfig
 
     device = args.get("device", "cpu")
     pairs = _pair_meshes(args["world"], device)
     sqd = args.get("sqd", {})
+    streams = args.get("streams", {})
     out = {}
     for shape, mesh in meshes(args["world"], device):
         cases = [name for name in args["configs"]
                  if shape in args["meshes"][name]]
         if shape == (1, 2):
-            cases = [name for i, name in enumerate(cases + list(sqd))
-                     if pairs[i % len(pairs)] is not None]
+            cases = [name for i, name in enumerate(
+                cases + list(sqd) + list(streams))
+                if pairs[i % len(pairs)] is not None]
             mesh = next((m for m in pairs if m is not None), None)
         if mesh is None:
             continue
         for name in cases:
             scfg = ServeConfig(mesh=mesh, **{
                 **args["serve"], **args.get("serve_by", {}).get(name, {})})
+            if shape == (1, 2) and name in streams:
+                cfg, params = streams[name]
+                out[(shape, name)] = serve_streams(
+                    params, cfg, scfg, args["requests"], args["n_slots"],
+                    device)
+                continue
             if name in sqd:
                 out[(shape, name)] = serve_sqd(
                     sqd[name]["params"], sqd[name]["cfg"],
