@@ -576,6 +576,23 @@ ELASTIC_STEPS, ELASTIC_CRASH = 6, 4
 # global batch; the one step is timed and profiled.  One step (the CPU
 # tests hold three) for the script's time: serve_mesh_mixers took the room
 MOE_MESH, MOE_MESH_MODE, MOE_MESH_STEPS = (2, 2), "2d", 1
+# train_mesh's 1 x 2 "2d" steps run tensor-parallel: each rank computes its
+# column tiles of q/k/v, gate, up and the unembed, attention on its heads
+# ("kv"), its vocabulary block, and wo and mlp.down in the column form at
+# bank_n 2,304 (a rank's 1,024 / 4,096 rows are partial banks).  The tiles'
+# shapes at LM_BATCH x LM_SEQ rows are timed against their bound
+# (tp_tile lines); one more step at bank_n TP_BANK_N, where those rows are
+# whole banks, runs them as Megatron row tiles (tp_row_tile lines), held
+# to its own unsharded step
+TP_BANK_N = 1024
+TP_TILE_SHAPES = [
+    ("tp col attn.q/k/v + col-form attn.o 1/2", 2048, 1024, None,
+     4 * MESH_LAYERS),
+    ("tp col mlp.gate/up 1/2", 2048, 4096, None, 2 * MESH_LAYERS),
+    ("tp col-form mlp.down 1/2", 8192, 1024, None, MESH_LAYERS),
+    ("tp col unembed 1/2", 2048, 25152, None, 1)]
+TP_ROW_SHAPES = [("tp row attn.o 1/2", 1024, 2048, None, MESH_LAYERS),
+                 ("tp row mlp.down 1/2", 4096, 2048, None, MESH_LAYERS)]
 # ADC noise at the 0.85 V corner.  At fs = 255 (one bank of 255 rows, no
 # adaptive range) the clean ADC is exact and a code moves by
 # e = round(sigma z): P(e = +-1) = erfc(0.5 / (sigma sqrt 2)) = 0.09558,
@@ -784,7 +801,7 @@ def bound_ms(b, n, m, cfg, fused, peaks, extra_bytes=0):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
-def kernel_shapes(shapes, batch_rows, peaks, phase: str):
+def kernel_shapes(shapes, batch_rows, peaks, phase: str, bank_n=2304):
     """Each projection shape at each of ``batch_rows``: the kernel
     against its plain version, bitwise without the epilogue and within
     FUSED_TOL with the fused per-row scale and activation where the
@@ -792,7 +809,7 @@ def kernel_shapes(shapes, batch_rows, peaks, phase: str):
     ``device_ms``, with the forward's epilogue), the plain version and,
     for context only, torch.matmul of the integer grids (the ideal-ADC
     product, not the same function).  One ``phase`` line per shape."""
-    cfg = BpbsConfig(ba=4, bx=4)
+    cfg = BpbsConfig(ba=4, bx=4, bank_n=bank_n)
     rows = {}
     worst = 0.0
     for name, n, m, act, per_fwd in shapes:
@@ -4864,7 +4881,7 @@ def elastic_setup(root: Path):
     return cfg, data_cfg, opt_cfg, tcfg
 
 
-def phase_train_mesh() -> int:
+def phase_train_mesh(peaks) -> tuple:
     """olmo-1b (``mesh_olmo``) trained on the kernel on a 1 x 2 ("2d") and
     a 2 x 2 ("fsdp") mesh of gloo ranks sharing the card (``train_mesh``:
     ``build_train_step(mesh=)``, the mesh form of train_lm's main path,
@@ -4880,15 +4897,32 @@ def phase_train_mesh() -> int:
     (full leaves) on 1 x 2 and on this process: final losses within
     TRAIN_MESH_RTOL of the uninterrupted run's.  Per rank: ms a step by
     phase (gather, forward and backward, gradient reduction, update),
-    collectives and bytes by phase, state bytes, peak memory, idle
-    share."""
+    collectives and bytes by phase and by op, state bytes, peak memory,
+    idle share.
+
+    The 1 x 2 "2d" steps are tensor-parallel: every rank reports the
+    forms its step ran (attention "kv" on its heads, each projection's
+    form and tile), the step gathers no parameter (the data axis is one
+    rank), and one more step at bank_n TP_BANK_N runs wo and mlp.down as
+    Megatron row tiles, its loss within TRAIN_MESH_FIRST_RTOL of the
+    unsharded step at that bank_n.  The tiles' shapes are timed first
+    against their bound and their plain version (``tp_tile`` and
+    ``tp_row_tile`` lines; returned for the kernel line)."""
     root = Path(__file__).resolve().parent / "build"
     root.mkdir(exist_ok=True)
     launches = 0
     cfg = mesh_olmo()
+    rows = LM_BATCH * LM_SEQ
+    tiles, tile_err = kernel_shapes(TP_TILE_SHAPES, (rows,), peaks,
+                                    "tp_tile")
+    row_tiles, row_err = kernel_shapes(TP_ROW_SHAPES, (rows,), peaks,
+                                       "tp_row_tile", bank_n=TP_BANK_N)
+    tiles.update(row_tiles)
+    torch.cuda.empty_cache()
     tree_bytes = 4 * counting.param_count(cfg)        # one float32 tree
     _, flat = lm_run(cfg, mesh_batches(cfg), mesh_opt())
     lm_steps = [(s["loss"], s["grad_norm"]) for s in flat]
+    _, flat_bank = lm_run(tp_bank_cfg(cfg), mesh_batches(cfg, 1), mesh_opt())
     per_step = (MESH_LAUNCHES_PER_FORWARD,
                 MESH_LAUNCHES_PER_FORWARD - 1)        # remat: all but unembed
     torch.cuda.empty_cache()
@@ -4924,7 +4958,10 @@ def phase_train_mesh() -> int:
                          for s in got["steps"]]
                 check(split == [per_step] * MESH_TRAIN_STEPS,
                       f"{what}: launches (forward, backward) {split}")
-                launches += got["launches"] + got["elastic_launches"]
+                launches += got["launches"] + got["elastic_launches"] \
+                    + got.get("bank_launches", 0)
+                if mode == "2d":
+                    check_tp_forms(got, what, flat_bank[0]["loss"])
                 if plain:
                     for a, b in zip(got["steps_at_plain_depth"],
                                     got["plain"]):
@@ -4940,6 +4977,7 @@ def phase_train_mesh() -> int:
                     max_memory_allocated_bytes=got["peak_bytes"],
                     step_profile=got["profile"],
                     plain_route=got.get("plain"),
+                    forms=got["forms"], bank_step=got.get("bank_step"),
                     elastic=got["elastic"]))
             # the warm-up step; the last is profiled
             t_step = statistics.median(
@@ -4960,6 +4998,9 @@ def phase_train_mesh() -> int:
                  else None, equal_to_plain_route_bitwise=plain or None,
                  ms_per_step_median=t_step,
                  timed_step="the first, a warm-up step",
+                 forms=res[0]["forms"], tp_bank_n=TP_BANK_N if mode == "2d"
+                 else None, unsharded_bank_loss=flat_bank[0]["loss"]
+                 if mode == "2d" else None,
                  tokens_per_s=LM_SEQ * LM_BATCH / t_step * 1e3,
                  unsharded_state_bytes=3 * tree_bytes,
                  phase_s=seconds, ranks=ranks)
@@ -4989,7 +5030,52 @@ def phase_train_mesh() -> int:
          uninterrupted_final_loss=ref[-1]["loss"],
          resumed_1x2_final_loss=resumed[0][-1]["loss"],
          resumed_1x1_final_loss=one[-1]["loss"])
-    return launches
+    return launches, tiles, max(tile_err, row_err)
+
+
+def tp_bank_cfg(cfg):
+    """``cfg`` at bank_n TP_BANK_N: a 1 x 2 rank's rows of wo (1,024) and
+    mlp.down (4,096) are whole banks."""
+    spec = cfg.policy.default
+    return dataclasses.replace(cfg, policy=dataclasses.replace(
+        cfg.policy, default=dataclasses.replace(spec, bank_n=TP_BANK_N)))
+
+
+def check_tp_forms(got: dict, what: str, bank_loss: float) -> None:
+    """A 1 x 2 "2d" rank of train_mesh ran the tensor-parallel forms its
+    blocks reported: attention on its heads, its column tiles, wo and
+    mlp.down in the column form at bank_n 2,304 and as row tiles at
+    TP_BANK_N (that step's loss within TRAIN_MESH_FIRST_RTOL of the
+    unsharded one), no parameter gathered.  The collectives its steps
+    counted agree: the column form gathers over "model" in the forward
+    (the grids, the weight's re-layout, the columns; an all-to-all
+    where the group has one), the row tiles' step moves only sums and
+    maxima."""
+    forms = got["forms"]
+    check(forms.get("attn") == "tp/kv" and forms.get("embed") == "vocab"
+          and forms.get("unembed", {}).get("form") == "col",
+          f"{what}: forms {forms}")
+    check(all(forms[t]["form"] == "col-form" for t in ("attn.o", "mlp.down"))
+          and forms["attn.q"] == {"form": "col", "tile": [2048, 1024]},
+          f"{what}: projections {forms}")
+    check(all(s["gather_collectives"] == 0 for s in got["steps"]),
+          f"{what}: the step gathered parameters")
+
+    def moves(step):
+        return sum(n for k, (n, _) in step["compute_by_op"].items()
+                   if k.startswith(("all-gather/model", "all-to-all/model")))
+
+    check(all(moves(s) > 0 for s in got["steps"]),
+          f"{what}: no column-form gather counted")
+    bank = got["bank_step"]
+    check(all(bank["forms"][t]["form"] == "row"
+              for t in ("attn.o", "mlp.down")),
+          f"{what}: bank_n {TP_BANK_N} forms {bank['forms']}")
+    check(all(k.startswith("all-reduce/") for k in bank["compute_by_op"]),
+          f"{what}: bank_n {TP_BANK_N} collectives {bank['compute_by_op']}")
+    check(abs(bank["loss"] - bank_loss) <= TRAIN_MESH_FIRST_RTOL
+          * abs(bank_loss), f"{what}: bank_n {TP_BANK_N} step loss "
+          f"{bank['loss']} vs unsharded {bank_loss}")
 
 
 def mesh_batches(cfg, steps: int = MESH_TRAIN_STEPS) -> list:
@@ -5013,8 +5099,8 @@ def worker_train(mesh, args) -> dict:
     batches = mesh_batches(cfg)
     opt_cfg = mesh_opt()
 
-    def run(cfg, route=None, profiled=False):
-        """MESH_TRAIN_STEPS steps from seed 0; with ``profiled`` the last one
+    def run(cfg, route=None, profiled=False, n=MESH_TRAIN_STEPS):
+        """``n`` steps from seed 0; with ``profiled`` the last one
         under the profiler (``device_profile``): a rank's steps are tens
         of seconds, so the phase profiles its main path's last step
         rather than add one."""
@@ -5030,7 +5116,7 @@ def worker_train(mesh, args) -> dict:
         out, profile = [], None
         torch.cuda.synchronize()
         with scope, backward_marks(train_step, "loss_fn") as marks:
-            for k, b in enumerate(batches):
+            for k, b in enumerate(batches[:n]):
                 n0 = K.cima_mvm_planes.launches
                 t0 = time.perf_counter()
                 metrics = []
@@ -5057,18 +5143,25 @@ def worker_train(mesh, args) -> dict:
             # against the unprofiled step, the warm-up
             profile["device_idle_share"] = \
                 1.0 - profile["device_busy_ms_per_step"] / out[0]["ms"]
-        return holder[0], out, profile
+        return holder[0], out, profile, dict(step_fn.forms)
 
     torch.cuda.reset_peak_memory_stats()
     # the main path: counts at 0 just before, read just after
     K.cima_mvm_planes.launches = 0
-    state, steps, profile = run(cfg, profiled=True)
-    out = dict(coords=mesh.coords, steps=steps,
+    state, steps, profile, forms = run(cfg, profiled=True)
+    out = dict(coords=mesh.coords, steps=steps, forms=forms,
                launches=K.cima_mvm_planes.launches,
                peak_bytes=torch.cuda.max_memory_allocated(),
                state_bytes=tensor_bytes(state), profile=profile)
     del state
     torch.cuda.empty_cache()
+    if args["mode"] == "2d":
+        # one step with wo's and mlp.down's rows whole banks: row tiles
+        K.cima_mvm_planes.launches = 0
+        _, bank, _, bank_forms = run(tp_bank_cfg(cfg), n=1)
+        out["bank_launches"] = K.cima_mvm_planes.launches
+        out["bank_step"] = dict(bank[0], forms=bank_forms)
+        torch.cuda.empty_cache()
     if args["plain"]:
         small = dataclasses.replace(cfg, n_layers=MESH_PLAIN_LAYERS)
         before = K.cima_mvm_planes.launches
@@ -5626,7 +5719,7 @@ def main():
     mesh_launches, mesh_step = phase_serve_mesh()
     sqd_launches = phase_serve_mesh_sqd()
     tuned_mesh_launches = phase_serve_tuned_mesh(tuned)
-    train_mesh_launches = phase_train_mesh()
+    train_mesh_launches, tp_tiles, tp_err = phase_train_mesh(peaks)
     moe_mesh_launches = phase_train_moe_mesh()
     phase_noise()
     phase_noise_qat()
@@ -5662,7 +5755,7 @@ def main():
                      + san_launches
                      + roofline_launches + example_launches),
         "max_abs_err": max(err_cases, err_main, cifar_err, rec_err, moe_err,
-                           fr_err, mesh_err),
+                           fr_err, mesh_err, tp_err),
         "ms": step["ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step_bound_by,
         "library_ms": None,
@@ -5717,8 +5810,10 @@ def main():
                "forward, 8 forwards); train_mesh's ranks (olmo-1b at 2 of "
                "16 layers trained on 2 x 2 fsdp and 1 x 2 2d gloo meshes "
                "sharing the card: 2 steps of 29 launches a rank, 15 "
-               "forward and 14 remat, whatever its rows; the reduced "
-               "trainer's 4 "
+               "forward and 14 remat, whatever its rows, the 1 x 2 ranks "
+               "on their tensor-parallel tiles, and one more step of 29 "
+               "at bank_n 1,024 with wo and mlp.down as row tiles; the "
+               "reduced trainer's 4 "
                "steps a rank crashed on 2 x 2 and 2 resumed on 1 x 2, 29 "
                "each); train_moe_mesh's ranks (deepseek-v2-lite-16b at 2 "
                "of 27 layers trained on a 2 x 2 2d gloo mesh sharing the "
@@ -5739,6 +5834,8 @@ def main():
         "ukv_col_tiles": [dict(name=k[0], shards=k[2], rows=k[3], **v)
                           for k, v in mesh_rows.items()
                           if k[0].startswith("deepseek attn.ukv")],
+        "train_tp_tiles": [dict(name=k[0], rows=k[1], **v)
+                           for k, v in tp_tiles.items()],
         "recurrent_decode_step_ms": {m: v["ms"] for m, v in rec_step.items()},
         "recurrent_decode_step_plain_ms": {m: v["plain_ms"]
                                            for m, v in rec_step.items()},

@@ -41,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tally
 from repro_torch.analysis.sanitize import active as _san_active
 from repro_torch.core.quant import quantize
 from repro_torch.core.sparsity import (count_zero_planes, element_mask,
@@ -180,6 +181,39 @@ def _sharded(image, mesh, local=None):
     return fn
 
 
+def _train_tile(tile: str, image, local):
+    """The backend call of a tensor-parallel training step's ``tile``
+    (:mod:`repro_torch.accel.train_shard`) on the step's mesh."""
+    from repro_torch.distributed.autoshard import tp_mesh
+
+    from .train_shard import tile_backend
+
+    mesh = tp_mesh()
+    if mesh is None or image is not None or local is not None:
+        raise ValueError(f"tile={tile!r} runs inside a tensor-parallel "
+                         f"training step (global_batch(..., tp=True)) on a "
+                         f"weight slice, without an image or a local form")
+    return tile_backend(tile, mesh)
+
+
+def _report_form(spec: ExecSpec, w: torch.Tensor,
+                 tile: Optional[str]) -> None:
+    """Inside a mesh training step, the form this projection runs in
+    (``tile``, or ``"whole"``) and the ``[N, M]`` of the weight its
+    backend multiplies (a column form's re-laid-out column tile), to the
+    open counters (:func:`repro_torch.tally.report_form`)."""
+    from repro_torch.distributed.autoshard import tp_mesh, train_mesh
+
+    if train_mesh() is None:
+        return
+    n, m = (int(d) for d in w.shape[-2:])
+    if tile == "col-form":
+        parts = tp_mesh().size("model")
+        n, m = n * parts, m // parts
+    tally.report_form(spec.tag or spec.backend,
+                      {"form": tile or "whole", "tile": [n, m]})
+
+
 def _check_width(x: torch.Tensor, w: torch.Tensor, image, mesh,
                  local: Optional[str]) -> None:
     """A local form runs only as its image's tile on the image's mesh,
@@ -255,7 +289,8 @@ def _records_grad(*ts) -> bool:
 
 def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
            ctx: Optional[ExecContext] = None, *, dtype=None, image=None,
-           post=None, local: Optional[str] = None) -> torch.Tensor:
+           post=None, local: Optional[str] = None,
+           tile: Optional[str] = None) -> torch.Tensor:
     """``x @ w`` under ``spec``'s execution backend.
 
     * ``spec=None`` means *digital by design*: a plain GEMM at ``dtype``
@@ -285,6 +320,17 @@ def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
       (``[..., n / devices]``), whose scale is reduced over the model
       axis (:mod:`repro_torch.accel.shard`).  Any other call with an
       input of ``n / devices`` raises.
+    * ``tile`` (inside a tensor-parallel training step, ``distributed.
+      autoshard.tp_mesh``): ``w`` is the rank's slice of the weight and
+      the call runs the rank's tile (:mod:`repro_torch.accel.
+      train_shard`): ``"col"``, ``w`` its output columns and ``x``
+      whole; ``"row"``, ``w`` its rows and ``x`` its N block, the
+      partial sums reduced over ``"model"``; ``"col-form"``, the same
+      operands, the rank's columns computed on the gathered grids and
+      gathered.  The forward and backward are those of any call on
+      ``w`` (straight-through on the quantizing backends: ``dx = g wᵀ``,
+      ``dw = xᵀ g`` on the tile, which for a row tile or the column form
+      are the rank's block of ``dx`` and rows of ``dw``).
     * Grouped: ``w`` [G, N, M] and ``x`` [G, ..., N] (``image`` stacked
       [G, ...], ``post`` shared by the groups) -> [G, ..., M], equal to a
       loop of 2-D calls over the groups.  A digital spec differentiates
@@ -295,22 +341,34 @@ def matmul(x: torch.Tensor, w: torch.Tensor, spec: Optional[ExecSpec] = None,
     if spec is None:
         dt = dtype or x.dtype
         y = torch.einsum("...n,nm->...m", x.to(dt), w.to(dt))
+        if tile == "row":
+            from repro_torch.distributed.autoshard import reduce
+
+            y = reduce(y)
         return post.apply(y) if post is not None else y
 
     ov = current_override()
     if ov:
         spec = dataclasses.replace(spec, **ov)
+    if tally.ACTIVE:
+        _report_form(spec, w, tile)
 
     from .program import image_matches
 
-    if image is not None and not image_matches(image, spec, w):
+    if tile is not None:
+        fn = _train_tile(tile, image, local)
         image = None
-    mesh = _shard_mesh(image)
-    _check_width(x, w, image, mesh, local)
-    _record_mvm(spec, x, w, image, post, local)
-    # a partitioned image on its mesh runs as this rank's tile
-    fn = (_sharded(image, mesh, local) if mesh is not None
-          else get_backend(spec.backend))
+        _record_mvm(spec, x, w, None, post,
+                    None if tile == "col" else "row")
+    else:
+        if image is not None and not image_matches(image, spec, w):
+            image = None
+        mesh = _shard_mesh(image)
+        _check_width(x, w, image, mesh, local)
+        _record_mvm(spec, x, w, image, post, local)
+        # a partitioned image on its mesh runs as this rank's tile
+        fn = (_sharded(image, mesh, local) if mesh is not None
+              else get_backend(spec.backend))
     if ctx is None:
         ctx = ExecContext(generator=next_noise_generator(x.device))
     if image is not None:

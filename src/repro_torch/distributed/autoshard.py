@@ -70,6 +70,30 @@ engine's ``shard_map`` form, where each data shard quantizes its own
 rows.  The scope is held module-wide, not per thread: a remat layer's
 replay runs in autograd's device thread and must see the statistics and
 issue the collectives the forward did.
+
+A ``global_batch(..., tp=True)`` scope is a tensor-parallel training
+step (mode ``"2d"``): each model rank holds its ``"model"`` slice of
+every parameter its block splits and computes its share
+(:func:`tp_mesh`; ``models.layers``, ``models.attention``).  Its
+activations are either *replicated* (every model rank holds the same
+tensor and, downstream of it, the same gradient: the residual stream)
+or the rank's own share, and three operators move between the two under
+autograd:
+
+* :func:`sum_grad`: a replicated tensor feeding work the ranks split;
+  the backward sums the ranks' partial gradients (an all-reduce);
+* :func:`reduce`: the sum over the ranks of their partial results (a
+  row tile's partial sums, ``"d"``'s partial scores), replicated after;
+  the backward is the identity, since every rank's gradient of the sum
+  is the whole one;
+* :func:`gather` over ``"model"``: the ranks' blocks joined; the
+  backward keeps the rank's block, and with ``partial=True`` first sums
+  the gradient over the ranks (a reduce-scatter), where each rank's
+  downstream work used only its share of the gathered tensor.
+
+A row-parallel projection's column form moves its operands' int8 grids
+inside one straight-through call (``accel.train_shard``), whose
+backward is the row tile's and moves nothing.
 """
 from __future__ import annotations
 
@@ -161,6 +185,7 @@ class BatchStats(NamedTuple):
     axes: tuple
     size: int
     policy: object = None
+    tp: bool = False
 
     def max(self, t: torch.Tensor) -> torch.Tensor:
         return self.mesh.all_reduce(t, self.axes, op="max")
@@ -185,14 +210,17 @@ def model_block(mesh) -> BatchStats:
 
 
 @contextlib.contextmanager
-def global_batch(mesh, policy=None) -> Iterator[None]:
+def global_batch(mesh, policy=None, tp: bool = False) -> Iterator[None]:
     """Scope in which this rank holds its block of the global batch over
-    ``policy``'s dp axes of ``mesh`` and batch statistics are global."""
+    ``policy``'s dp axes of ``mesh`` and batch statistics are global;
+    with ``tp`` (mode ``"2d"``) the rank computes its share of every
+    block the training step splits over ``"model"`` (:func:`tp_mesh`)."""
     from .sharding import resolve_policy
 
     policy = resolve_policy(policy)
     axes = policy.dp_axes(mesh)
-    _GLOBAL_BATCH.append(BatchStats(mesh, axes, mesh.size_of(axes), policy))
+    _GLOBAL_BATCH.append(BatchStats(mesh, axes, mesh.size_of(axes), policy,
+                                    tp))
     try:
         yield
     finally:
@@ -215,6 +243,18 @@ def train_mesh() -> Optional[BatchStats]:
     """The innermost :func:`global_batch` scope; None outside one (or
     inside :func:`local_stats`)."""
     return _GLOBAL_BATCH[-1] if _GLOBAL_BATCH else None
+
+
+def tp_mesh():
+    """The mesh of the innermost :func:`global_batch` scope where it is a
+    tensor-parallel step (``tp=True``, mode ``"2d"``, a ``"model"`` axis
+    wider than 1), else None."""
+    scope = train_mesh()
+    if scope is None or not scope.tp or scope.policy is None \
+            or scope.policy.is_fsdp or "model" not in scope.mesh.axis_names \
+            or scope.mesh.size("model") <= 1:
+        return None
+    return scope.mesh
 
 
 def batch_stats() -> Optional[BatchStats]:
@@ -247,19 +287,22 @@ class _Gather(torch.autograd.Function):
         return g, None, None, None, None
 
 
-def gather(t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+def gather(t: torch.Tensor, axes, dim: int,
+           partial: bool = False) -> torch.Tensor:
     """This rank's ``t`` and the other ranks' of ``axes`` (an axis or a
     tuple) joined on ``dim`` in mesh order, inside a :func:`global_batch`
     scope, differentiably: the backward sums the gradient over the
-    scope's dp axes among ``axes`` and keeps this rank's block over each
-    (see the module docstring)."""
+    scope's dp axes among ``axes`` (and over all of ``axes`` with
+    ``partial``: each rank's downstream work used only its share of the
+    result) and keeps this rank's block over each (see the module
+    docstring)."""
     scope = train_mesh()
     if scope is None:
         raise RuntimeError("gather runs inside a global_batch scope")
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
     if scope.mesh.size_of(axes) == 1:
         return t
-    summed = tuple(a for a in axes if a in scope.axes)
+    summed = axes if partial else tuple(a for a in axes if a in scope.axes)
     return _Gather.apply(t, scope.mesh, axes, dim, summed)
 
 
@@ -284,3 +327,32 @@ def sum_grad(t: torch.Tensor, axes) -> torch.Tensor:
     if scope.mesh.size_of(axes) == 1:
         return t
     return _SumGrad.apply(t, scope.mesh, axes)
+
+
+class _Reduce(torch.autograd.Function):
+    """:meth:`ServeMesh.all_reduce` (a sum) whose backward is the
+    identity."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return mesh.all_reduce(t, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def reduce(t: torch.Tensor, axes="model") -> torch.Tensor:
+    """The sum of the ranks' ``t`` over ``axes`` inside a
+    :func:`global_batch` scope: partial results (a row tile's partial
+    sums, the ``"d"`` split's partial scores) made whole on every rank.
+    The backward is the identity: every rank computes the same function
+    of the sum downstream, so each holds the whole gradient of the sum,
+    which is its own operand's."""
+    scope = train_mesh()
+    if scope is None:
+        raise RuntimeError("reduce runs inside a global_batch scope")
+    if scope.mesh.size_of(axes) == 1:
+        return t
+    return _Reduce.apply(t, scope.mesh, axes)
+

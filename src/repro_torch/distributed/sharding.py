@@ -28,7 +28,11 @@ on the head dim where a decode step runs on the rank's head dims
 the weights and caches outside the images, stay whole on the model
 axis.  A training step on a mesh computes the
 experts of its :func:`expert_block` (EP on ``"model"`` in mode
-``"2d"``).
+``"2d"``).  In mode ``"2d"`` the dense decoders (:func:`tp_config`)
+train tensor-parallel, as the reference's step under these specs does:
+each rank gathers its parameter slices over the fsdp axes alone
+(:func:`gather_tree` with ``axes``) and computes with its ``"model"``
+slice of every leaf that has one (:func:`splits_on_model`).
 """
 from __future__ import annotations
 
@@ -149,14 +153,35 @@ def local_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     return t
 
 
-def gather_leaf(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+def gather_leaf(t: torch.Tensor, spec: tuple, mesh,
+                axes=None) -> torch.Tensor:
     """The full tensor from this rank's :func:`local_slice` of it: an
     all-gather along each sharded dim over its axis or axes (every rank
-    of the mesh calls it)."""
-    for dim, axes in enumerate(spec):
-        if axes is not None:
-            t = mesh.all_gather(t, axes, dim)
+    of the mesh calls it); with ``axes``, only the dims split over axes
+    among them (the fsdp axes of a tensor-parallel step), the others
+    left as this rank's slice."""
+    for dim, a in enumerate(spec):
+        if a is not None and (axes is None or _within(a, axes)):
+            t = mesh.all_gather(t, a, dim)
     return t
+
+
+def _within(spec_axes, axes) -> bool:
+    """Are all of a dim's spec axes among ``axes``?  (Mixed dims, an
+    fsdp tuple with ``"model"``, do not occur in mode ``"2d"``.)"""
+    names = (spec_axes,) if isinstance(spec_axes, str) else tuple(spec_axes)
+    inside = [a in axes for a in names]
+    if any(inside) and not all(inside):
+        raise ValueError(f"dim split over {names}: gather all of them or "
+                         f"none (axes {tuple(axes)})")
+    return all(inside)
+
+
+def slice_axes(t: torch.Tensor, spec: tuple, mesh, axes) -> torch.Tensor:
+    """This rank's block of ``t`` over the dims ``spec`` splits over
+    ``axes`` alone (the inverse of :func:`gather_leaf` with ``axes``)."""
+    return local_slice(t, tuple(a if a is not None and _within(a, axes)
+                                else None for a in spec), mesh)
 
 
 def shard_tree(tree, specs, mesh):
@@ -176,6 +201,15 @@ def unshard_tree(tree, specs, mesh):
     from repro_torch.tree import tree_map
 
     return tree_map(lambda t, s: gather_leaf(t, s, mesh), tree, specs)
+
+
+def gather_tree(tree, specs, mesh, axes):
+    """:func:`unshard_tree` over ``axes`` alone (the fsdp axes of a
+    tensor-parallel step): each leaf whole on those axes and this rank's
+    slice on the others."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t, s: gather_leaf(t, s, mesh, axes), tree, specs)
 
 
 def spec_leaves(tree, specs) -> list:
@@ -216,6 +250,42 @@ def sharded_axes(spec: tuple) -> tuple:
 # ------------------------------------------------------------- parameters
 
 _ROW_PARALLEL_PARENTS = ("down", "wo", "out", "out_proj", "w_ukv")
+
+
+def splits_on_model(spec: tuple) -> bool:
+    """Does ``spec`` put a dim of its leaf on ``"model"``?  In a
+    tensor-parallel training step such a leaf is the rank's slice: a
+    column-parallel weight's output columns, a row-parallel one's rows
+    (``_ROW_PARALLEL_PARENTS``), the embedding's vocabulary block; the
+    model code computes with it as that tile (``models.layers``,
+    ``models.attention``).  A leaf of no such dim is used whole."""
+    return any(a == "model" or (isinstance(a, tuple) and "model" in a)
+               for a in spec)
+
+
+def tp_config(cfg) -> bool:
+    """Does ``cfg`` train tensor-parallel in mode ``"2d"``: a decoder whose
+    every block is MHA/GQA attention and a dense MLP (no MLA, MoE,
+    recurrent or SSM block, no encoder-decoder), and whose weights carry
+    no XNOR 1-bit per-tensor scale (a mean over the whole weight, which
+    no tile reproduces).  The other configs keep the replicated form:
+    every leaf gathered whole on ``"model"`` but the experts'."""
+    from repro_torch.core.quant import Coding
+
+    if cfg.mla or cfg.moe or cfg.is_encdec \
+            or any(k != "attn" for k in cfg.pattern()):
+        return False
+    for kind, tags in (("attn", ("attn.q", "attn.k", "attn.v", "attn.o")),
+                       ("mlp", ("mlp.gate", "mlp.up", "mlp.down")),
+                       ("unembed", ("unembed",))):
+        sp = cfg.policy.resolver(kind)
+        for tag in tags:
+            spec = sp(tag)
+            if spec is not None and not spec.is_digital \
+                    and Coding(spec.coding) == Coding.XNOR \
+                    and spec.ba == 1 and not spec.per_channel:
+                return False
+    return True
 
 
 def _param_rule(path: str, shape, policy: ShardPolicy) -> list:

@@ -14,7 +14,12 @@ form of the cell's entry point under a
 :class:`~repro_torch.roofline.hlo_stats.StepCounter`:
 
 * train: :func:`~repro_torch.train.step.build_train_step` with ``mesh=``
-  and the arch's ``TRAIN_MICROBATCHES``, on rank 0's slices of the state;
+  and the arch's ``TRAIN_MICROBATCHES``, on rank 0's slices of the state
+  (the dense decoders tensor-parallel in mode ``"2d"``: rank 0's tiles of
+  every projection, its heads or query rows, its vocabulary block, each
+  activation collective and column-form re-layout counted; the other
+  archs with their parameters gathered whole on ``"model"`` but the
+  experts);
 * prefill and decode: :class:`~repro_torch.serve.engine.Engine` on the
   mesh, as it serves (each rank its tile of every compiled image on the
   quantizing backends, its rows of the batch and the cache, and
@@ -38,8 +43,9 @@ operand and its result, as the reference takes them),
 handed), ``n_devices``, ``memory_analysis.temp_size_in_bytes`` (the
 counter's peak of bytes allocated in the step beyond its arguments) and
 ``count_s``, the cell's wall seconds (set-up and the counted run).
-Where the port replicates what XLA would shard (2-D training compute)
-the counts say so: they are the port's, not the reference's.
+Where the port replicates what XLA would shard (the 2-D training
+compute of the MLA, SSD, RG-LRU, cross-attention and MoE blocks) the
+counts say so: they are the port's, not the reference's.
 A cell that raises is written with ``status: "error"``, as the
 reference writes one; :func:`repro_torch.roofline.analysis.main` renders
 the table.

@@ -23,7 +23,8 @@ runs axis by axis (reductions in the tuple's order, gathers innermost
 axis first, so a dim split over ``("data", "model")`` reassembles in
 row-major block order).  Training adds the max reduction (a shared
 quantization scale, ``compress_psum``'s ``pmax``), :meth:`ServeMesh.
-reduce_scatter` (the backward of a gather over rows that differ by rank,
+all_to_all` (a row-parallel weight re-laid out as a column tile),
+:meth:`ServeMesh.reduce_scatter` (the backward of a gather over rows that differ by rank,
 :func:`repro_torch.distributed.autoshard.gather`) and :meth:`ServeMesh.
 barrier`.  ``stats`` counts the collectives this rank issued and their
 bytes; each is also reported, by kind and axis, to every open step
@@ -179,6 +180,31 @@ class ServeMesh:
         dist.reduce_scatter_tensor(out, x, group=self._group(axis))
         return out.movedim(0, dim)
 
+    def all_to_all(self, t: torch.Tensor, axis: str, split_dim: int,
+                   cat_dim: int) -> torch.Tensor:
+        """``t`` cut on ``split_dim`` into the ``axis`` ranks' blocks, block
+        j sent to rank j, and the blocks this rank receives joined on
+        ``cat_dim`` in mesh order.  nccl does it in one all-to-all; gloo
+        takes no CUDA all-to-all, so there it is an all-gather on
+        ``cat_dim`` followed by this rank's block of ``split_dim``,
+        counted as the all-gather it is."""
+        n = self.size(axis)
+        if self._group(axis) is None:
+            return t
+        if t.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dim {split_dim} of size "
+                             f"{t.shape[split_dim]} does not split over "
+                             f"{axis!r} ({n} ranks)")
+        size = t.shape[split_dim] // n
+        if self.backend != "nccl":
+            return self.all_gather(t, axis, cat_dim).narrow(
+                split_dim, self.index(axis) * size, size).contiguous()
+        self._count(t, "all-to-all", axis)
+        send = [c.contiguous() for c in t.split(size, dim=split_dim)]
+        recv = [torch.empty_like(c) for c in send]
+        dist.all_to_all(recv, send, group=self._group(axis))
+        return torch.cat(recv, dim=cat_dim)
+
     def barrier(self) -> None:
         """Wait for every rank of the mesh (a barrier on each axis's
         group: a rank leaves the second only after every rank reached
@@ -244,6 +270,17 @@ class RecordingMesh(ServeMesh):
         n = self.size(axis)
         self._count(t, "reduce-scatter", axis, 1 / n, "sum")
         return t.narrow(dim, 0, t.shape[dim] // n)
+
+    def all_to_all(self, t: torch.Tensor, axis: str, split_dim: int,
+                   cat_dim: int) -> torch.Tensor:
+        n = self.size(axis)
+        if n <= 1:
+            return t
+        if self.backend != "nccl":
+            return super().all_to_all(t, axis, split_dim, cat_dim)
+        self._count(t, "all-to-all", axis)
+        block = t.narrow(split_dim, 0, t.shape[split_dim] // n)
+        return torch.cat([block.contiguous()] * n, dim=cat_dim)
 
     def barrier(self) -> None:
         pass

@@ -31,6 +31,16 @@ reference's rule (:func:`attn_tp_mode`) puts the model axis
   (and whisper's cross keys and values) hold the rank's head-dim slice
   where a decode step is ``"d"``.
 
+In a tensor-parallel training step (``distributed.autoshard.tp_mesh``)
+the same modes come from the step's parameter slices instead of a
+program's tiles (:func:`head_split` of the call's query rows, on any
+backend): q, k and v are the rank's column tiles, kept as its heads in
+``"kv"`` (q alone in ``"g"``) and gathered whole otherwise, RoPE runs on
+the heads the rank holds, and ``wo`` is the row-parallel projection
+(``models.layers.row_linear``) of the rank's heads or of the gathered
+output; ``"sq"`` and ``"d"`` run :func:`split_sdpa` with the
+differentiable collectives (``autoshard.gather``, ``autoshard.reduce``).
+
 The tiles and the input grid are the ones the whole-activation mesh
 path uses, so ``"kv"``, ``"g"`` and ``"sq"`` give its results (``"sq"``
 up to the rows' float order where the matmul blocks another number of
@@ -46,10 +56,13 @@ from typing import NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tally
+from repro_torch.distributed import autoshard
 from repro_torch.distributed.autoshard import (get_mesh, get_shard_policy,
-                                               in_manual, train_mesh)
+                                               in_manual, sum_grad, tp_mesh,
+                                               train_mesh)
 
-from .layers import apply_rope, init_linear, linear
+from .layers import apply_rope, init_linear, linear, replicated, row_linear
 from .mixer_split import mla_split, tiles_allow
 
 DEFAULT_CHUNK = 512
@@ -65,7 +78,11 @@ def attn_tp_mode(kv: int, g: int, sq: int, d: int) -> str:
     if mesh is None or "model" not in mesh.axis_names \
             or get_shard_policy().is_fsdp:
         return "none"
-    m = int(dict(mesh.shape)["model"])
+    return _tp_mode(int(dict(mesh.shape)["model"]), kv, g, sq, d)
+
+
+def _tp_mode(m: int, kv: int, g: int, sq: int, d: int) -> str:
+    """The reference's priority on a model axis of ``m`` ranks."""
     if m <= 1:
         return "none"
     for mode, size in (("kv", kv), ("g", g), ("sq", sq), ("d", d)):
@@ -110,21 +127,31 @@ def head_split(cfg, sq: int = 1) -> Optional[HeadSplit]:
     (k+1) hd/m)``) change no tile (q, k and v are gathered, ``wo`` takes
     the whole activation), so they hold on any backend, the XNOR 1-bit
     ``wo`` included.  MLA takes none of these
-    (:func:`~repro_torch.models.mixer_split.mla_split` is its split)."""
-    mesh = get_mesh()
-    if cfg.mla or mesh is None or train_mesh() is not None \
-            or in_manual("model"):
-        return None
+    (:func:`~repro_torch.models.mixer_split.mla_split` is its split).
+
+    In a tensor-parallel training step (``autoshard.tp_mesh``) the mode
+    is the reference's for the call on the step's mesh, on any backend:
+    the step's parameter slices are the tiles."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    mode = attn_tp_mode(kv, h // kv, sq, hd)
+    if cfg.mla:
+        return None
+    mesh = tp_mesh()
+    if mesh is not None:
+        mode = _tp_mode(mesh.size("model"), kv, h // kv, sq, hd)
+    else:
+        mesh = get_mesh()
+        if mesh is None or train_mesh() is not None or in_manual("model"):
+            return None
+        mode = attn_tp_mode(kv, h // kv, sq, hd)
+        if mode in _LOCAL_TILES and not tiles_allow(
+                cfg, "attn", _LOCAL_TILES[mode], "attn.o"):
+            return None
     m, k = mesh.size("model"), mesh.index("model")
     if mode in ("sq", "d"):
         n = sq if mode == "sq" else hd
         return HeadSplit(mode, h, kv, 0, h // kv, k * (n // m),
                          (k + 1) * (n // m))
     if mode not in _LOCAL_TILES:
-        return None
-    if not tiles_allow(cfg, "attn", _LOCAL_TILES[mode], "attn.o"):
         return None
     # a column tile is whole heads only where the heads divide the axis
     assert h % m == 0, (h, m)
@@ -320,19 +347,33 @@ def split_sdpa(split: Optional[HeadSplit], q, k, v, *, q_offset=0,
         return sdpa(q, k, v, q_offset=q_offset, q_positions=q_positions,
                     **kw)
     mesh = get_mesh()
+    if tp_mesh() is not None:
+        # a training step: the same collectives under autograd.  The
+        # summed scores feed each rank's own head dims of v, so their
+        # gradient is summed over the ranks too
+        def joined(t, dim):
+            return autoshard.gather(t, "model", dim)
+
+        def summed(t):
+            return sum_grad(autoshard.reduce(t), "model")
+    else:
+        def joined(t, dim):
+            return mesh.all_gather(t, "model", dim=dim)
+
+        def summed(t):
+            return mesh.all_reduce(t, "model")
     if split.mode == "sq":
         if q_positions is None:
             q_positions = torch.arange(q.shape[1], device=q.device) + \
                 q_offset
         rows = slice(split.lo, split.hi)
         o = sdpa(q[:, rows], k, v, q_positions=q_positions[..., rows], **kw)
-        return mesh.all_gather(o, "model", dim=1)
+        return joined(o, 1)
     if kw.get("scale") is None:
         kw["scale"] = q.shape[-1] ** -0.5
     o = sdpa(q[..., split.lo:split.hi], k, v, q_offset=q_offset,
-             q_positions=q_positions,
-             score_sum=lambda s: mesh.all_reduce(s, "model"), **kw)
-    return mesh.all_gather(o, "model", dim=-1)
+             q_positions=q_positions, score_sum=summed, **kw)
+    return joined(o, -1)
 
 
 def ring_slot_positions(cache_len: int, cache_pos) -> torch.Tensor:
@@ -435,9 +476,15 @@ def attention(params, x, cfg, positions, cache: Optional[KVCache] = None,
     holds the rank's head dims where a decode step is ``"d"``
     (:func:`kv_cache_dims`).
     """
+    tp = tp_mesh() is not None
+    if tp and (cache is not None or cache_pos is not None):
+        raise ValueError("a tensor-parallel training step runs no KV cache")
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     split = head_split(cfg, s)
+    if tally.ACTIVE and train_mesh() is not None:
+        tally.report_form("attn", (f"tp/{split.mode if split else 'none'}"
+                                   if tp else "whole"))
     q_local = kv_local = None
     if split is not None and split.mode in _LOCAL_TILES:
         h, q_local = split.h, "col"
@@ -453,12 +500,12 @@ def attention(params, x, cfg, positions, cache: Optional[KVCache] = None,
             f"for a layer of {dims} on this rank: make the cache in the "
             f"scope that serves it")
     sp = cfg.policy.resolver("attn")
-    q = linear(params["wq"], x, sp("attn.q"), dtype,
-               local=q_local).reshape(b, s, h, hd)
-    k = linear(params["wk"], x, sp("attn.k"), dtype,
-               local=kv_local).reshape(b, s, kv, hd)
-    v = linear(params["wv"], x, sp("attn.v"), dtype,
-               local=kv_local).reshape(b, s, kv, hd)
+    q = _qkv(params["wq"], x, sp("attn.q"), dtype, q_local,
+             split).reshape(b, s, h, hd)
+    k = _qkv(params["wk"], x, sp("attn.k"), dtype, kv_local,
+             split).reshape(b, s, kv, hd)
+    v = _qkv(params["wv"], x, sp("attn.v"), dtype, kv_local,
+             split).reshape(b, s, kv, hd)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -507,9 +554,29 @@ def attention(params, x, cfg, positions, cache: Optional[KVCache] = None,
                        _rank_dims(_rank_kv(cache.v, split), split, hd),
                        causal=True, window=cfg.attn_window, dtype=dtype,
                        kv_positions=kv_pos, q_positions=offs)
-    out = linear(params["wo"], o.reshape(b, s, h * hd), sp("attn.o"), dtype,
+    o = o.reshape(b, s, h * hd)
+    if tp:
+        return row_linear(params["wo"], o, sp("attn.o"), dtype,
+                          block=q_local is not None), None
+    out = linear(params["wo"], o, sp("attn.o"), dtype,
                  local="row" if q_local is not None else None)
     return out, cache
+
+
+def _qkv(p: dict, x, spec, dtype, local: Optional[str],
+         split: Optional[HeadSplit]):
+    """q, k or v: ``linear`` in the serving mesh's ``local`` form.  In a
+    tensor-parallel training step the rank's column tile of its
+    replicated input, kept as the rank's heads where ``local`` asks for
+    them and else gathered whole over ``"model"``: its gradient summed
+    over the ranks where each used only its share of it (any
+    ``split``)."""
+    if tp_mesh() is None:
+        return linear(p, x, spec, dtype, local=local)
+    y = linear(p, replicated(x, spec), spec, dtype, tile="col")
+    if local is None:
+        y = autoshard.gather(y, "model", -1, partial=split is not None)
+    return y
 
 
 # ------------------------------------------------------------------ MLA

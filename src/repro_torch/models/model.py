@@ -32,13 +32,14 @@ from typing import Any, NamedTuple, Optional, Union
 import torch
 
 from repro_torch.accel import matmul as accel_matmul, vmapped
-from repro_torch.distributed.autoshard import batch_stats
+from repro_torch.distributed import autoshard
+from repro_torch.distributed.autoshard import batch_stats, tp_mesh
 from repro_torch.tree import tree_map
 
 from . import attention as attn_mod
 from . import transformer as tfm
 from .layers import (embed, init_embedding, init_linear, init_norm, linear,
-                     norm, truncated_normal_init, unembed)
+                     norm, replicated, truncated_normal_init, unembed)
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -185,18 +186,49 @@ def _decoder_with_cross(params, x, cfg, positions, cross_kv, cache,
 
 def _lm_logits(params, x, cfg, dtype):
     """Final projection to vocab — a static-weight MVM (path ``unembed``),
-    tied or untied."""
+    tied or untied.  In a tensor-parallel training step the rank's
+    vocabulary block of the logits (its column tile of the head)."""
     spec = cfg.policy.resolve("unembed", kind="unembed")
+    tile = None
+    if tp_mesh() is not None:
+        x, tile = replicated(x, spec), "col"
     if cfg.tie_embeddings:
-        return unembed(params["embed"], x, spec, dtype)
-    return linear(params["lm_head"], x, spec, dtype).to(torch.float32)
+        return unembed(params["embed"], x, spec, dtype, tile=tile)
+    return linear(params["lm_head"], x, spec, dtype,
+                  tile=tile).to(torch.float32)
+
+
+def vocab_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-position ``logsumexp(logits) - logits[target]`` where
+    ``logits`` [..., V/m] is this rank's vocabulary block of a
+    tensor-parallel training step's logits: the ``max`` over ``"model"``
+    (no gradient: the shift cancels), the sum of the exponentials over
+    ``"model"`` and the target's logit from the rank that holds it
+    (summed over ``"model"``, the others adding zero).  No rank builds
+    the whole logits.  The same value as
+    ``torch.logsumexp(whole, -1) - whole.gather(target)``, in another
+    summation order."""
+    mesh = tp_mesh()
+    v = logits.shape[-1]
+    lo = mesh.index("model") * v
+    mx = mesh.all_reduce(torch.amax(logits.detach(), dim=-1, keepdim=True),
+                         "model", op="max")
+    se = autoshard.reduce(torch.exp(logits - mx).sum(dim=-1))
+    local = targets - lo
+    mine = (local >= 0) & (local < v)
+    tgt = torch.take_along_dim(logits, torch.where(mine, local, 0)[..., None],
+                               dim=-1)[..., 0]
+    tgt = autoshard.reduce(torch.where(mine, tgt, 0.0))
+    return torch.log(se) + mx[..., 0] - tgt
 
 
 # ---------------------------------------------------------------- training
 
 def forward(params, tokens: torch.Tensor, cfg, frontend_embeds=None):
     """Full-sequence logits [B, S, vocab] (training / teacher forcing) and
-    the MoE blocks' summed auxiliary loss (0 without MoE blocks)."""
+    the MoE blocks' summed auxiliary loss (0 without MoE blocks); in a
+    tensor-parallel training step the rank's vocabulary block [B, S,
+    vocab / m]."""
     dtype = _dtype(cfg)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)
@@ -226,15 +258,21 @@ def loss_fn(params, batch: dict, cfg):
     training step on a mesh (:func:`~repro_torch.distributed.autoshard.
     global_batch`) ``batch`` is this rank's rows: the count and the
     metrics are the global batch's, and the loss returned is this rank's
-    share of the global one (the aux over the dp size)."""
+    share of the global one (the aux over the dp size).  In a
+    tensor-parallel step the logits are the rank's vocabulary block and
+    the cross entropy is :func:`vocab_nll`'s."""
     tokens = batch["tokens"]
     logits, aux = forward(params, tokens, cfg,
                           frontend_embeds=batch.get("frontend_embeds"))
     targets = tokens[:, 1:].long()
     lg = logits[:, :-1]
-    logz = torch.logsumexp(lg, dim=-1)
-    tgt_logit = torch.take_along_dim(lg, targets[..., None], dim=-1)[..., 0]
-    nll = logz - tgt_logit
+    if tp_mesh() is not None:
+        nll = vocab_nll(lg, targets)
+    else:
+        logz = torch.logsumexp(lg, dim=-1)
+        tgt_logit = torch.take_along_dim(lg, targets[..., None],
+                                         dim=-1)[..., 0]
+        nll = logz - tgt_logit
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones_like(targets, dtype=torch.float32)

@@ -100,6 +100,7 @@ class StepCounter(TorchDispatchMode):
         self.collectives = {k: {"count": 0, "bytes": 0} for k in COLLECTIVES}
         self.collectives_by_axis: dict = {}
         self.collectives_by_op: dict = {}
+        self.forms: dict = {}
         self.live_bytes = 0
         self.peak_bytes = 0
         self._tracked: set = set()
@@ -135,6 +136,11 @@ class StepCounter(TorchDispatchMode):
             entry = table.setdefault(key, {"count": 0, "bytes": 0})
             entry["count"] += 1
             entry["bytes"] += nbytes
+
+    def add_form(self, block: str, form) -> None:
+        """The form a block ran in (:func:`repro_torch.tally.
+        report_form`)."""
+        self.forms[block] = form
 
     def _free(self, key: int, nbytes: int) -> None:
         self._tracked.discard(key)

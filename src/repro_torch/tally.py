@@ -1,5 +1,6 @@
-"""Where the BP/BS kernel's wrapper and the mesh report their work: the
-step counters open in this process
+"""Where the BP/BS kernel's wrapper and the mesh report their work, and
+a training step's blocks the form each took: the step counters open in
+this process
 (:class:`repro_torch.roofline.hlo_stats.StepCounter`, which adds itself
 to :data:`ACTIVE` while it is open).
 
@@ -26,3 +27,11 @@ def report_collective(kind: str, axis: str, operand_bytes: int,
     for c in ACTIVE:
         c.add_collective(kind, axis, int(operand_bytes), int(result_bytes),
                          op)
+
+
+def report_form(block: str, form) -> None:
+    """The form ``block`` (a projection's policy tag, ``"attn"`` or
+    ``"embed"``) ran in, reported where the form is chosen, to every open
+    counter."""
+    for c in ACTIVE:
+        c.add_form(block, form)

@@ -12,26 +12,46 @@ step is SPMD over the ranks, each holding its slices of the state under
 the single-device step computes on the global batch, as the reference's
 step under ``jit`` with state shardings does:
 
-1. gather the full parameters from their slices;
+1. gather the parameters from their slices: over every axis, or in a
+   tensor-parallel step over the fsdp axes alone;
 2. forward and backward on this rank's rows of the global batch (cut by
    ``batch_specs`` over the policy's dp axes) inside
    :func:`~repro_torch.distributed.autoshard.global_batch`, so a
    per-tensor input scale and the loss's token count are the global
    batch's;
 3. sum the gradient over the dp axes, leaf by leaf, and keep this rank's
-   slices of it;
+   slices of it (a tensor-parallel leaf's gradient already is the
+   rank's ``"model"`` slice);
 4. compress the reduced gradient (:func:`~repro_torch.optim.compression.
    compress_sharded`), clip by its global norm, and run AdamW on this
    rank's slices of params, mu and nu.
 
-In mode ``"2d"`` the model-axis ranks compute the same rows (no tensor-
-parallel compute in training yet), but for the routed experts: a MoE
-block gathers its rows over the dp axes, routes, drops and scores the
-aux loss over the global tokens, and each rank computes its block of
-the experts on ``"model"`` (:func:`~repro_torch.models.moe.moe_ffn`),
-so an expert leaf's gradient is whole on its own slice only, the slice
-step 3 keeps.  Each microbatch's MoE runs over that microbatch's global
-tokens, as the reference's accumulation does.
+In mode ``"2d"`` a dense decoder (:func:`~repro_torch.distributed.
+sharding.tp_config`, every leaf split on ``"model"`` by its spec) trains
+tensor-parallel, as the reference's step under its shardings: each
+rank computes with its ``"model"`` slice of every leaf
+(:func:`~repro_torch.distributed.sharding.splits_on_model`), its output
+columns of the column-parallel projections, its rows of the row-
+parallel ones (or their column form), attention on its heads, query
+rows or head dims in the reference's mode, and its vocabulary block of
+the embedding, the head and the cross entropy (``models.layers``,
+``models.attention``, ``models.model.vocab_nll``).  The residual stream
+stays replicated on ``"model"``, so every model rank gets the same
+gradient of a replicated leaf.  Each block reports the form it ran in
+where that form is chosen (:func:`repro_torch.tally.report_form`:
+``"embed"``, ``"attn"`` and every projection's policy tag, from
+``models.layers``, ``models.attention`` and ``accel.dispatch``); the
+step's :class:`StepClock` keeps them, and ``train_step.forms`` holds
+the last step's.
+
+The other configs keep the replicated form: the model-axis ranks
+compute the same rows on parameters gathered whole, but for the routed
+experts: a MoE block gathers its rows over the dp axes, routes, drops
+and scores the aux loss over the global tokens, and each rank computes
+its block of the experts on ``"model"`` (:func:`~repro_torch.models.
+moe.moe_ffn`), so an expert leaf's gradient is whole on its own slice
+only, the slice step 3 keeps.  Each microbatch's MoE runs over that
+microbatch's global tokens, as the reference's accumulation does.
 """
 from __future__ import annotations
 
@@ -40,6 +60,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import tally
 from repro_torch.distributed import autoshard
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import loss_fn
@@ -48,7 +69,7 @@ from repro_torch.optim.adamw import (AdamWConfig, apply_updates, f32,
 from repro_torch.optim.compression import (CompressionConfig,
                                            compress_decompress,
                                            compress_sharded)
-from repro_torch.tree import leaves, tree_map, unflatten
+from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
 from .state import TrainState
 
@@ -134,26 +155,53 @@ def build_train_step(cfg, opt_cfg: AdamWConfig,
 
 class StepClock:
     """Host-clock ms and mesh collectives of a mesh step's phases, one
-    dict a step in ``steps``: ``<phase>_ms``, ``<phase>_collectives`` and
-    ``<phase>_bytes`` for ``gather`` (the parameters), ``compute``
-    (forward and backward, with their statistics' reductions),
-    ``reduce`` (the gradient) and ``update`` (compression, norm,
-    AdamW).  A CUDA device is synchronized at each mark, so a phase's
-    device work lands in it."""
+    dict a step in ``steps``: ``<phase>_ms``, ``<phase>_collectives``,
+    ``<phase>_bytes`` and ``<phase>_by_op`` (``"kind/axis/op"`` to
+    ``[count, bytes]``, each collective's bytes the larger of its operand
+    and its result) for ``gather`` (the parameters), ``compute``
+    (forward and backward, with their statistics' reductions and a
+    tensor-parallel step's activation collectives), ``reduce`` (the
+    gradient) and ``update`` (compression, norm, AdamW).  A CUDA device
+    is synchronized at each mark, so a phase's device work lands in
+    it.  Between :meth:`start` and :meth:`stop` the clock is an open
+    counter of :mod:`repro_torch.tally`, which the mesh reports its
+    collectives to and each block its form (``forms``: the block to the
+    form it ran in this step)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
         self.steps: list = []
+        self.forms: dict = {}
+        self._by_op: dict = {}
 
     def _now(self, device) -> float:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return time.perf_counter()
 
+    def add_kernel(self, ops: int, nbytes: int) -> None:
+        """(A kernel call: not a phase's collective.)"""
+
+    def add_collective(self, kind: str, axis: str, operand_bytes: int,
+                       result_bytes: int, op=None) -> None:
+        entry = self._by_op.setdefault(f"{kind}/{axis}/{op}", [0, 0])
+        entry[0] += 1
+        entry[1] += max(operand_bytes, result_bytes)
+
+    def add_form(self, block: str, form) -> None:
+        self.forms[block] = form
+
     def start(self, device) -> None:
         self.steps.append({})
         self._t = self._now(device)
         self._s = dict(self.mesh.stats)
+        self._by_op = {}
+        self.forms.clear()
+        tally.ACTIVE.append(self)
+
+    def stop(self) -> None:
+        if self in tally.ACTIVE:
+            tally.ACTIVE.remove(self)
 
     def mark(self, phase: str, device) -> None:
         t, s = self._now(device), dict(self.mesh.stats)
@@ -162,7 +210,25 @@ class StepClock:
         step[f"{phase}_collectives"] = s["collectives"] - \
             self._s["collectives"]
         step[f"{phase}_bytes"] = s["bytes"] - self._s["bytes"]
+        step[f"{phase}_by_op"], self._by_op = self._by_op, {}
         self._t, self._s = t, s
+
+
+def tensor_parallel(cfg, mesh, policy, param_specs, params) -> bool:
+    """Does a mesh step of ``cfg`` run tensor-parallel: mode ``"2d"``, a
+    ``"model"`` axis wider than 1, a dense decoder
+    (:func:`~repro_torch.distributed.sharding.tp_config`), and every
+    weight leaf of ``params`` split on ``"model"`` by its spec (a dim
+    the axis does not divide keeps the replicated form)."""
+    policy = shd.resolve_policy(policy)
+    if policy.is_fsdp or "model" not in mesh.axis_names \
+            or mesh.size("model") <= 1 or not shd.tp_config(cfg):
+        return False
+    return all(shd.splits_on_model(spec)
+               for (path, _), spec in zip(
+                   leaves_with_path(params),
+                   shd.spec_leaves(params, param_specs))
+               if path.endswith("['w']") or path.endswith("['table']"))
 
 
 def _build_mesh_step(cfg, opt_cfg, comp_cfg, microbatches, mesh, policy,
@@ -173,6 +239,8 @@ def _build_mesh_step(cfg, opt_cfg, comp_cfg, microbatches, mesh, policy,
     dp = shd.dp_axes(mesh, policy)
     dp_size = mesh.size_of(dp)
     clock = StepClock(mesh)
+    # a tensor-parallel step gathers over the fsdp axes alone
+    over: list = []
 
     def rows(batch: dict) -> dict:
         """This rank's rows of a (micro)batch of the global batch."""
@@ -192,18 +260,33 @@ def _build_mesh_step(cfg, opt_cfg, comp_cfg, microbatches, mesh, policy,
         out = []
         for i, spec in enumerate(shd.spec_leaves(like, specs.params)):
             g, gl[i] = mesh.all_reduce_(gl[i].contiguous(), dp), None
-            out.append(shd.local_slice(g, spec, mesh).clone()
-                       if any(a is not None for a in spec) else g)
+            if over[0] is not None:
+                g = shd.slice_axes(g, spec, mesh, over[0])
+            else:
+                g = shd.local_slice(g, spec, mesh)
+            out.append(g.clone() if any(a is not None for a in spec)
+                       else g)
         return out
 
     def train_step(state: TrainState, batch: dict):
         device = state.step.device
+        if not over:
+            over.append(shd.fsdp_axes(mesh, policy) if tensor_parallel(
+                cfg, mesh, policy, specs.params, state.params) else None)
         clock.start(device)
-        params = shd.unshard_tree(state.params, specs.params, mesh)
+        try:
+            return step(state, batch, device)
+        finally:
+            clock.stop()
+
+    def step(state: TrainState, batch: dict, device):
+        params = (shd.unshard_tree(state.params, specs.params, mesh)
+                  if over[0] is None else
+                  shd.gather_tree(state.params, specs.params, mesh, over[0]))
         clock.mark("gather", device)
         batches = (_split_microbatches(batch, microbatches)
                    if microbatches > 1 else [batch])
-        with autoshard.global_batch(mesh, policy):
+        with autoshard.global_batch(mesh, policy, tp=over[0] is not None):
             metrics, grads = _grads(cfg, params, [rows(b) for b in batches],
                                     state.step)
         flat = leaves(grads)
@@ -223,6 +306,7 @@ def _build_mesh_step(cfg, opt_cfg, comp_cfg, microbatches, mesh, policy,
                 {**metrics, **opt_metrics})
 
     train_step.clock = clock
+    train_step.forms = clock.forms
     return train_step
 
 

@@ -10,6 +10,11 @@ llama4-scout-17b-a16e (8 frontend positions when reduced; llama4's MoE:
 8 experts top-1 and 1 shared).  The frontend configs get the same
 seeded frame or patch embeddings in both packages.
 
+The families run in two files, so that parallel workers take one each:
+this one the recurrent and dense configs and whisper-tiny (``HERE``),
+``test_torch_archs_moe.py`` the MoE and early-fusion ones (``THERE``),
+each the same tests on its own configs.
+
 Reduced configs (``reduced()``: d_model 128, float32) with the
 reference's ``init_params`` converted key for key.  Logits are float32
 results of the same operations in another summation order, held
@@ -62,6 +67,9 @@ MOE = [("deepseek-v2-lite-16b", None)]
 FRONTEND = [("whisper-tiny", None), ("phi-3-vision-4.2b", None),
             ("llama4-scout-17b-a16e", None)]
 ARCHS = RECURRENT + DENSE + MOE + FRONTEND
+# this file's configs, and test_torch_archs_moe.py's
+HERE = RECURRENT + DENSE + FRONTEND[:1]
+THERE = MOE + FRONTEND[1:]
 
 
 def _id(arch):
@@ -129,7 +137,7 @@ def test_all_archs_registered():
             [getattr(jc, f) for f in fields], name
 
 
-@pytest.mark.parametrize("arch", ARCHS, ids=_id)
+@pytest.mark.parametrize("arch", HERE, ids=_id)
 def test_port_init_matches_reference_tree(arch):
     """The port's own ``init_params`` has the reference's keys and shapes;
     the converted tree holds the reference's values."""
@@ -144,7 +152,7 @@ def test_port_init_matches_reference_tree(arch):
         np.testing.assert_array_equal(conv[k].numpy(), v)
 
 
-@pytest.mark.parametrize("arch", ARCHS, ids=_id)
+@pytest.mark.parametrize("arch", HERE, ids=_id)
 def test_forward_logits_match_reference(arch):
     jc, tc, pj, pt = _ref(*arch)
     toks = _tokens(jc.vocab, (2, 16))
@@ -161,7 +169,7 @@ def test_forward_logits_match_reference(arch):
     assert (float(aux) > 0) == tc.moe
 
 
-@pytest.mark.parametrize("arch", ARCHS, ids=_id)
+@pytest.mark.parametrize("arch", HERE, ids=_id)
 def test_prefill_decode_matches_forward(arch):
     """Cache correctness (the port of ``test_prefill_decode_matches_
     forward``): prefill(8) + 4 decode steps equal the full teacher-forced
@@ -203,13 +211,15 @@ def test_prefill_decode_matches_forward(arch):
         np.testing.assert_allclose(a.numpy(), b, **TOL)
 
 
-def _stream_cases():
-    cases = [(a, b) for a in RECURRENT + MOE + FRONTEND
-             for b in ("digital", "bpbs", "kernel")]
-    return cases + [(a, b) for a in DENSE for b in ("digital", "bpbs")]
+def _stream_cases(archs):
+    """Every backend on ``archs`` but the dense configs, which ride along
+    on ``digital`` and ``bpbs``."""
+    return [(a, b) for a in archs
+            for b in (("digital", "bpbs") if a in DENSE
+                      else ("digital", "bpbs", "kernel"))]
 
 
-@pytest.mark.parametrize("arch,backend", _stream_cases(),
+@pytest.mark.parametrize("arch,backend", _stream_cases(HERE),
                          ids=lambda v: v if isinstance(v, str) else _id(v))
 def test_greedy_streams_equal_reference(arch, backend):
     """``Engine.generate`` in both packages; the frontend configs with
@@ -230,7 +240,7 @@ def test_greedy_streams_equal_reference(arch, backend):
 _MEASURED = dict(sparsity=None, planes_skipped=None, planes_total=None)
 
 
-@pytest.mark.parametrize("arch", RECURRENT[:2] + MOE, ids=_id)
+@pytest.mark.parametrize("arch", RECURRENT[:2], ids=_id)
 def test_program_tags_and_trace_match_reference(arch):
     """``build_program`` installs images on the reference's projections
     (``rec.in_x``/``in_gate``/``out`` and ``ssm.in_proj``/``out_proj``,
@@ -366,8 +376,7 @@ def test_loss_and_gradient_step_mamba2():
     assert np.isfinite(float(l2))
 
 
-@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b",
-                                  "llama4-scout-17b-a16e", "whisper-tiny"])
+@pytest.mark.parametrize("name", ["whisper-tiny"])
 def test_grouped_training_on_bpbs_matches_reference(name):
     """The port of the slow sweep of ``test_smoke_train_step`` for the
     configs whose forward makes grouped quantizing calls (MoE experts,

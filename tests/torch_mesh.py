@@ -656,6 +656,17 @@ def expert_grads_whole(grads, mesh, policy):
     return unflatten(grads, out)
 
 
+def tp_view(params, param_specs, mesh):
+    """The parameters a rank of a tensor-parallel step computes with:
+    each leaf's ``"model"`` slice under its spec, whole on the other
+    axes (what the step's gather over the fsdp axes gives)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t, s: shd.slice_axes(t, s, mesh, ("model",)),
+                    params, param_specs)
+
+
 def train_case(cfg, params, mesh, mode: str, data_cfg, opt_cfg, steps: int,
                comp_cfg=None, device: str = "cpu") -> dict:
     """``steps`` mesh train steps of ``params`` on ``mesh`` in ``mode``:
@@ -666,15 +677,19 @@ def train_case(cfg, params, mesh, mode: str, data_cfg, opt_cfg, steps: int,
     leaves whole, :func:`expert_grads_whole`), both at ``params``, and
     this rank's slices of the compressed reduced gradient and error
     (``compress_sharded``) next to the full reduced gradient and error
-    they slice."""
+    they slice.  In a tensor-parallel step (mode ``"2d"`` on a dense
+    decoder) the forward and the gradient run on the rank's ``"model"``
+    slices (:func:`tp_view`), and the vocabulary blocks of the logits
+    and the slices of the gradient are gathered over ``"model"``."""
     from repro_torch.data.pipeline import make_batch
     from repro_torch.distributed import autoshard
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import forward, loss_fn
     from repro_torch.optim.compression import compress_sharded
     from repro_torch.train.state import init_train_state
-    from repro_torch.train.step import build_train_step, value_and_grad
-    from repro_torch.tree import leaves, tree_map
+    from repro_torch.train.step import (build_train_step, tensor_parallel,
+                                        value_and_grad)
+    from repro_torch.tree import tree_map
 
     policy = shd.ShardPolicy(mode)
     params = tree_map(lambda t: t.to(device), params)
@@ -686,12 +701,21 @@ def train_case(cfg, params, mesh, mode: str, data_cfg, opt_cfg, steps: int,
     ids = shd.local_slice(torch.arange(b), bspec, mesh)
     mine = {k: shd.local_slice(v, bspec, mesh) for k, v in batch.items()}
     dp = policy.dp_axes(mesh)
-    with torch.no_grad(), autoshard.global_batch(mesh, policy), \
+    tp = tensor_parallel(cfg, mesh, policy, specs.params, params)
+    view = tp_view(params, specs.params, mesh) if tp else params
+    with torch.no_grad(), autoshard.global_batch(mesh, policy, tp), \
             recorded_dispatch() as dispatches:
-        logits = forward(params, mine["tokens"], cfg)[0]
-    with autoshard.global_batch(mesh, policy):
+        logits = forward(view, mine["tokens"], cfg)[0]
+    with autoshard.global_batch(mesh, policy, tp):
         (_, metrics), grads = value_and_grad(
-            lambda p: loss_fn(p, mine, cfg), params)
+            lambda p: loss_fn(p, mine, cfg), view)
+    if tp:
+        # a rank holds its vocabulary block of the logits and its model
+        # slice of each leaf's gradient: gathered for the comparison
+        logits = mesh.all_gather(logits, "model", -1)
+        grads = tree_map(lambda g, s: shd.gather_leaf(g, s, mesh,
+                                                      ("model",)),
+                         grads, specs.params)
     grads = expert_grads_whole(tree_map(lambda g: mesh.all_reduce(g, dp),
                                         grads), mesh, policy)
     out = dict(rows=ids, logits=logits, grad=grads, dispatches=dispatches,
@@ -714,6 +738,7 @@ def train_case(cfg, params, mesh, mode: str, data_cfg, opt_cfg, steps: int,
                                  grad_norm=float(m["grad_norm"]),
                                  tokens=float(m["tokens"]), state=st))
     out["clock"] = step.clock.steps
+    out["forms"] = dict(step.forms)
     out["coords"] = mesh.coords
     return out
 
@@ -760,6 +785,78 @@ def task_train(args) -> dict:
                                                           mesh=mesh)
     if "trainer" in args:
         out["trainer"] = _trainer_runs(args["trainer"], meshes)
+    return out
+
+
+def task_train_tp(args) -> dict:
+    """Every case of ``args["cases"]`` ((mesh, config, steps) ->
+    :func:`train_case` in mode "2d"), on the 1 x 2 mesh of ranks 0-1 and
+    the 2 x 2 of all four; and on 1 x 2 the operators' checks
+    (:func:`_tp_operator_checks`)."""
+    shapes = sorted({c[0] for c in args["cases"]} | {(1, 2)})
+    meshes = _train_meshes(args["world"], shapes)
+    out = {}
+    for key in args["cases"]:
+        shape, name, steps = key
+        if meshes.get(shape) is None:
+            continue
+        cfg, params = args["configs"][name]
+        out[key] = train_case(cfg, params, meshes[shape], "2d",
+                              args["data"], args["opt"], steps)
+    if meshes[(1, 2)] is not None:
+        out["ops"] = _tp_operator_checks(meshes[(1, 2)], args["ce"],
+                                         args["col_form"])
+    return out
+
+
+def _tp_operator_checks(mesh, ce, col_form) -> dict:
+    """On 1 x 2, inside a tensor-parallel ``global_batch`` scope, each
+    operator differentiated through ``(y * w).sum()`` (``w`` = arange
+    times rank + 1): ``reduce`` of ``[[rank, 1]]``, ``gather(...,
+    partial=True)`` of it over "model"; the column form
+    (``accel.matmul(..., tile="col-form")``) on this rank's N block and
+    rows of ``col_form``'s ``(x, w, spec)``, differentiated through
+    ``(y * g).sum()`` with ``g`` the rank's arange as above, with the
+    collectives of its forward and of its backward apart; and
+    ``vocab_nll`` of this rank's vocabulary block of ``ce``'s logits.
+    Each: the result, the gradient(s) and the collectives it took."""
+    from repro_torch.accel import matmul
+    from repro_torch.distributed import autoshard
+    from repro_torch.distributed.sharding import ShardPolicy
+    from repro_torch.models.model import vocab_nll
+
+    out = {}
+    with autoshard.global_batch(mesh, ShardPolicy("2d"), tp=True):
+        for name in ("reduce", "gather_partial"):
+            t = torch.tensor([[float(mesh.rank), 1.0]], requires_grad=True)
+            c0 = mesh.stats["collectives"]
+            y = {"reduce": lambda: autoshard.reduce(t),
+                 "gather_partial": lambda: autoshard.gather(
+                     t, "model", 0, partial=True)}[name]()
+            w = torch.arange(y.numel(), dtype=torch.float32).reshape(
+                y.shape) * (mesh.rank + 1)
+            (y * w).sum().backward()
+            out[name] = (y.detach(), t.grad, mesh.stats["collectives"] - c0)
+        x, w, spec = col_form
+        n = x.shape[-1] // mesh.size("model")
+        lo = mesh.rank * n
+        xb = torch.from_numpy(x[:, lo:lo + n]).requires_grad_()
+        wb = torch.from_numpy(w[lo:lo + n]).requires_grad_()
+        c0 = mesh.stats["collectives"]
+        y = matmul(xb, wb, spec, tile="col-form")
+        c1 = mesh.stats["collectives"]
+        g = torch.arange(y.numel(), dtype=torch.float32).reshape(
+            y.shape) * (mesh.rank + 1)
+        (y * g).sum().backward()
+        out["col_form"] = (y.detach(), xb.grad, wb.grad, c1 - c0,
+                           mesh.stats["collectives"] - c1)
+        logits, targets = (torch.from_numpy(a) for a in ce)
+        v = logits.shape[-1] // mesh.size("model")
+        mine = logits[..., mesh.rank * v:(mesh.rank + 1) * v].clone()
+        mine.requires_grad_()
+        nll = vocab_nll(mine, targets)
+        nll.sum().backward()
+        out["vocab_nll"] = (nll.detach(), mine.grad)
     return out
 
 
