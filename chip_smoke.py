@@ -126,8 +126,16 @@ into ``build/`` (one ``nvcc`` per source, started together), then
   collectives held (``serve_mesh_mixers``); and serves
   the reduced tune pick
   through ``ServeConfig.from_tuned`` on its 2 x 4 mesh, tokens equal to
-  the 1 x 1 route's (``serve_tuned_mesh``).  The ranks are this script
-  run as ``--mesh-worker``; they load the kernels the parent built;
+  the 1 x 1 route's (``serve_tuned_mesh``); trains full-width olmo-1b
+  (2 layers) on 2 x 2 "fsdp" and tensor-parallel on 1 x 2 "2d"
+  (``train_mesh``), mamba2-130m (2 layers) tensor-parallel on 1 x 2,
+  its SSD mixer on each rank's heads, with the slice's tile shapes
+  (mamba2-130m's and recurrentgemma-9b's rec block) held bitwise to the
+  plain version and timed (``train_mesh_mixers``; recurrentgemma-9b's
+  step reckoned, not run: it fits the card at no depth), and
+  deepseek-v2-lite (2 layers) on 2 x 2 "2d" (``train_moe_mesh``).  The
+  ranks are this script run as ``--mesh-worker``; they load the kernels
+  the parent built;
 * runs the runtime sanitizer (``sanitize``): full-width olmo-1b's
   ``generate`` on the kernel outside and then inside ``accel.sanitize()``
   (tokens equal, every dispatch's input, weight and kernel output
@@ -593,6 +601,37 @@ TP_TILE_SHAPES = [
     ("tp col unembed 1/2", 2048, 25152, None, 1)]
 TP_ROW_SHAPES = [("tp row attn.o 1/2", 1024, 2048, None, MESH_LAYERS),
                  ("tp row mlp.down 1/2", 4096, 2048, None, MESH_LAYERS)]
+# train_mesh_mixers: mamba2-130m at published widths and MESH_LAYERS of
+# its 24 layers on the kernel, trained tensor-parallel on a 1 x 2 "2d"
+# mesh of gloo ranks sharing the card (MESH_TRAIN_STEPS steps of LM_BATCH
+# x LM_SEQ, remat on): its SSD mixer on 12 of 24 heads a rank ("heads"),
+# in_proj's 1,676-column tile (off the 16-wide tile), out_proj's 768 rows
+# a rank in the column form at bank_n 2,304 (part of a bank), the tied
+# head's 25,140-row vocabulary block; 5 launches a forward, 4 in the remat
+# replay.  The tile shapes the slice gives the kernel at LM_BATCH x LM_SEQ
+# rows are timed first (tp_tile lines): mamba2-130m's and recurrentgemma-
+# 9b's rec block at 1 x 2 (in_x and in_gate column tiles; out's column
+# form has in_x's shape, its row tile at TP_BANK_N whole banks).
+# recurrentgemma-9b's training step is reckoned, not run: its untied
+# 256,000-row embedding and head alone are 2.10e9 parameters, and
+# TRAIN_TREES float32 trees of them pass TRAIN_MEM_FRACTION of the card
+# at any depth, on any number of ranks sharing it
+MIXER_TRAIN_CONFIG = "mamba2-130m"
+MIXER_TRAIN_FORMS = {
+    "ssm": "tp/heads", "embed": "vocab",
+    "ssm.in_proj": {"form": "col", "tile": [768, 1676]},
+    "ssm.out_proj": {"form": "col-form", "tile": [1536, 384]},
+    "unembed": {"form": "col", "tile": [768, 25140]}}
+MIXER_LAUNCHES_PER_FORWARD = 2 * MESH_LAYERS + 1                  # 5
+MIXER_TILE_SHAPES = [
+    ("tp col ssm.in_proj 1/2", 768, 1676, None, MESH_LAYERS),
+    ("tp col-form ssm.out_proj 1/2", 1536, 384, None, MESH_LAYERS),
+    ("tp col unembed (tied) 1/2", 768, 25140, None, 1),
+    ("tp col rec.in_x + col-form rec.out 1/2 (recurrentgemma-9b)", 4096,
+     2048, None, 2),
+    ("tp col rec.in_gate 1/2 (recurrentgemma-9b)", 4096, 2048, "gelu", 1)]
+MIXER_ROW_SHAPES = [("tp row rec.out 1/2 (recurrentgemma-9b)", 2048, 4096,
+                     None, 1)]
 # ADC noise at the 0.85 V corner.  At fs = 255 (one bank of 255 rows, no
 # adaptive range) the clean ADC is exact and a code moves by
 # e = round(sigma z): P(e = +-1) = erfc(0.5 / (sigma sqrt 2)) = 0.09558,
@@ -4944,20 +4983,8 @@ def phase_train_mesh(peaks) -> tuple:
             ranks = []
             for r, got in enumerate(res):
                 what = f"train_mesh {data}x{model} rank {r}"
-                losses = [s["loss"] for s in got["steps"]]
-                check(losses == [s["loss"] for s in res[0]["steps"]],
-                      f"{what}: losses differ from rank 0's")
-                for k, (s, (want, _)) in enumerate(zip(got["steps"],
-                                                       lm_steps)):
-                    rtol = TRAIN_MESH_FIRST_RTOL if k == 0 \
-                        else TRAIN_MESH_RTOL
-                    check(abs(s["loss"] - want) <= rtol * abs(want),
-                          f"{what}: step {k} loss {s['loss']} vs unsharded "
-                          f"{want} (rtol {rtol})")
-                split = [(s["launches_forward"], s["launches_backward_remat"])
-                         for s in got["steps"]]
-                check(split == [per_step] * MESH_TRAIN_STEPS,
-                      f"{what}: launches (forward, backward) {split}")
+                check_mesh_steps(got, res[0], [x[0] for x in lm_steps],
+                                 per_step, what)
                 launches += got["launches"] + got["elastic_launches"] \
                     + got.get("bank_launches", 0)
                 if mode == "2d":
@@ -5033,6 +5060,25 @@ def phase_train_mesh(peaks) -> tuple:
     return launches, tiles, max(tile_err, row_err)
 
 
+def check_mesh_steps(got: dict, first: dict, want: list, per_step: tuple,
+                     what: str) -> None:
+    """A mesh training rank's steps: losses equal to rank 0's
+    (``first``), each within TRAIN_MESH_RTOL of the unsharded step's
+    ``want`` (step 1 within TRAIN_MESH_FIRST_RTOL), and ``per_step``
+    launches (forward, remat replay) in every step."""
+    losses = [s["loss"] for s in got["steps"]]
+    check(losses == [s["loss"] for s in first["steps"]],
+          f"{what}: losses differ from rank 0's")
+    for k, (loss, w) in enumerate(zip(losses, want)):
+        rtol = TRAIN_MESH_FIRST_RTOL if k == 0 else TRAIN_MESH_RTOL
+        check(abs(loss - w) <= rtol * abs(w),
+              f"{what}: step {k} loss {loss} vs unsharded {w} (rtol {rtol})")
+    split = [(s["launches_forward"], s["launches_backward_remat"])
+             for s in got["steps"]]
+    check(split == [per_step] * MESH_TRAIN_STEPS,
+          f"{what}: launches (forward, backward) {split}")
+
+
 def tp_bank_cfg(cfg):
     """``cfg`` at bank_n TP_BANK_N: a 1 x 2 rank's rows of wo (1,024) and
     mlp.down (4,096) are whole banks."""
@@ -5078,6 +5124,115 @@ def check_tp_forms(got: dict, what: str, bank_loss: float) -> None:
           f"{bank['loss']} vs unsharded {bank_loss}")
 
 
+def mixer_train_cfg():
+    """``train_mesh_mixers``'s config: mamba2-130m at published widths and
+    MESH_LAYERS layers on the kernel (remat on, as published)."""
+    return dataclasses.replace(
+        get_config(MIXER_TRAIN_CONFIG).with_accel("kernel", ba=4, bx=4),
+        n_layers=MESH_LAYERS)
+
+
+def phase_train_mesh_mixers(peaks) -> tuple:
+    """mamba2-130m (``mixer_train_cfg``) trained tensor-parallel on the
+    kernel on a 1 x 2 "2d" mesh of gloo ranks sharing the card
+    (``train_mesh_mixers``: ``build_train_step(mesh=)``, MESH_TRAIN_STEPS
+    steps of LM_BATCH x LM_SEQ from seed 0, remat on).  First the tile
+    shapes of the slice against their bound and plain version, bitwise
+    (``tp_tile`` and ``tp_row_tile`` lines), and the unsharded steps on
+    the same batches in this process (``lm_run``).  Every rank's losses
+    within TRAIN_MESH_RTOL of them (step 1 within TRAIN_MESH_FIRST_RTOL)
+    and equal across ranks; MIXER_LAUNCHES_PER_FORWARD launches a
+    forward and one fewer in the remat replay; the forms its blocks
+    reported (MIXER_TRAIN_FORMS); no parameter gathered.  Per rank: ms a
+    step by phase, collectives and bytes by phase and by op, peak memory,
+    idle share.  Then recurrentgemma-9b's reckoning (``"trained":
+    false``).  Returns the main path's launches, the tiles' rows and
+    their worst fused error."""
+    launches = 0
+    cfg = mixer_train_cfg()
+    rows = LM_BATCH * LM_SEQ
+    tiles, tile_err = kernel_shapes(MIXER_TILE_SHAPES, (rows,), peaks,
+                                    "tp_tile")
+    row_tiles, row_err = kernel_shapes(MIXER_ROW_SHAPES, (rows,), peaks,
+                                       "tp_row_tile", bank_n=TP_BANK_N)
+    tiles.update(row_tiles)
+    torch.cuda.empty_cache()
+    _, flat = lm_run(cfg, mesh_batches(cfg), mesh_opt())
+    torch.cuda.empty_cache()
+    per_step = (MIXER_LAUNCHES_PER_FORWARD, MIXER_LAUNCHES_PER_FORWARD - 1)
+    data, model = 1, 2
+    t0 = time.perf_counter()
+    res = spawn_mesh("train_mixers", data, model, {})
+    seconds = time.perf_counter() - t0
+    ranks = []
+    for r, got in enumerate(res):
+        what = f"train_mesh_mixers {data}x{model} rank {r}"
+        check_mesh_steps(got, res[0], [s["loss"] for s in flat], per_step,
+                         what)
+        check(all(got["forms"].get(k) == v
+                  for k, v in MIXER_TRAIN_FORMS.items()),
+              f"{what}: forms {got['forms']}")
+        check(all(s["gather_collectives"] == 0 for s in got["steps"]),
+              f"{what}: the step gathered parameters")
+        launches += got["launches"]
+        ranks.append(dict(rank=r, coords=got["coords"], steps=got["steps"],
+                          launches=got["launches"],
+                          max_memory_allocated_bytes=got["peak_bytes"],
+                          step_profile=got["profile"], forms=got["forms"]))
+    t_step = statistics.median(s["ms"] for x in ranks
+                               for s in x["steps"][:-1])
+    emit("train_mesh_mixers", config=MIXER_TRAIN_CONFIG, layers=cfg.n_layers,
+         published_depth=get_config(MIXER_TRAIN_CONFIG).n_layers,
+         mesh={"data": data, "model": model}, mode="2d", backend="gloo",
+         device="cuda:0 shared by every rank", seq=LM_SEQ, batch=LM_BATCH,
+         steps=MESH_TRAIN_STEPS, remat=cfg.remat,
+         unsharded_losses=[s["loss"] for s in flat],
+         unsharded_ms=[s["ms"] for s in flat],
+         losses=[s["loss"] for s in res[0]["steps"]],
+         loss_rel_diff_vs_unsharded=[
+             abs(s["loss"] - w["loss"]) / abs(w["loss"])
+             for s, w in zip(res[0]["steps"], flat)],
+         grad_norms=[s["grad_norm"] for s in res[0]["steps"]],
+         unsharded_grad_norms=[s["grad_norm"] for s in flat],
+         launches_per_step_per_rank=sum(per_step),
+         ms_per_step_median=t_step,
+         timed_step="the first, a warm-up step",
+         forms=res[0]["forms"], phase_s=seconds, ranks=ranks)
+    # recurrentgemma-9b: reckoned, as train_moe reckons llama4-scout
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    base = get_config("recurrentgemma-9b")
+    reckoned = {n: train_bytes(dataclasses.replace(base, n_layers=n))
+                for n in (1, 3, base.n_layers)}
+    check(min(reckoned.values()) > TRAIN_MEM_FRACTION * total_mem,
+          f"recurrentgemma-9b's reckoned step {reckoned} fits the card")
+    emit("train_mesh_mixers", config="recurrentgemma-9b", trained=False,
+         published_depth=base.n_layers, reckoned_step_bytes=reckoned,
+         budget_bytes=TRAIN_MEM_FRACTION * total_mem,
+         device_memory_bytes=total_mem,
+         parameters_embedding_and_head=2 * base.vocab * base.d_model,
+         why=f"{TRAIN_TREES} float32 parameter trees at 1 layer need "
+             f"{reckoned[1]} bytes, over the budget; ranks sharing the card "
+             f"hold the whole tree between them: its rec-block tiles are "
+             f"timed alone (tp_tile lines)")
+    return launches, tiles, max(tile_err, row_err)
+
+
+def worker_train_mixers(mesh, args) -> dict:
+    """One rank of ``train_mesh_mixers``."""
+    torch.use_deterministic_algorithms(True)
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts at 0 just before, read just after
+    K.cima_mvm_planes.launches = 0
+    _, steps, profile, forms = mesh_train_run(mesh, ShardPolicy("2d"),
+                                              mixer_train_cfg(),
+                                              profiled=True)
+    launches = K.cima_mvm_planes.launches
+    torch.use_deterministic_algorithms(False)
+    return dict(coords=mesh.coords, steps=steps, forms=forms,
+                launches=launches, profile=profile,
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
 def mesh_batches(cfg, steps: int = MESH_TRAIN_STEPS) -> list:
     """The mesh training phases' global batches: train_lm's first
     ``steps``."""
@@ -5091,59 +5246,67 @@ def mesh_opt() -> AdamWConfig:
     return AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=200)
 
 
+def mesh_train_run(mesh, policy, cfg, route=None, profiled=False,
+                   n=MESH_TRAIN_STEPS) -> tuple:
+    """One rank's ``n`` mesh train steps of ``cfg`` from seed 0 on
+    ``mesh_batches`` with ``mesh_opt``: per step ms, launches of the
+    forward and of the backward (the remat replay), loss, gradient norm
+    and the step clock's phases; the state, the last step's profile
+    (with ``profiled`` the last step runs under the profiler,
+    ``device_profile``: a rank's steps are seconds long, so a phase
+    profiles its main path's last step rather than add one) and the
+    forms.  ``route`` routes the kernel's launches to another function."""
+    params = init_params(cfg, 0, device="cuda")
+    specs = state_specs(state_template(params), mesh, policy)
+    holder = [init_train_state(shard_tree(params, specs.params, mesh))]
+    del params
+    torch.cuda.empty_cache()
+    step_fn = build_train_step(cfg, mesh_opt(), mesh=mesh,
+                               shard_policy=policy, specs=specs)
+    batches = mesh_batches(cfg)
+    scope = (routed_launches(route, keep=False) if route is not None
+             else contextlib.nullcontext())
+    out, profile = [], None
+    torch.cuda.synchronize()
+    with scope, backward_marks(train_step, "loss_fn") as marks:
+        for k, b in enumerate(batches[:n]):
+            n0 = K.cima_mvm_planes.launches
+            t0 = time.perf_counter()
+            metrics = []
+
+            def one(b=b):
+                holder[0], m = step_fn(holder[0], b)
+                metrics.append(m)
+
+            if profiled and k == len(batches) - 1:
+                profile = device_profile(one, 1.0, steps=1)
+            else:
+                one()
+            torch.cuda.synchronize()
+            n1 = K.cima_mvm_planes.launches
+            out.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                            launches_forward=marks[-1] - n0,
+                            launches_backward_remat=n1 - marks[-1],
+                            loss=float(metrics[0]["loss"]),
+                            grad_norm=float(metrics[0]["grad_norm"]),
+                            profiled=profile is not None
+                            and k == len(batches) - 1,
+                            **step_fn.clock.steps[-1]))
+    if profile is not None and profile["device_busy_ms_per_step"]:
+        # against the unprofiled step, the warm-up
+        profile["device_idle_share"] = \
+            1.0 - profile["device_busy_ms_per_step"] / out[0]["ms"]
+    return holder[0], out, profile, dict(step_fn.forms)
+
+
 def worker_train(mesh, args) -> dict:
     """One rank of ``train_mesh``."""
     torch.use_deterministic_algorithms(True)
     cfg = mesh_olmo()
     policy = ShardPolicy(args["mode"])
-    batches = mesh_batches(cfg)
-    opt_cfg = mesh_opt()
 
     def run(cfg, route=None, profiled=False, n=MESH_TRAIN_STEPS):
-        """``n`` steps from seed 0; with ``profiled`` the last one
-        under the profiler (``device_profile``): a rank's steps are tens
-        of seconds, so the phase profiles its main path's last step
-        rather than add one."""
-        params = init_params(cfg, 0, device="cuda")
-        specs = state_specs(state_template(params), mesh, policy)
-        holder = [init_train_state(shard_tree(params, specs.params, mesh))]
-        del params
-        torch.cuda.empty_cache()
-        step_fn = build_train_step(cfg, opt_cfg, mesh=mesh,
-                                   shard_policy=policy, specs=specs)
-        scope = (routed_launches(route, keep=False) if route is not None
-                 else contextlib.nullcontext())
-        out, profile = [], None
-        torch.cuda.synchronize()
-        with scope, backward_marks(train_step, "loss_fn") as marks:
-            for k, b in enumerate(batches[:n]):
-                n0 = K.cima_mvm_planes.launches
-                t0 = time.perf_counter()
-                metrics = []
-
-                def one(b=b):
-                    holder[0], m = step_fn(holder[0], b)
-                    metrics.append(m)
-
-                if profiled and k == len(batches) - 1:
-                    profile = device_profile(one, 1.0, steps=1)
-                else:
-                    one()
-                torch.cuda.synchronize()
-                n1 = K.cima_mvm_planes.launches
-                out.append(dict(ms=(time.perf_counter() - t0) * 1e3,
-                                launches_forward=marks[-1] - n0,
-                                launches_backward_remat=n1 - marks[-1],
-                                loss=float(metrics[0]["loss"]),
-                                grad_norm=float(metrics[0]["grad_norm"]),
-                                profiled=profile is not None
-                                and k == len(batches) - 1,
-                                **step_fn.clock.steps[-1]))
-        if profile is not None and profile["device_busy_ms_per_step"]:
-            # against the unprofiled step, the warm-up
-            profile["device_idle_share"] = \
-                1.0 - profile["device_busy_ms_per_step"] / out[0]["ms"]
-        return holder[0], out, profile, dict(step_fn.forms)
+        return mesh_train_run(mesh, policy, cfg, route, profiled, n)
 
     torch.cuda.reset_peak_memory_stats()
     # the main path: counts at 0 just before, read just after
@@ -5671,7 +5834,7 @@ def mesh_worker(argv) -> None:
     args = torch.load(tmp / "args.pt", weights_only=False)
     out = {"serve": worker_serve, "serve_mqa": worker_serve_mqa,
            "serve_sqd": worker_serve_sqd, "tuned": worker_tuned,
-           "train": worker_train,
+           "train": worker_train, "train_mixers": worker_train_mixers,
            "train_moe": worker_train_moe}[kind](mesh, args)
     torch.save(out, tmp / f"rank{rank}.pt")
     torch.distributed.destroy_process_group()
@@ -5720,6 +5883,7 @@ def main():
     sqd_launches = phase_serve_mesh_sqd()
     tuned_mesh_launches = phase_serve_tuned_mesh(tuned)
     train_mesh_launches, tp_tiles, tp_err = phase_train_mesh(peaks)
+    mixer_launches, mixer_tiles, mixer_err = phase_train_mesh_mixers(peaks)
     moe_mesh_launches = phase_train_moe_mesh()
     phase_noise()
     phase_noise_qat()
@@ -5751,11 +5915,12 @@ def main():
                      + paged_launches + paged_archs_launches
                      + moe_train_launches + tune_launches
                      + mesh_launches + sqd_launches + tuned_mesh_launches
-                     + train_mesh_launches + moe_mesh_launches
+                     + train_mesh_launches + mixer_launches
+                     + moe_mesh_launches
                      + san_launches
                      + roofline_launches + example_launches),
         "max_abs_err": max(err_cases, err_main, cifar_err, rec_err, moe_err,
-                           fr_err, mesh_err, tp_err),
+                           fr_err, mesh_err, tp_err, mixer_err),
         "ms": step["ms"], "plain_ms": step["plain_ms"],
         "bound_ms": step["bound_ms"], "bound_by": step_bound_by,
         "library_ms": None,
@@ -5815,7 +5980,11 @@ def main():
                "at bank_n 1,024 with wo and mlp.down as row tiles; the "
                "reduced trainer's 4 "
                "steps a rank crashed on 2 x 2 and 2 resumed on 1 x 2, 29 "
-               "each); train_moe_mesh's ranks (deepseek-v2-lite-16b at 2 "
+               "each); train_mesh_mixers' ranks (mamba2-130m at 2 of 24 "
+               "layers trained tensor-parallel on a 1 x 2 2d gloo mesh "
+               "sharing the card: 2 steps of 9 launches a rank, 5 "
+               "forward and 4 remat, its SSD mixer on the rank's 12 "
+               "heads); train_moe_mesh's ranks (deepseek-v2-lite-16b at 2 "
                "of 27 layers trained on a 2 x 2 2d gloo mesh sharing the "
                "card: 2 steps of 20 launches a rank, 17 2-D and 3 grouped "
                "over the rank's 32 experts, all in the forward); "
@@ -5836,6 +6005,8 @@ def main():
                           if k[0].startswith("deepseek attn.ukv")],
         "train_tp_tiles": [dict(name=k[0], rows=k[1], **v)
                            for k, v in tp_tiles.items()],
+        "train_tp_mixer_tiles": [dict(name=k[0], rows=k[1], **v)
+                                 for k, v in mixer_tiles.items()],
         "recurrent_decode_step_ms": {m: v["ms"] for m, v in rec_step.items()},
         "recurrent_decode_step_plain_ms": {m: v["plain_ms"]
                                            for m, v in rec_step.items()},

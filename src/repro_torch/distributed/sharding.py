@@ -32,7 +32,9 @@ experts of its :func:`expert_block` (EP on ``"model"`` in mode
 train tensor-parallel, as the reference's step under these specs does:
 each rank gathers its parameter slices over the fsdp axes alone
 (:func:`gather_tree` with ``axes``) and computes with its ``"model"``
-slice of every leaf that has one (:func:`splits_on_model`).
+slice of every leaf that has one (:func:`splits_on_model`); the
+vocabulary and SSD's ``in_proj``, where the axis does not divide them,
+are used whole (:data:`WHOLE_LEAVES`).
 """
 from __future__ import annotations
 
@@ -263,20 +265,31 @@ def splits_on_model(spec: tuple) -> bool:
                for a in spec)
 
 
+# weight leaves a tensor-parallel step may use whole where the model axis
+# does not divide their "model" dim: the model code then computes all of
+# them on every rank (the head's every logit), or sums the gradient of
+# the part each rank uses over "model" (SSD's in_proj)
+WHOLE_LEAVES = ("['embed']['table']", "['lm_head']['w']",
+                "['in_proj']['w']")
+
+
 def tp_config(cfg) -> bool:
     """Does ``cfg`` train tensor-parallel in mode ``"2d"``: a decoder whose
-    every block is MHA/GQA attention and a dense MLP (no MLA, MoE,
-    recurrent or SSM block, no encoder-decoder), and whose weights carry
-    no XNOR 1-bit per-tensor scale (a mean over the whole weight, which
-    no tile reproduces).  The other configs keep the replicated form:
-    every leaf gathered whole on ``"model"`` but the experts'."""
+    every block is MHA/GQA attention and a dense MLP, an RG-LRU block
+    and a dense MLP, or an SSD mixer (no MLA, MoE or encoder-decoder),
+    and whose weights carry no XNOR 1-bit per-tensor scale (a mean over
+    the whole weight, which no tile reproduces).  The other configs keep
+    the replicated form: every leaf gathered whole on ``"model"`` but
+    the experts'."""
     from repro_torch.core.quant import Coding
 
     if cfg.mla or cfg.moe or cfg.is_encdec \
-            or any(k != "attn" for k in cfg.pattern()):
+            or any(k not in ("attn", "rec", "ssm") for k in cfg.pattern()):
         return False
     for kind, tags in (("attn", ("attn.q", "attn.k", "attn.v", "attn.o")),
                        ("mlp", ("mlp.gate", "mlp.up", "mlp.down")),
+                       ("ssm", ("ssm.in_proj", "ssm.out_proj")),
+                       ("rec", ("rec.in_x", "rec.in_gate", "rec.out")),
                        ("unembed", ("unembed",))):
         sp = cfg.policy.resolver(kind)
         for tag in tags:

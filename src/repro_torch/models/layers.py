@@ -15,9 +15,11 @@ rank's columns), a row-parallel one through :func:`row_linear` (the
 Megatron row tile where its bits are the unsharded call's, else the
 column form; the output whole), the embedding on the rank's vocabulary block
 (:func:`embed`, summed over ``"model"``) and the tied head as its
-column tile (:func:`unembed`).  The MLP's gate and up are column tiles
-and its down the row-parallel projection, the residual riding its bias
-port once, after the reduce.
+column tile (:func:`unembed`); a table the axis does not divide is used
+whole.  The MLP's gate and up are column tiles and its down the
+row-parallel projection, the residual riding its bias port once, after
+the reduce.  A leaf a rank uses only part of (a mixer's conv weight and
+1-D parameters) is made whole by :func:`shared_leaf`.
 """
 from __future__ import annotations
 
@@ -31,8 +33,8 @@ from repro_torch.accel import ExecSpec, Postreduce, matmul as accel_matmul
 from repro_torch.accel.context import current_override
 from repro_torch.accel.shard import rank_columns
 from repro_torch.accel.train_shard import row_form_ok
-from repro_torch.distributed.autoshard import (get_mesh, reduce, sum_grad,
-                                               tp_mesh, train_mesh)
+from repro_torch.distributed.autoshard import (gather, get_mesh, reduce,
+                                               sum_grad, tp_mesh, train_mesh)
 from repro_torch.core.datapath import ACTIVATIONS
 
 
@@ -108,6 +110,18 @@ def replicated(x: torch.Tensor, spec: Optional[ExecSpec]) -> torch.Tensor:
     return sum_grad(x, "model")
 
 
+def shared_leaf(t: torch.Tensor, n: int) -> torch.Tensor:
+    """A parameter leaf of which a tensor-parallel rank uses only the part
+    its share needs (a mixer's conv weight, its 1-D parameters), whole
+    on the rank: its ``"model"`` slice gathered where its spec splits it
+    (fewer than ``n`` entries on the last dim), else the replicated leaf
+    as it is.  Either way the backward sums the ranks' partial gradients
+    over ``"model"``, so every rank's copy is the whole gradient."""
+    if int(t.shape[-1]) == n:
+        return sum_grad(t, "model")
+    return gather(t, "model", t.ndim - 1, partial=True)
+
+
 def row_linear(params: dict, x: torch.Tensor,
                spec: Optional[ExecSpec] = None, dtype=torch.bfloat16,
                post: Optional[Postreduce] = None,
@@ -168,16 +182,19 @@ def init_embedding(gen, vocab: int, d: int, device) -> dict:
 
 
 def embed(params: dict, tokens: torch.Tensor, dtype=torch.bfloat16,
-          onehot: bool = False) -> torch.Tensor:
+          onehot: bool = False, vocab: Optional[int] = None) -> torch.Tensor:
     """Token embeddings.  ``onehot`` (``cfg.onehot_embed``) takes them as
     the reference's perf knob does, one-hot rows times the cast table: a
     dot of ``2 * tokens * vocab * d`` FLOPs in place of a gather, the
     same values.  In a tensor-parallel training step the table is the
     rank's vocabulary block: the rank embeds the tokens it holds, zero
     elsewhere, and the blocks are summed over ``"model"`` (exact: one
-    rank contributes each row)."""
+    rank contributes each row); a table of all ``vocab`` rows, which the
+    axis does not divide, is used whole."""
     table = params["table"]
     mesh = tp_mesh()
+    if mesh is not None and table.shape[0] == vocab:
+        mesh = None
     if tally.ACTIVE and train_mesh() is not None:
         tally.report_form("embed", "whole" if mesh is None else "vocab")
     if mesh is not None:

@@ -24,8 +24,11 @@ A serving mesh is an ambient mesh (:func:`~repro_torch.distributed.
 autoshard.use_mesh`) outside a training step's scope, with the model
 axis not manual, a model axis wider than 1 and no fsdp policy (whose
 ``"tp"`` resolves to no axis): the conditions of
-``models.attention.head_split``.  Off one every function here returns
-None and the mixers run whole.
+``models.attention.head_split``.  In a tensor-parallel training step
+(:func:`~repro_torch.distributed.autoshard.tp_mesh`) the same rule
+splits SSD and the RG-LRU on the step's mesh, their projections always
+the rank's tiles (its weight slices are the tiles); MLA trains whole.
+Off both every function here returns None and the mixers run whole.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from repro_torch.accel.shard import SHARD_BACKENDS
 from repro_torch.core.quant import Coding
 from repro_torch.distributed.autoshard import (get_mesh, get_shard_policy,
                                                in_manual, mesh_tiles,
-                                               train_mesh)
+                                               tp_mesh, train_mesh)
 
 
 class MixerSplit(NamedTuple):
@@ -105,29 +108,44 @@ def mla_split(cfg) -> Optional[MixerSplit]:
     return MixerSplit("heads", *_share(mesh, cfg.n_heads), True)
 
 
-def ssd_split(cfg) -> Optional[MixerSplit]:
-    """This rank's SSD heads (``"heads"``) or head dims (``"p"``) on a
-    serving mesh, by the reference's candidates for ``xs``; None where
-    the model axis divides neither."""
-    mesh = serving_mesh()
-    if mesh is None or not cfg.ssm_state:
-        return None
-    m = mesh.size("model")
+def ssd_mode(cfg, m: int) -> Optional[str]:
+    """The SSD split on a model axis of ``m`` ranks, by the reference's
+    candidates for ``xs``: ``"heads"`` where ``m`` divides the heads,
+    else ``"p"`` where it divides the head dim, else None."""
     heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
     if heads % m == 0:
-        return MixerSplit("heads", *_share(mesh, heads),
-                          tiles_allow(cfg, "ssm", SSD_TILES, "ssm.out_proj"))
-    if cfg.ssm_head_dim % m == 0:
+        return "heads"
+    return "p" if cfg.ssm_head_dim % m == 0 else None
+
+
+def ssd_split(cfg) -> Optional[MixerSplit]:
+    """This rank's SSD heads (``"heads"``) or head dims (``"p"``) on a
+    serving mesh or in a tensor-parallel training step, by
+    :func:`ssd_mode`; None where the model axis divides neither."""
+    train = tp_mesh()
+    mesh = train if train is not None else serving_mesh()
+    if mesh is None or not cfg.ssm_state:
+        return None
+    mode = ssd_mode(cfg, mesh.size("model"))
+    if mode == "heads":
+        heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+        return MixerSplit("heads", *_share(mesh, heads), train is not None
+                          or tiles_allow(cfg, "ssm", SSD_TILES,
+                                         "ssm.out_proj"))
+    if mode == "p":
         return MixerSplit("p", *_share(mesh, cfg.ssm_head_dim), False)
     return None
 
 
 def lru_split(cfg) -> Optional[MixerSplit]:
-    """This rank's slice of the RG-LRU width on a serving mesh whose
-    model axis divides it, else None."""
-    mesh = serving_mesh()
+    """This rank's slice of the RG-LRU width on a serving mesh or in a
+    tensor-parallel training step whose model axis divides it, else
+    None."""
+    train = tp_mesh()
+    mesh = train if train is not None else serving_mesh()
     if mesh is None or not cfg.lru_width \
             or cfg.lru_width % mesh.size("model"):
         return None
     return MixerSplit("width", *_share(mesh, cfg.lru_width),
-                      tiles_allow(cfg, "rec", LRU_TILES, "rec.out"))
+                      train is not None
+                      or tiles_allow(cfg, "rec", LRU_TILES, "rec.out"))

@@ -99,7 +99,7 @@ def _embed_inputs(params, tokens, cfg, frontend_embeds, dtype):
     """Token embeddings; an early-fusion decoder's ``frontend_embeds``
     [B, F, d] replace its first F positions (the prompt must hold at
     least F tokens)."""
-    x = embed(params["embed"], tokens, dtype, cfg.onehot_embed)
+    x = embed(params["embed"], tokens, dtype, cfg.onehot_embed, cfg.vocab)
     if cfg.frontend != "none" and not cfg.is_encdec \
             and frontend_embeds is not None:
         f = frontend_embeds.shape[1]
@@ -184,13 +184,26 @@ def _decoder_with_cross(params, x, cfg, positions, cross_kv, cache,
     return x, cache
 
 
+def vocab_split(params, cfg) -> bool:
+    """Does a tensor-parallel training step hold its vocabulary block of
+    the head (tied table or ``lm_head``): one the model axis divides?  A
+    head of all ``cfg.vocab`` columns is used whole, and each rank
+    computes every logit."""
+    if tp_mesh() is None:
+        return False
+    cols = (params["embed"]["table"].shape[0] if cfg.tie_embeddings
+            else params["lm_head"]["w"].shape[-1])
+    return int(cols) < cfg.vocab
+
+
 def _lm_logits(params, x, cfg, dtype):
     """Final projection to vocab — a static-weight MVM (path ``unembed``),
     tied or untied.  In a tensor-parallel training step the rank's
-    vocabulary block of the logits (its column tile of the head)."""
+    vocabulary block of the logits (its column tile of the head), or all
+    of them where the head is whole (:func:`vocab_split`)."""
     spec = cfg.policy.resolve("unembed", kind="unembed")
     tile = None
-    if tp_mesh() is not None:
+    if vocab_split(params, cfg):
         x, tile = replicated(x, spec), "col"
     if cfg.tie_embeddings:
         return unembed(params["embed"], x, spec, dtype, tile=tile)
@@ -228,7 +241,7 @@ def forward(params, tokens: torch.Tensor, cfg, frontend_embeds=None):
     """Full-sequence logits [B, S, vocab] (training / teacher forcing) and
     the MoE blocks' summed auxiliary loss (0 without MoE blocks); in a
     tensor-parallel training step the rank's vocabulary block [B, S,
-    vocab / m]."""
+    vocab / m] (:func:`vocab_split`)."""
     dtype = _dtype(cfg)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)
@@ -259,14 +272,14 @@ def loss_fn(params, batch: dict, cfg):
     global_batch`) ``batch`` is this rank's rows: the count and the
     metrics are the global batch's, and the loss returned is this rank's
     share of the global one (the aux over the dp size).  In a
-    tensor-parallel step the logits are the rank's vocabulary block and
-    the cross entropy is :func:`vocab_nll`'s."""
+    tensor-parallel step whose logits are the rank's vocabulary block
+    (:func:`vocab_split`) the cross entropy is :func:`vocab_nll`'s."""
     tokens = batch["tokens"]
     logits, aux = forward(params, tokens, cfg,
                           frontend_embeds=batch.get("frontend_embeds"))
     targets = tokens[:, 1:].long()
     lg = logits[:, :-1]
-    if tp_mesh() is not None:
+    if vocab_split(params, cfg):
         nll = vocab_nll(lg, targets)
     else:
         logz = torch.logsumexp(lg, dim=-1)

@@ -21,6 +21,15 @@ sliced), the conv on the slice, the conv's output gathered over
 ``"model"`` for the gates (which contract the whole width), each gate's
 columns of the slice, the scan, and ``out`` on ``hs * gate`` as a local
 row tile (else ``y`` is gathered and ``out`` runs as off the mesh).
+
+A tensor-parallel training step (``distributed.autoshard.tp_mesh``)
+runs the same split under autograd, in the serving split's order:
+``in_x`` and ``in_gate`` are the rank's column tiles of their
+replicated inputs, the conv weight and the gates' ``w_rg``/``w_ig`` the
+rank's slices under their specs, the conv output gathered with
+``partial=True`` (each rank's gates use all of it), ``lambda`` and the
+conv bias whole through ``layers.shared_leaf`` (gradients summed over
+``"model"``), and ``out`` the rank's rows through ``layers.row_linear``.
 """
 from __future__ import annotations
 
@@ -29,10 +38,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import tally
 from repro_torch.accel import Postreduce
 from repro_torch.core.datapath import ACTIVATIONS
+from repro_torch.distributed import autoshard
+from repro_torch.distributed.autoshard import tp_mesh, train_mesh
 
-from .layers import init_linear, linear
+from .layers import init_linear, linear, replicated, row_linear, shared_leaf
 from .mixer_split import lru_split, serving_mesh
 from .ssm import _causal_conv, _softplus
 
@@ -97,34 +109,55 @@ def rglru_forward(params, x, cfg, state: Optional[LRUState] = None,
             f"an LRU state of width {int(state.h.shape[-1])} for a block of "
             f"{width} on this rank: make the state in the scope that "
             f"serves it")
+    tp = tp_mesh() is not None
+    if tally.ACTIVE and train_mesh() is not None:
+        tally.report_form("rec", f"tp/{split.mode}" if tp else "whole")
+    if tp:
+        if state is not None:
+            raise ValueError("a tensor-parallel training step runs no LRU "
+                             "state")
+        # the rank's slices of the weights; the 1-D leaves whole
+        params = dict(params, **{k: shared_leaf(params[k], cfg.lru_width)
+                                 for k in ("conv_b", "lambda")})
     col = "col" if split is not None and split.local else None
+
+    def mine(t):     # a training rank holds its slices already
+        return t if tp else _share(t, split)
+
+    def proj(name, post=None):
+        tag = f"rec.{name}"
+        if tp:
+            return linear(params[name], replicated(x, sp(tag)), sp(tag),
+                          dtype, post=post, tile="col")
+        return linear(params[name], x, sp(tag), dtype, post=post, local=col)
+
     # the gate GELU rides the in_gate projection's fused datapath epilogue
     if getattr(cfg, "fuse_datapath", True):
-        gate = linear(params["in_gate"], x, sp("rec.in_gate"), dtype,
-                      post=Postreduce(act="gelu"), local=col)
+        gate = proj("in_gate", Postreduce(act="gelu"))
     else:
-        gate = ACTIVATIONS["gelu"](linear(params["in_gate"], x,
-                                          sp("rec.in_gate"), dtype,
-                                          local=col))
-    xr = linear(params["in_x"], x, sp("rec.in_x"), dtype, local=col)
+        gate = ACTIVATIONS["gelu"](proj("in_gate"))
+    xr = proj("in_x")
     if col is None:
         gate, xr = _share(gate, split), _share(xr, split)
     if pad_mask is not None:
         xr = xr * pad_mask[..., None].to(xr.dtype)
     conv_state = state.conv if state is not None else None
-    xr, new_conv = _causal_conv(xr, _share(params["conv_w"], split).to(dtype),
+    xr, new_conv = _causal_conv(xr, mine(params["conv_w"]).to(dtype),
                                 _share(params["conv_b"], split).to(dtype),
                                 conv_state)
 
     xf = xr.to(torch.float32)
     # the gates contract the whole width: the conv's output gathered
-    xw = xr if split is None else serving_mesh().all_gather(xr, "model", -1)
-    r = torch.sigmoid(linear({k: _share(v, split)
-                              for k, v in params["w_rg"].items()}, xw, None,
-                             torch.float32))
-    i = torch.sigmoid(linear({k: _share(v, split)
-                              for k, v in params["w_ig"].items()}, xw, None,
-                             torch.float32))
+    if split is None:
+        xw = xr
+    elif tp:
+        xw = autoshard.gather(xr, "model", xr.ndim - 1, partial=True)
+    else:
+        xw = serving_mesh().all_gather(xr, "model", -1)
+    r = torch.sigmoid(linear({k: mine(v) for k, v in params["w_rg"].items()},
+                             xw, None, torch.float32))
+    i = torch.sigmoid(linear({k: mine(v) for k, v in params["w_ig"].items()},
+                             xw, None, torch.float32))
     log_a = -C_EXP * r * _softplus(-_share(params["lambda"], split))
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * xf)
@@ -147,6 +180,9 @@ def rglru_forward(params, x, cfg, state: Optional[LRUState] = None,
         h = hs[:, -1]
 
     y = hs.to(dtype) * gate
+    if tp:
+        return row_linear(params["out"], y, sp("rec.out"), dtype), \
+            LRUState(new_conv, h)
     if split is not None and col is None:
         y = serving_mesh().all_gather(y, "model", -1)
     out = linear(params["out"], y, sp("rec.out"), dtype,

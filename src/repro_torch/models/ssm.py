@@ -23,6 +23,21 @@ unsharded one, bit for bit) and ``out_proj`` takes the rank's channels
 as a local row tile.  Otherwise ``y`` is gathered over ``"model"``
 before the norm (in ``"p"`` the rank's channels are strided), and the
 norm and ``out_proj`` run as off the mesh.
+
+A tensor-parallel training step (``distributed.autoshard.tp_mesh``)
+splits the mixer by the same rule on the step's mesh, under autograd.
+``in_proj`` is the rank's column tile of its replicated input, gathered
+(``autoshard.gather(..., partial=True)``), or used whole where the axis
+does not divide its columns (its output's gradient summed over
+``"model"``: each rank uses only its channels of it).  The conv weight
+and the 1-D leaves come whole through ``layers.shared_leaf`` (gradients
+summed over ``"model"``) and the rank takes its share of each.  In
+``"heads"`` the norm and ``out_proj`` run on the rank's channels (the
+per-head sums gathered with ``partial=True``, ``out_proj`` its rows
+through ``layers.row_linear``).  In ``"p"`` ``y`` is gathered
+(``partial=True``), the norm's statistic taken over the whole row as
+unsharded, and only the rank's contiguous block of the normed channels
+goes on to ``out_proj``'s row tile: that block is its rows.
 """
 from __future__ import annotations
 
@@ -32,7 +47,12 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import init_linear, linear
+from repro_torch import tally
+from repro_torch.distributed import autoshard
+from repro_torch.distributed.autoshard import sum_grad, tp_mesh, train_mesh
+
+from .layers import (init_linear, linear, replicated, row_linear,
+                     shared_leaf)
 from .mixer_split import MixerSplit, serving_mesh, ssd_split
 
 
@@ -220,7 +240,8 @@ def ssm_forward(params, x, cfg, state: Optional[SSMState] = None,
 
     On a serving mesh the rank runs its share (module docstring) and
     ``state`` holds it (:func:`state_dims`; a state of another split
-    raises)."""
+    raises); a tensor-parallel training step runs its share with no
+    state."""
     b, s, _ = x.shape
     d_inner, n_heads, conv_dim = dims(cfg)
     n = cfg.ssm_state
@@ -233,8 +254,22 @@ def ssm_forward(params, x, cfg, state: Optional[SSMState] = None,
             f"dim, N) for a mixer of {(heads, p, n)} on this rank: make "
             f"the state in the scope that serves it")
     local = split is not None and split.local
-
-    zxbcdt = linear(params["in_proj"], x, sp("ssm.in_proj"), dtype)
+    mesh = tp_mesh()
+    if tally.ACTIVE and train_mesh() is not None:
+        tally.report_form("ssm", "whole" if mesh is None
+                          else f"tp/{split.mode}")
+    if mesh is not None:
+        if state is not None:
+            raise ValueError("a tensor-parallel training step runs no SSM "
+                             "state")
+        params = dict(params, conv_w=shared_leaf(params["conv_w"], conv_dim),
+                      **{k: shared_leaf(params[k], int(params[k].shape[-1]))
+                         for k in ("conv_b", "A_log", "D", "dt_bias",
+                                   "norm_scale")})
+        zxbcdt = _tp_in_proj(params["in_proj"], x, sp("ssm.in_proj"), dtype,
+                             2 * d_inner + 2 * n + n_heads)
+    else:
+        zxbcdt = linear(params["in_proj"], x, sp("ssm.in_proj"), dtype)
     z = zxbcdt[..., :d_inner]
     xbc = _conv_operand(zxbcdt[..., d_inner:d_inner + conv_dim], cfg, split)
     dt = _softplus(_heads(zxbcdt[..., -n_heads:], split).to(torch.float32)
@@ -273,8 +308,7 @@ def ssm_forward(params, x, cfg, state: Optional[SSMState] = None,
         z, norm_scale = _channels(z, cfg, split), _channels(norm_scale, cfg,
                                                             split)
     elif split is not None:     # [B, S, heads, p]: gather the share
-        y = serving_mesh().all_gather(y.to(dtype), "model",
-                                      dim=2 if split.mode == "heads" else 3)
+        y = _joined(y.to(dtype), 2 if split.mode == "heads" else 3)
     y = y.reshape(b, s, -1).to(dtype)
 
     # gated RMSNorm (mamba2): the mean over d_inner is the sum of each
@@ -282,14 +316,48 @@ def ssm_forward(params, x, cfg, state: Optional[SSMState] = None,
     yf = y.to(torch.float32) * F.silu(z.to(torch.float32))
     ss = (yf * yf).unflatten(-1, (-1, cfg.ssm_head_dim)).sum(dim=-1)
     if local:
-        ss = serving_mesh().all_gather(ss, "model", dim=-1)
+        ss = _joined(ss, ss.ndim - 1)
     ms = ss.sum(dim=-1, keepdim=True) * (1.0 / d_inner)
     yf = yf * torch.rsqrt(ms + 1e-6)
+    if mesh is not None and not local:
+        # "p": out_proj's rows on this rank are a contiguous block of the
+        # channels, and only it goes on
+        rows = int(params["out_proj"]["w"].shape[-2])
+        lo = mesh.index("model") * rows
+        yf, norm_scale = yf.narrow(-1, lo, rows), norm_scale.narrow(-1, lo,
+                                                                     rows)
     y = (yf * norm_scale).to(dtype)
 
-    out = linear(params["out_proj"], y, sp("ssm.out_proj"), dtype,
-                 local="row" if local else None)
+    if mesh is not None:
+        out = row_linear(params["out_proj"], y, sp("ssm.out_proj"), dtype)
+    else:
+        out = linear(params["out_proj"], y, sp("ssm.out_proj"), dtype,
+                     local="row" if local else None)
     return out, SSMState(new_conv, new_ssm)
+
+
+def _joined(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' shares of ``t`` joined on ``dim`` over ``"model"``: on a
+    serving mesh an all-gather; in a tensor-parallel training step the
+    differentiable gather whose backward sums the gradient (each rank
+    goes on with its own share of the result)."""
+    if tp_mesh() is None:
+        return serving_mesh().all_gather(t, "model", dim=dim)
+    return autoshard.gather(t, "model", dim, partial=True)
+
+
+def _tp_in_proj(p: dict, x: torch.Tensor, spec, dtype,
+                cols: int) -> torch.Tensor:
+    """``in_proj``'s output in a tensor-parallel training step, whole on
+    every rank: the rank's column tile of its replicated input, gathered,
+    or the whole weight (all ``cols`` columns) where the model axis does
+    not divide them.  Each rank uses only its channels of the output (B
+    and C feed every rank's share), so the output's gradient is summed
+    over ``"model"`` either way."""
+    if int(p["w"].shape[-1]) == cols:
+        return sum_grad(linear(p, x, spec, dtype), "model")
+    y = linear(p, replicated(x, spec), spec, dtype, tile="col")
+    return autoshard.gather(y, "model", y.ndim - 1, partial=True)
 
 
 def init_ssm_state(cfg, batch: int, dtype, device,

@@ -64,6 +64,7 @@ from repro_torch import tally
 from repro_torch.distributed import autoshard
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import loss_fn
+from repro_torch.models.mixer_split import ssd_mode
 from repro_torch.optim.adamw import (AdamWConfig, apply_updates, f32,
                                      global_norm)
 from repro_torch.optim.compression import (CompressionConfig,
@@ -216,15 +217,22 @@ class StepClock:
 
 def tensor_parallel(cfg, mesh, policy, param_specs, params) -> bool:
     """Does a mesh step of ``cfg`` run tensor-parallel: mode ``"2d"``, a
-    ``"model"`` axis wider than 1, a dense decoder
-    (:func:`~repro_torch.distributed.sharding.tp_config`), and every
-    weight leaf of ``params`` split on ``"model"`` by its spec (a dim
-    the axis does not divide keeps the replicated form)."""
+    ``"model"`` axis wider than 1, a config of the blocks
+    :func:`~repro_torch.distributed.sharding.tp_config` admits whose SSD
+    mixer, if any, splits on the axis (its heads or head dim), and every
+    weight leaf of ``params`` split on ``"model"`` by its spec but those
+    the step may use whole (:data:`~repro_torch.distributed.sharding.
+    WHOLE_LEAVES`: each rank computes all of such a leaf's output,
+    recorded as ``"whole"``, and the gradient of the part it uses is
+    summed over ``"model"``).  Any other dim the axis does not divide
+    (the LRU width among them, through ``in_x``) keeps the config in the
+    replicated form."""
     policy = shd.resolve_policy(policy)
     if policy.is_fsdp or "model" not in mesh.axis_names \
-            or mesh.size("model") <= 1 or not shd.tp_config(cfg):
+            or mesh.size("model") <= 1 or not shd.tp_config(cfg) \
+            or (cfg.ssm_state and ssd_mode(cfg, mesh.size("model")) is None):
         return False
-    return all(shd.splits_on_model(spec)
+    return all(shd.splits_on_model(spec) or path.endswith(shd.WHOLE_LEAVES)
                for (path, _), spec in zip(
                    leaves_with_path(params),
                    shd.spec_leaves(params, param_specs))

@@ -44,7 +44,8 @@ the tiles' amax, the whole weight's grid.  Held:
 * on a ``RecordingMesh`` a rank's counted dots and kernel plane
   operations are the unsharded step's ÷ m exactly (every dot and
   kernel call of the step splits), the collectives by op are counted;
-* the dense decoders train tensor-parallel (``tp_config``), the others
+* the dense decoders train tensor-parallel (``tp_config``; so do the SSD
+  and RG-LRU configs, ``test_torch_train_tp_mixers.py``), the others
   keep the replicated form; ``row_form_ok`` takes banked backends only
   at whole banks.
 """
@@ -361,9 +362,11 @@ def test_recording_mesh_counts_split_by_the_model_axis(variant, m):
 
 
 def test_which_configs_train_tensor_parallel():
+    # the dense decoders, and the SSD and RG-LRU configs
+    # (tests/test_torch_train_tp_mixers.py)
     for arch in ALL_ARCHS:
         assert tshd.tp_config(tget(arch).with_accel("kernel")) == \
-            (arch in DENSE), arch
+            (arch in DENSE + ("mamba2-130m", "recurrentgemma-9b")), arch
     xnor = tget("olmo-1b").with_accel("bpbs", ba=1, bx=1, coding="xnor",
                                       per_channel=False)
     assert not tshd.tp_config(xnor)

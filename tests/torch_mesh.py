@@ -710,9 +710,11 @@ def train_case(cfg, params, mesh, mode: str, data_cfg, opt_cfg, steps: int,
         (_, metrics), grads = value_and_grad(
             lambda p: loss_fn(p, mine, cfg), view)
     if tp:
-        # a rank holds its vocabulary block of the logits and its model
+        # a rank holds its vocabulary block of the logits (all of them
+        # where the axis does not divide the vocabulary) and its model
         # slice of each leaf's gradient: gathered for the comparison
-        logits = mesh.all_gather(logits, "model", -1)
+        if logits.shape[-1] < cfg.vocab:
+            logits = mesh.all_gather(logits, "model", -1)
         grads = tree_map(lambda g, s: shd.gather_leaf(g, s, mesh,
                                                       ("model",)),
                          grads, specs.params)
@@ -790,9 +792,10 @@ def task_train(args) -> dict:
 
 def task_train_tp(args) -> dict:
     """Every case of ``args["cases"]`` ((mesh, config, steps) ->
-    :func:`train_case` in mode "2d"), on the 1 x 2 mesh of ranks 0-1 and
-    the 2 x 2 of all four; and on 1 x 2 the operators' checks
-    (:func:`_tp_operator_checks`)."""
+    :func:`train_case` in mode "2d", on the config's ``data_of`` entry
+    where it has one, else ``data``), on the 1 x 2 mesh of ranks 0-1 and
+    the 2 x 2 of all four; and, where ``args`` holds their operands, on
+    1 x 2 the operators' checks (:func:`_tp_operator_checks`)."""
     shapes = sorted({c[0] for c in args["cases"]} | {(1, 2)})
     meshes = _train_meshes(args["world"], shapes)
     out = {}
@@ -801,9 +804,10 @@ def task_train_tp(args) -> dict:
         if meshes.get(shape) is None:
             continue
         cfg, params = args["configs"][name]
-        out[key] = train_case(cfg, params, meshes[shape], "2d",
-                              args["data"], args["opt"], steps)
-    if meshes[(1, 2)] is not None:
+        data = args.get("data_of", {}).get(name, args["data"])
+        out[key] = train_case(cfg, params, meshes[shape], "2d", data,
+                              args["opt"], steps)
+    if meshes[(1, 2)] is not None and "ce" in args:
         out["ops"] = _tp_operator_checks(meshes[(1, 2)], args["ce"],
                                          args["col_form"])
     return out
